@@ -13,9 +13,10 @@ Phases:
                the same function, that call.
   3. act100  - full-width ``make_infer_fn`` at 100^3, batch 1 and 8, seeded
                weights: kernels on against the same weights with the kernel
-               flags off (Q-field and logits within tolerance; an action flip
-               fails only where the plain path's top-two gap exceeds it), then
-               the timed main-path run.
+               flags off (Q-field and head logits each within twice the plain
+               path's own bf16-vs-f32 distance; an action flip fails only
+               where the plain path's top-two gap exceeds it; a planted fault
+               must fail that check), then the timed main-path run.
   4. dual50  - VoxAct-B's operating point through ``QAttentionBCAgent.act``:
                acting (dominant, arm head) and stabilizing (assistive) policies
                alternating over a 25-act episode on a 50^3 crop.
@@ -28,6 +29,7 @@ Bulk details go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -167,6 +169,46 @@ def check_front(model, n, batch, rng, details):
     return d0
 
 
+def unmasked_attention(attention):
+    """K2 without its key mask: the keys zero-filled up to the next 64-key
+    tile take part as logit 0 and value 0, which is what the kernel computes
+    if it skips the mask. A planted fault, run through the real kernel."""
+    import torch
+
+    def fn(q, k, v, **kw):
+        z = k.new_zeros(k.shape[0], -k.shape[1] % 64, k.shape[2])
+        return attention(q, torch.cat([k, z], 1), torch.cat([v, z], 1), **kw)
+    return fn
+
+
+def read_past_attention(attention):
+    """K2 reading past Tk into the next head's keys and values instead of
+    masking (the last head reads zeros). A planted fault, run through the
+    real kernel."""
+    import torch
+
+    def fn(q, k, v, **kw):
+        pad = -k.shape[1] % 64
+        nxt = lambda t: torch.cat([t[1:, :pad], t.new_zeros(1, pad, t.shape[2])], 0)
+        return attention(q, torch.cat([k, nxt(k)], 1), torch.cat([v, nxt(v)], 1), **kw)
+    return fn
+
+
+def tail_inputs(g, tq, tk, dev):
+    """Two heads whose real logits sit near -8, so that keys past Tk would
+    dominate the row if they took part: a zero-filled key (logit 0) by
+    e^8, and head 1's keys read from head 0 (logit +8) by e^16. Values are
+    near +1 in head 0 and -1 in head 1, so either fault moves head 0's
+    output by most of its size."""
+    import torch
+
+    sign = torch.tensor([1.0, -1.0]).reshape(2, 1, 1)
+    q = sign * 0.25 + 0.05 * torch.randn(2, tq, 64, generator=g)
+    k = -sign * 0.5 + 0.2 * torch.randn(2, tk, 64, generator=g)
+    v = sign + 0.5 * torch.randn(2, tk, 64, generator=g)
+    return tuple(t.to(dev, torch.bfloat16) for t in (q, k, v))
+
+
 def check_attention(b, s3, rng, details):
     import torch
     import torch.nn.functional as F
@@ -176,34 +218,56 @@ def check_attention(b, s3, rng, details):
     dev = torch.device(DEVICE)
     tk_in = 77 + s3
     shapes = {"cross": (b, 2048, tk_in), "self": (8 * b, 2048, 2048),
-              "decoder": (b, tk_in, 2048)}
+              "decoder": (b, tk_in, 2048), "tail": (2, 2048, tk_in)}
     rows = {}
     for name, (bh, tq, tk) in shapes.items():
         g = torch.Generator(device="cpu").manual_seed(int(rng.integers(1 << 30)))
-        q = (torch.randn(bh, tq, 64, generator=g) * 0.125).to(dev, torch.bfloat16)
-        k = torch.randn(bh, tk, 64, generator=g).to(dev, torch.bfloat16)
-        v = torch.randn(bh, tk, 64, generator=g).to(dev, torch.bfloat16)
-        got = flash_attention(q, k, v)
+        if name == "tail":
+            q, k, v = tail_inputs(g, tq, tk, dev)
+        else:
+            q = (torch.randn(bh, tq, 64, generator=g) * 0.125).to(dev, torch.bfloat16)
+            k = torch.randn(bh, tk, 64, generator=g).to(dev, torch.bfloat16)
+            v = torch.randn(bh, tk, 64, generator=g).to(dev, torch.bfloat16)
         ref = flash_attention_reference(q, k, v)
-        torch.cuda.synchronize()
-        err = max_err(got, ref)
-        # P is rounded to bf16 after a row sum taken in another f32 order (a P
-        # entry on a rounding boundary may round the other way), the output is
-        # bf16: two bf16 ulps of the output's magnitude
-        tol = 2.0 ** -7 * max(1.0, float(ref.float().abs().max()))
-        expect(err <= tol, f"attention {name} err {err} > {tol}")
+        # the kernel and the plain version round P and the output at the same
+        # points and differ only in f32 summation order, so an output may sit
+        # one bf16 ulp of its own size away; 2^-7 of the largest output is at
+        # least one and at most two ulps of it
+        tol = 2.0 ** -7 * float(ref.float().abs().max())
+        errs = {}
+        for rpb in (0, 64, 16):  # the schedule the wrapper picks, then both
+            got = flash_attention(q, k, v, rows_per_block=rpb)
+            torch.cuda.synchronize()
+            errs[rpb] = max_err(got, ref)
+            expect(errs[rpb] <= tol, f"attention {name} rows_per_block={rpb} err "
+                                     f"{errs[rpb]} > {tol}")
+        err = max(errs.values())
+        planted = {}
+        if name == "tail":
+            # the case must catch a kernel that skips the mask
+            for fault, wrap in (("unmasked", unmasked_attention),
+                                ("read_past", read_past_attention)):
+                planted[fault] = max_err(wrap(flash_attention)(q, k, v)[:1], ref[:1])
+                expect(planted[fault] > tol, f"attention tail: planted fault {fault} "
+                                             f"err {planted[fault]} within {tol}")
         ms = time_ms(lambda: flash_attention(q, k, v))
+        ms64 = time_ms(lambda: flash_attention(q, k, v, rows_per_block=64))
+        ms16 = time_ms(lambda: flash_attention(q, k, v, rows_per_block=16))
         plain = time_ms(lambda: flash_attention_reference(q, k, v), reps=5)
         lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
         nbytes = 2.0 * (2 * bh * tq * 64 + 2 * bh * tk * 64)
         flops = 4.0 * bh * tq * tk * 64
         bms, by = bound_ms(nbytes, flops)
         rows[name] = dict(shape=f"{name} BH={bh} Tq={tq} Tk={tk}", max_abs_err=err,
-                          tol=tol, ms=ms, plain_ms=plain, library_ms=lib,
+                          tol=tol, ref_max=float(ref.float().abs().max()),
+                          planted_fault_err=planted, ms=ms, ms_rows64=ms64,
+                          ms_rows16=ms16, plain_ms=plain, library_ms=lib,
                           bound_ms=bms, bound_by=by)
         log(f"[kernels] flash_attention {name} BH={bh} Tq={tq} Tk={tk}: err {err:.3g} "
-            f"(tol {tol:.3g}); {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
-            f"bound {bms:.4f} ms ({by})")
+            f"(tol {tol:.3g})" + "".join(f", planted {f} err {e:.3g}"
+                                         for f, e in planted.items())
+            + f"; {ms:.4f} ms (64-row blocks {ms64:.4f}, 16-row {ms16:.4f}), "
+            f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.4f} ms ({by})")
     details.setdefault("flash_attention", []).append(dict(grid=f"s^3={s3} B={b}", **rows))
     return rows
 
@@ -263,11 +327,14 @@ def act_config(n, **kw):
                         pallas_attention=True, pallas_decoder=True, **kw)
 
 
-def plain_config(cfg):
+def plain_config(cfg, dtype=None):
+    """The same config with the kernel flags off (the plain path), at
+    ``dtype`` if one is given."""
     import dataclasses
 
+    extra = {} if dtype is None else {"compute_dtype": dtype}
     return dataclasses.replace(cfg, pallas_front=False, pallas_attention=False,
-                               pallas_decoder=False)
+                               pallas_decoder=False, **extra)
 
 
 def act_inputs(rng, batch, low_dim):
@@ -278,8 +345,17 @@ def act_inputs(rng, batch, low_dim):
                 lang_token_embs=rng.normal(size=(batch, 77, 512)).astype(np.float32))
 
 
-def compare_paths(cfg, model_on, model_off, inputs, bounds, tag, details):
-    """Kernel path vs the plain path on the same weights and inputs."""
+def reference_model(cfg, model_on, dtype):
+    """The plain path's model at ``dtype`` with ``model_on``'s weights."""
+    from voxactb_tpu_torch.agents.qfunction import build_encoder
+
+    model = build_encoder(plain_config(cfg, dtype), device=DEVICE, seed=0)
+    model.load_state_dict(model_on.state_dict())
+    return model
+
+
+def path_outputs(cfg, model, inputs, bounds):
+    """The Q-net's outputs, as f32, on one batch of observations."""
     import torch
     from voxactb_tpu_torch.agents.qfunction import apply_with_front, normalize_rgb
     from voxactb_tpu_torch.ops.voxelize import flatten_camera_observations
@@ -287,37 +363,86 @@ def compare_paths(cfg, model_on, model_off, inputs, bounds, tag, details):
     dev = torch.device(DEVICE)
     b = inputs["proprio"].shape[0]
     t = lambda x: torch.as_tensor(x, device=dev)
-    outs = []
-    for c, m in ((cfg, model_on), (plain_config(cfg), model_off)):
-        with torch.inference_mode():
-            coords, feats = flatten_camera_observations(
-                [normalize_rgb(t(r)) for r in inputs["rgbs"]],
-                [t(p) for p in inputs["pcds"]])
-            bnd = torch.broadcast_to(t(np.asarray(bounds, np.float32)).reshape(-1, 6),
-                                     (b, 6))
-            out, _, _ = apply_with_front(c, m, coords, feats, bnd, t(inputs["proprio"]),
-                                         t(inputs["lang_goal_emb"]),
-                                         t(inputs["lang_token_embs"]))
-        outs.append({k: v.float() for k, v in out.items()})
-    on, off = outs
+    with torch.inference_mode():
+        coords, feats = flatten_camera_observations(
+            [normalize_rgb(t(r)) for r in inputs["rgbs"]], [t(p) for p in inputs["pcds"]])
+        bnd = torch.broadcast_to(t(np.asarray(bounds, np.float32)).reshape(-1, 6), (b, 6))
+        out, _, _ = apply_with_front(cfg, model, coords, feats, bnd, t(inputs["proprio"]),
+                                     t(inputs["lang_goal_emb"]),
+                                     t(inputs["lang_token_embs"]))
+    return {k: v.float() for k, v in out.items()}
+
+
+@contextlib.contextmanager
+def planted(module, attr, wrap):
+    """Replace a kernel wrapper by ``wrap(wrapper)`` for the block (the port
+    looks its wrappers up at call time)."""
+    import importlib
+
+    mod = importlib.import_module(module)
+    orig = getattr(mod, attr)
+    setattr(mod, attr, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(mod, attr, orig)
+
+
+def swapped_decoder_taps(decoder_head):
+    """K3 fed its 3x3x3 taps with the depth and width axes swapped: a layout
+    fault between the module and the kernel. A planted fault."""
+    def fn(d0, u0, wf, *rest):
+        return decoder_head(d0, u0, wf.transpose(0, 2), *rest)
+    return fn
+
+
+# planted faults run through the kernel path of act100_b1: (name, wrapper
+# module, wrapper, fault, whether the act-level comparison must catch it)
+ACT_FAULTS = (
+    ("decoder_taps_swapped", "voxactb_tpu_torch.ops.cuda.decoder_head", "decoder_head",
+     swapped_decoder_taps, True),
+    ("attention_unmasked", "voxactb_tpu_torch.ops.cuda.flash_attention",
+     "flash_attention", unmasked_attention, False),
+)
+
+
+# outputs that share a tolerance: the MLP heads' logits come from one feature
+# vector through two-layer heads of one initialisation scale (rot_grip and
+# collision are even slices of one Dense output), so they carry bf16 noise of
+# one size; a group of 2 logits alone would give no estimate of it
+TOL_GROUPS = {"trans": ("trans",), "logits": ("rot_grip", "collision", "arm")}
+
+
+def compare_paths(cfg, model_on, refs, inputs, bounds, tag, details, faults=()):
+    """Kernel path vs the plain path at bf16 on the same weights and inputs.
+
+    The tolerance of each group of outputs is twice the plain bf16 path's own
+    distance from the plain path at f32 (max abs over the group): if the
+    kernel path is no less accurate than the plain bf16 path, the triangle
+    inequality keeps the two within it. An integer action may flip only where
+    the plain path's top-two gap is within that tolerance.
+    """
+    on = path_outputs(cfg, model_on, inputs, bounds)
+    off = path_outputs(plain_config(cfg), refs["bfloat16"], inputs, bounds)
+    f32 = path_outputs(plain_config(cfg, "float32"), refs["float32"], inputs, bounds)
+    b = inputs["proprio"].shape[0]
     nr = cfg.num_rotation_classes
     report = {}
-    flips, bad_flips = 0, 0
-    for key in on:
-        ref = off[key]
-        err = max_err(on[key], ref)
-        # bf16 rounding differences (trans kept f32 by the tail kernel but
-        # rounded to bf16 on the plain path; P of attention; f32 sum orders)
-        # carried through six layers of a random-weight network: 10% of the
-        # output's range (at least 1); a wrong kernel errs by the whole range
-        tol = 0.1 * max(1.0, float(ref.abs().max()))
-        report[key] = dict(max_abs_err=err, tol=tol)
-        expect(err <= tol, f"{tag}: {key} kernel vs plain err {err} > {tol}")
+    for keys in TOL_GROUPS.values():
+        keys = [k for k in keys if k in on]
+        plain_err = max(max_err(off[k], f32[k]) for k in keys)
+        for k in keys:
+            report[k] = dict(max_abs_err=max_err(on[k], off[k]), tol=2.0 * plain_err,
+                             plain_vs_f32=max_err(off[k], f32[k]),
+                             kernel_vs_f32=max_err(on[k], f32[k]),
+                             ref_range=float(off[k].max() - off[k].min()))
+    bad = [k for k, v in report.items() if v["max_abs_err"] > v["tol"]]
     # integer actions: a flip is allowed only at a near-tie of the plain path;
     # each argmax group as (output key, columns)
     rot = [slice(i * nr, (i + 1) * nr) for i in range(3)] + [slice(3 * nr, None)]
     groups = [("trans", slice(None))] + [("rot_grip", sl) for sl in rot] + [
         ("collision", slice(None))] + ([("arm", slice(None))] if "arm" in on else [])
+    flips, bad_flips = 0, 0
     for key, cols in groups:
         a, r = on[key].reshape(b, -1)[:, cols], off[key].reshape(b, -1)[:, cols]
         tol = report[key]["tol"]
@@ -331,11 +456,27 @@ def compare_paths(cfg, model_on, model_off, inputs, bounds, tag, details):
                     bad_flips += 1
     report["action_flips"] = flips
     report["flips_beyond_near_tie"] = bad_flips
-    details.setdefault("path_compare", {})[tag] = report
     log(f"[{tag}] kernel vs plain path: " + ", ".join(
-        f"{k} err {v['max_abs_err']:.3g} (tol {v['tol']:.3g})"
+        f"{k} err {v['max_abs_err']:.3g} (tol {v['tol']:.3g}; plain bf16 vs f32 "
+        f"{v['plain_vs_f32']:.3g}, kernel vs f32 {v['kernel_vs_f32']:.3g}, range "
+        f"{v['ref_range']:.3g})"
         for k, v in report.items() if isinstance(v, dict))
         + f"; {flips} argmax flips, {bad_flips} beyond a near-tie")
+    planted_report = {}
+    for name, module, attr, wrap, must_catch in faults:
+        with planted(module, attr, wrap):
+            wrong = path_outputs(cfg, model_on, inputs, bounds)
+        errs = {k: max_err(wrong[k], off[k]) for k in on}
+        caught = [k for k in on if errs[k] > report[k]["tol"]]
+        planted_report[name] = dict(errs=errs, caught_by=caught)
+        log(f"[{tag}] planted fault {name}: " + ", ".join(
+            f"{k} err {e:.3g}" for k, e in errs.items())
+            + f"; beyond tolerance in {caught or 'no output'}")
+        expect(bool(caught) or not must_catch,
+               f"{tag}: planted fault {name} stayed within tolerance")
+    report["planted_faults"] = planted_report
+    details.setdefault("path_compare", {})[tag] = report
+    expect(not bad, f"{tag}: kernel vs plain beyond tolerance in {bad}")
     expect(bad_flips == 0, f"{tag}: {bad_flips} action flips beyond a near-tie")
     return report
 
@@ -349,12 +490,13 @@ def act100(rng, details, timings):
     model_on, infer = make_infer_fn(cfg, device=DEVICE, seed=0)
     model_off, infer_off = make_infer_fn(plain_config(cfg), device=DEVICE, seed=0)
     model_off.load_state_dict(model_on.state_dict())
+    refs = {"bfloat16": model_off, "float32": reference_model(cfg, model_on, "float32")}
     runs = {}
     for batch, reps in ((1, 10), (8, 5)):
         inputs = act_inputs(rng, batch, cfg.low_dim_size())
         bounds = [SCENE_BOUNDS] * batch
-        compare_paths(cfg, model_on, model_off, inputs, bounds, f"act100_b{batch}",
-                      details)
+        compare_paths(cfg, model_on, refs, inputs, bounds, f"act100_b{batch}",
+                      details, faults=ACT_FAULTS if batch == 1 else ())
         args = (inputs["rgbs"], inputs["pcds"], inputs["proprio"],
                 inputs["lang_goal_emb"], inputs["lang_token_embs"], bounds)
         out = infer(model_on, *args)  # warm
@@ -394,7 +536,7 @@ def act100(rng, details, timings):
         log(f"[act100] batch {batch}: {ms:.3f} ms/call ({ms / batch:.3f} ms/act) "
             f"kernels on, {plain_ms:.3f} ms/call plain; {differ} integer action "
             f"elements differ; launches in {reps} calls: {counts}")
-    del model_on, model_off
+    del model_on, model_off, refs
     torch.cuda.empty_cache()
     return dict(acts=sum(r["acts"] for r in runs.values()),
                 launches={k: sum(r["launches"][k] for r in runs.values())
@@ -447,13 +589,10 @@ def dual50(rng, details, timings, n_acts=25):
     stabilizing.build(training=False)
 
     # the acting policy's Q-field against the plain path on one observation
-    from voxactb_tpu_torch.agents.qfunction import make_infer_fn
-    model_off, _ = make_infer_fn(plain_config(cfg_act), device=DEVICE, seed=0)
-    model_off.load_state_dict(acting.params.state_dict())
+    refs = {d: reference_model(cfg_act, acting.params, d) for d in ("bfloat16", "float32")}
     inputs = act_inputs(rng, 1, cfg_act.low_dim_size())
-    compare_paths(cfg_act, acting.params, model_off, inputs, [CROP_BOUNDS], "dual50",
-                  details)
-    del model_off
+    compare_paths(cfg_act, acting.params, refs, inputs, [CROP_BOUNDS], "dual50", details)
+    del refs
 
     def observation(t):
         rgbs, pcds = clouds(rng, 1)
@@ -574,7 +713,7 @@ def main() -> int:
              replaces="voxactb_tpu/ops/pallas/flash_attention.py:61",
              launches=total["flash_attention"], max_abs_err=max(
                  r[s]["max_abs_err"] for r in details["flash_attention"]
-                 for s in ("cross", "self", "decoder")),
+                 for s in ("cross", "self", "decoder", "tail")),
              ms=per_act("ms"), plain_ms=per_act("plain_ms"),
              bound_ms=per_act("bound_ms"), bound_by="operations",
              library_ms=per_act("library_ms")),

@@ -47,6 +47,31 @@ def test_plain_version_matches_pallas_kernel(bh, tq, tk, hd):
     assert (got != ref).mean() < 0.05
 
 
+def test_plain_version_masks_the_ragged_tail():
+    """Inputs where keys past Tk would dominate if they took part: real logits
+    near -8 against 0 for a zero-filled key. The plain version agrees with the
+    Pallas kernel, and the zero-filled (unmasked) variant does not."""
+    rng = np.random.default_rng(7)
+    bh, tq, tk, hd = 2, 16, 85, 64   # Tk = 77 + 2^3: 43 keys short of 128
+    q = (0.25 + 0.05 * rng.normal(size=(bh, tq, hd))).astype(np.float32)
+    k = (-0.5 + 0.2 * rng.normal(size=(bh, tk, hd))).astype(np.float32)
+    v = (1.0 + 0.5 * rng.normal(size=(bh, tk, hd))).astype(np.float32)
+    bf = jnp.bfloat16
+    ref = np.asarray(jax_flash(jnp.asarray(q, bf), jnp.asarray(k, bf),
+                               jnp.asarray(v, bf), interpret=True), np.float32)
+    tb = torch.bfloat16
+    tq_, tk_, tv_ = (torch.tensor(a).to(tb) for a in (q, k, v))
+    got = flash_attention_reference(tq_, tk_, tv_).float().numpy()
+    # f32 sums in another order may move an output by one bf16 ulp of its
+    # size; 2^-7 of the largest output is at least that
+    tol = 2.0 ** -7 * np.abs(ref).max()
+    np.testing.assert_allclose(got, ref, atol=tol, rtol=0)
+    zeros = torch.zeros(bh, 128 - tk, hd, dtype=tb)
+    unmasked = flash_attention_reference(tq_, torch.cat([tk_, zeros], 1),
+                                         torch.cat([tv_, zeros], 1)).float().numpy()
+    assert np.abs(unmasked - ref).max() > 50 * tol
+
+
 def test_cpu_wrapper_takes_plain_version():
     rng = np.random.default_rng(0)
     q, k, v = (torch.tensor(a).to(torch.bfloat16) for a in _qkv(rng, 2, 8, 20, 64))

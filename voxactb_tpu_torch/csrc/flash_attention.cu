@@ -16,7 +16,16 @@
 // full-row sum), pass 2 recomputes the logits, forms P and accumulates P v.
 // Keys past Tk (the ragged 77 + s^3 tail) are masked to -inf.
 //
-// Layout: one block per (64 query rows, batch*head), 4 warps of 16 rows.
+// Layout: 4 warps per block, each on 16 query rows and a share of the key
+// tiles. Two schedules of the same kernel:
+//  - 64-row blocks (kRowGroups = 4): the warps take 16 rows each and share
+//    every key tile;
+//  - 16-row blocks (kRowGroups = 1), taken when 64-row blocks would not fill
+//    the SMs (cross attention at batch 1 has 32 of them): the warps share the
+//    16 rows and take every 4th key tile. Their partial (m, s) are merged into
+//    the whole-row m and s (with the corr / -inf guard) between the passes,
+//    and their partial P v sums are added after pass 2, so P is still
+//    normalised with the whole row before its cast.
 // Products run on the tensor cores through WMMA 16x16x16 bf16 tiles; logits of
 // a 16 x 64 slab go through shared memory for the row-wise softmax.
 
@@ -28,31 +37,49 @@ using vx::bf16;
 using namespace nvcuda;
 
 constexpr int kHd = 64;
-constexpr int kBq = 64;
 constexpr int kBk = 64;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kLd = kHd + 8;     // bf16 row stride of the q/k/v/p tiles
 constexpr int kLdS = kBk + 4;    // f32 row stride of the logit slab
+constexpr int kMaxDevices = 64;
 
-struct Smem {
+// kRowGroups warps share each key tile; kWarps / kRowGroups key groups take
+// every kKeyGroups-th tile.
+template <int kRowGroups>
+struct Layout {
+  static constexpr int kKeyGroups = kWarps / kRowGroups;
+  static constexpr int kRows = 16 * kRowGroups;  // query rows per block
+  static constexpr int kGroupThreads = 32 * kRowGroups;
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kBq * kLd * 2;
-  static constexpr int kV = kK + kBk * kLd * 2;
-  static constexpr int kS = kV + kBk * kLd * 2;
+  static constexpr int kK = kQ + kRows * kLd * 2;
+  static constexpr int kV = kK + kKeyGroups * kBk * kLd * 2;
+  static constexpr int kS = kV + kKeyGroups * kBk * kLd * 2;
   static constexpr int kP = kS + kWarps * 16 * kLdS * 4;
-  static constexpr int kRow = kP + kWarps * 16 * kLd * 2;
-  static constexpr int kBytes = kRow + 2 * kBq * 4;
+  static constexpr int kPart = kP + kWarps * 16 * kLd * 2;  // per-warp row m, s
+  static constexpr int kRow = kPart + 2 * kWarps * 16 * 4;  // whole-row m, s
+  static constexpr int kBytes = kRow + 2 * kRows * 4;
 };
 
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int rows_valid,
-                                          int tid) {
-  // kBk rows x 64 bf16 (8 chunks of 16 bytes per row); rows past rows_valid = 0
-  for (int j = tid; j < kBk * (kHd / 8); j += kThreads) {
+// rows x 64 bf16 (8 chunks of 16 bytes per row) by `nt` threads; rows past
+// rows_valid are zero
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int rows,
+                                          int rows_valid, int t, int nt) {
+  for (int j = t; j < rows * (kHd / 8); j += nt) {
     int r = j / (kHd / 8), ch = j % (kHd / 8);
     uint4 val = make_uint4(0, 0, 0, 0);
     if (r < rows_valid) val = *reinterpret_cast<const uint4*>(src + (size_t)r * kHd + ch * 8);
     *reinterpret_cast<uint4*>(dst + r * kLd + ch * 8) = val;
+  }
+}
+
+// barrier of the warps that share a key tile (named barrier 1 + group)
+template <int kRowGroups>
+__device__ __forceinline__ void group_sync(int group) {
+  if (kRowGroups == 1) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(group + 1), "r"(32 * kRowGroups) : "memory");
   }
 }
 
@@ -90,77 +117,104 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <int kRowGroups>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const bf16* __restrict__ v, bf16* __restrict__ o, int Tq, int Tk) {
+  using L = Layout<kRowGroups>;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + Smem::kQ);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + Smem::kK);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + Smem::kV);
-  float* Ss = reinterpret_cast<float*>(smem + Smem::kS);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + Smem::kP);
-  float* row_m = reinterpret_cast<float*>(smem + Smem::kRow);
-  float* row_s = row_m + kBq;
+  bf16* Qs = reinterpret_cast<bf16*>(smem + L::kQ);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + L::kK);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + L::kV);
+  float* Ss = reinterpret_cast<float*>(smem + L::kS);
+  bf16* Ps = reinterpret_cast<bf16*>(smem + L::kP);
+  float* part_m = reinterpret_cast<float*>(smem + L::kPart);
+  float* part_s = part_m + kWarps * 16;
+  float* row_m = reinterpret_cast<float*>(smem + L::kRow);
+  float* row_s = row_m + L::kRows;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rg = warp % kRowGroups, kg = warp / kRowGroups;
+  const int gt = tid % L::kGroupThreads;  // thread index within the key group
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBq;
+  const int q0 = blockIdx.x * L::kRows;
   const bf16* qb = q + ((size_t)bh * Tq + q0) * kHd;
   const bf16* kb = k + (size_t)bh * Tk * kHd;
   const bf16* vb = v + (size_t)bh * Tk * kHd;
 
-  load_tile(Qs, qb, min(kBq, Tq - q0), tid);
-  if (tid < kBq) {
-    row_m[tid] = -INFINITY;
-    row_s[tid] = 0.f;
+  load_rows(Qs, qb, L::kRows, min(L::kRows, Tq - q0), tid, kThreads);
+  if (lane < 16) {
+    part_m[warp * 16 + lane] = -INFINITY;
+    part_s[warp * 16 + lane] = 0.f;
   }
   __syncthreads();
 
-  const bf16* Qw = Qs + warp * 16 * kLd;
+  const bf16* Qw = Qs + rg * 16 * kLd;
+  bf16* Kg = Ks + kg * kBk * kLd;
+  bf16* Vg = Vs + kg * kBk * kLd;
   float* Sw = Ss + warp * 16 * kLdS;
   bf16* Pw = Ps + warp * 16 * kLd;
+  float* pm = part_m + warp * 16;
+  float* ps = part_s + warp * 16;
   const int n_tiles = (Tk + kBk - 1) / kBk;
 
-  // pass 1: whole-row max and sum of exp(l - max), folded online
-  for (int t = 0; t < n_tiles; ++t) {
+  // pass 1: this key group's max and sum of exp(l - max) per row, folded online
+  for (int t = kg; t < n_tiles; t += L::kKeyGroups) {
     const int k0 = t * kBk;
-    load_tile(Ks, kb + (size_t)k0 * kHd, Tk - k0, tid);
-    __syncthreads();
-    logits_slab(Qw, Ks, Sw);
+    load_rows(Kg, kb + (size_t)k0 * kHd, kBk, Tk - k0, gt, L::kGroupThreads);
+    group_sync<kRowGroups>(kg);
+    logits_slab(Qw, Kg, Sw);
     __syncwarp();
     const bool c0_ok = k0 + lane < Tk, c1_ok = k0 + lane + 32 < Tk;
     for (int r = 0; r < 16; ++r) {
       float l0 = c0_ok ? Sw[r * kLdS + lane] : -INFINITY;
       float l1 = c1_ok ? Sw[r * kLdS + lane + 32] : -INFINITY;
       float tile_max = warp_max(fmaxf(l0, l1));
-      float m_old = row_m[warp * 16 + r];
+      float m_old = pm[r];
       float m_new = fmaxf(m_old, tile_max);
       float e = (c0_ok ? expf(l0 - m_new) : 0.f) + (c1_ok ? expf(l1 - m_new) : 0.f);
       e = warp_sum(e);
       if (lane == 0) {
         float corr = m_old == -INFINITY ? 0.f : expf(m_old - m_new);
-        row_s[warp * 16 + r] = row_s[warp * 16 + r] * corr + e;
-        row_m[warp * 16 + r] = m_new;
+        ps[r] = ps[r] * corr + e;
+        pm[r] = m_new;
       }
       __syncwarp();
     }
-    __syncthreads();
+    group_sync<kRowGroups>(kg);
   }
+  __syncthreads();
 
-  // pass 2: P = bf16(exp(l - m) / s); O += P v
+  // whole-row m and s from the key groups' partials (one group: unchanged)
+  if (tid < L::kRows) {
+    const int r_rg = tid / 16, r = tid % 16;
+    float m = -INFINITY;
+    for (int g = 0; g < L::kKeyGroups; ++g)
+      m = fmaxf(m, part_m[(g * kRowGroups + r_rg) * 16 + r]);
+    float s = 0.f;
+    for (int g = 0; g < L::kKeyGroups; ++g) {
+      const float mg = part_m[(g * kRowGroups + r_rg) * 16 + r];
+      s += mg == -INFINITY ? 0.f : part_s[(g * kRowGroups + r_rg) * 16 + r] * expf(mg - m);
+    }
+    row_m[tid] = m;
+    row_s[tid] = s;
+  }
+  __syncthreads();
+
+  // pass 2: P = bf16(exp(l - m) / s); O += P v over this key group's tiles
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
 #pragma unroll
   for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[n], 0.f);
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = kg; t < n_tiles; t += L::kKeyGroups) {
     const int k0 = t * kBk;
-    load_tile(Ks, kb + (size_t)k0 * kHd, Tk - k0, tid);
-    load_tile(Vs, vb + (size_t)k0 * kHd, Tk - k0, tid);
-    __syncthreads();
-    logits_slab(Qw, Ks, Sw);
+    load_rows(Kg, kb + (size_t)k0 * kHd, kBk, Tk - k0, gt, L::kGroupThreads);
+    load_rows(Vg, vb + (size_t)k0 * kHd, kBk, Tk - k0, gt, L::kGroupThreads);
+    group_sync<kRowGroups>(kg);
+    logits_slab(Qw, Kg, Sw);
     __syncwarp();
     const bool c0_ok = k0 + lane < Tk, c1_ok = k0 + lane + 32 < Tk;
     for (int r = 0; r < 16; ++r) {
-      float m = row_m[warp * 16 + r], s = row_s[warp * 16 + r];
+      float m = row_m[rg * 16 + r], s = row_s[rg * 16 + r];
       float p0 = c0_ok ? expf(Sw[r * kLdS + lane] - m) / s : 0.f;
       float p1 = c1_ok ? expf(Sw[r * kLdS + lane + 32] - m) / s : 0.f;
       Pw[r * kLd + lane] = __float2bfloat16_rn(p0);
@@ -174,25 +228,63 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(bv, Vs + kk * 16 * kLd + n * 16, kLd);
+        wmma::load_matrix_sync(bv, Vg + kk * 16 * kLd + n * 16, kLd);
         wmma::mma_sync(acc[n], a, bv, acc[n]);
       }
     }
-    __syncthreads();
+    group_sync<kRowGroups>(kg);
   }
 
-  // O tile -> f32 slab (reusing S) -> bf16 rows
+  // each warp's O partial -> its f32 slab (reusing S); the key groups'
+  // partials are added in group order and rounded to bf16 rows
 #pragma unroll
   for (int n = 0; n < 4; ++n)
     wmma::store_matrix_sync(Sw + n * 16, acc[n], kLdS, wmma::mem_row_major);
-  __syncwarp();
-  for (int r = 0; r < 16; ++r) {
-    int qi = q0 + warp * 16 + r;
+  __syncthreads();
+  for (int j = tid; j < L::kRows * kHd; j += kThreads) {
+    const int row = j / kHd, c = j % kHd;
+    const int qi = q0 + row;
     if (qi >= Tq) break;
-    bf16* orow = o + ((size_t)bh * Tq + qi) * kHd;
-    orow[lane] = __float2bfloat16_rn(Sw[r * kLdS + lane]);
-    orow[lane + 32] = __float2bfloat16_rn(Sw[r * kLdS + lane + 32]);
+    const int r_rg = row / 16, r = row % 16;
+    float sum = 0.f;
+    for (int g = 0; g < L::kKeyGroups; ++g)
+      sum += Ss[((g * kRowGroups + r_rg) * 16 + r) * kLdS + c];
+    o[((size_t)bh * Tq + qi) * kHd + c] = __float2bfloat16_rn(sum);
   }
+}
+
+// Once per device: its SM count, and the shared-memory opt-in of both
+// schedules (cudaFuncSetAttribute is per device).
+cudaError_t device_setup(int* sms) {
+  static int cached_sms[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cached_sms[dev] == 0) {
+    int n = 0;
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(flash_fwd<4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Layout<4>::kBytes);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(flash_fwd<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Layout<1>::kBytes);
+    if (err != cudaSuccess) return err;
+    cached_sms[dev] = n;
+  }
+  *sms = cached_sms[dev];
+  return cudaSuccess;
+}
+
+template <int kRowGroups>
+void launch(const void* q, const void* k, const void* v, void* o, int BH, int Tq,
+            int Tk, cudaStream_t stream) {
+  using L = Layout<kRowGroups>;
+  dim3 grid((Tq + L::kRows - 1) / L::kRows, BH);
+  flash_fwd<kRowGroups><<<grid, kThreads, L::kBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), Tq, Tk);
 }
 
 }  // namespace
@@ -200,16 +292,24 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
 VX_EXPORT_ERROR_STRING(voxactb_flash_attention_error_string)
 
 // q [BH, Tq, 64], k, v [BH, Tk, 64], o [BH, Tq, 64], all bf16 contiguous.
-// Returns a cudaError_t.
+// rows_per_block: 64 or 16 picks a schedule; 0 takes 16-row blocks when
+// 64-row blocks would number fewer than the SMs. Returns a cudaError_t.
 extern "C" int voxactb_flash_attention(const void* q, const void* k, const void* v,
                                        void* o, int BH, int Tq, int Tk,
-                                       void* stream_ptr) {
+                                       int rows_per_block, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  VX_CHECK(cudaFuncSetAttribute(flash_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                Smem::kBytes));
-  dim3 grid((Tq + kBq - 1) / kBq, BH);
-  flash_fwd<<<grid, kThreads, Smem::kBytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Tq, Tk);
+  int sms = 0;
+  VX_CHECK(device_setup(&sms));
+  if (rows_per_block == 0) {
+    const long blocks64 = (long)BH * ((Tq + 63) / 64);
+    rows_per_block = blocks64 < sms ? 16 : 64;
+  }
+  if (rows_per_block == 64) {
+    launch<4>(q, k, v, o, BH, Tq, Tk, stream);
+  } else if (rows_per_block == 16) {
+    launch<1>(q, k, v, o, BH, Tq, Tk, stream);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

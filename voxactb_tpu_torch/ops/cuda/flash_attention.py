@@ -36,9 +36,14 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                         v.to(bf).to(torch.float32)).to(v.dtype)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    rows_per_block: int = 0) -> torch.Tensor:
     """``[BH, Tq, 64] x [BH, Tk, 64] -> [BH, Tq, 64]``; q must be PRE-SCALED
-    by ``dim_head ** -0.5``. CPU tensors take the plain version."""
+    by ``dim_head ** -0.5``. CPU tensors take the plain version.
+
+    ``rows_per_block`` picks the kernel's schedule: 64 (warps share key tiles)
+    or 16 (warps split the key axis); 0 takes 16 when 64-row blocks would
+    number fewer than the card's SMs."""
     if not q.is_cuda:
         return flash_attention_reference(q, k, v)
     from voxactb_tpu_torch.ops.cuda.build import check, library, stream_ptr
@@ -60,9 +65,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     fn = lib.voxactb_flash_attention
     fn.restype = ctypes.c_int
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
+    fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, tq, tk,
-             stream_ptr(q.device))
+             rows_per_block, stream_ptr(q.device))
     check(lib, "flash_attention", err)
     LAUNCHES["flash_attention"] += 1
     return out
