@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's act path on one NVIDIA H100 and check it.
+"""Drive the PyTorch/CUDA port's act path and BC train step on one NVIDIA H100
+and check them.
 
     python3 chip_smoke.py
 
@@ -7,8 +8,11 @@ Phases:
   1. build   - compile the hand-written kernels (``voxactb_tpu_torch/csrc``),
                one nvcc per source in parallel; print the card and build time.
   2. kernels - hold each kernel against its plain PyTorch version on the card
-               at the act path's shapes (front at 50^3 and 100^3, attention at
-               its cross/self/decoder shapes, decoder tail at 50^3 and 100^3);
+               at the main paths' shapes (front at 50^3 and 100^3, inference
+               attention at its cross/self/decoder shapes, decoder tail at 50^3
+               and 100^3 and with two heads at 50^3, trainable attention
+               forward and backward at the train step's three shapes and a
+               ragged one: keep mask bit-equal, planted faults must fail);
                time kernel, plain version and, where one PyTorch call computes
                the same function, that call.
   3. act100  - full-width ``make_infer_fn`` at 100^3, batch 1 and 8, seeded
@@ -19,8 +23,16 @@ Phases:
                must fail that check), then the timed main-path run.
   4. dual50  - VoxAct-B's operating point through ``QAttentionBCAgent.act``:
                acting (dominant, arm head) and stabilizing (assistive) policies
-               alternating over a 25-act episode on a 50^3 crop.
-  5. report  - every kernel's launch count rose during the main-path runs;
+               alternating over a 25-act episode on a 50^3 crop; then one act
+               of the two-head variant, kernels on against kernels off.
+  5. train50 - ``make_train_step`` at full width (50^3 crop, batch 8, bf16,
+               depth 6, LAMB): one step's losses and gradients with dropout
+               and augmentation off, kernels on against the plain attention
+               path (within twice the plain bf16 path's distance from f32);
+               timed steps with SE(3) augmentation and dropout on (loss finite
+               and falling); a second run from the same seed; one step under
+               the profiler; two ``agent.update`` steps.
+  6. report  - every kernel's launch count rose during its main-path run;
                one ``{"kernels": [...]}`` line.
 Then the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -254,7 +266,9 @@ def check_attention(b, s3, rng, details):
         ms64 = time_ms(lambda: flash_attention(q, k, v, rows_per_block=64))
         ms16 = time_ms(lambda: flash_attention(q, k, v, rows_per_block=16))
         plain = time_ms(lambda: flash_attention_reference(q, k, v), reps=5)
-        lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
+        # the library call, as [1, BH, T, 64] so that it may take its fused kernel
+        lib = time_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                             scale=1.0))
         nbytes = 2.0 * (2 * bh * tq * 64 + 2 * bh * tk * 64)
         flops = 4.0 * bh * tq * tk * 64
         bms, by = bound_ms(nbytes, flops)
@@ -272,7 +286,9 @@ def check_attention(b, s3, rng, details):
     return rows
 
 
-def check_decoder(model, d0, rng, details):
+def check_decoder(model, d0, rng, details, heads=1):
+    """K3 against its plain version; ``heads=2`` is the two-head launch
+    (trans [B,N,N,N,2]) with a second, seeded trans head."""
     import torch
     from voxactb_tpu_torch.ops.cuda.decoder_head import (
         decoder_head, decoder_head_reference)
@@ -284,11 +300,16 @@ def check_decoder(model, d0, rng, details):
     bf = model.final.bias.detach()
     wt = model.trans_decoder.kernel_dhwio().detach()[None]
     bt = model.trans_decoder.bias.detach()
+    if heads == 2:
+        wt = torch.cat([wt, (torch.randn(wt.shape, generator=g) * wt.std().cpu()).to(
+            wt.device)])
+        bt = torch.cat([bt, torch.full_like(bt, 0.01)])
     args = (d0, u0, wf, bf, wt, bt)
     got = decoder_head(*args)
     ref = decoder_head_reference(*args)
     torch.cuda.synchronize()
     (trans, kp, gmax), (rtrans, rkp, rgmax) = got, ref
+    expect(tuple(trans.shape) == (b, n, n, n, heads), f"decoder trans shape {trans.shape}")
     # trans: 1728-term f32 sums over u, and u itself from 3456-term f32 sums
     # rounded to bf16 (a sum on a rounding boundary may round the other way)
     e_t = max_err(trans, rtrans)
@@ -297,22 +318,177 @@ def check_decoder(model, d0, rng, details):
     e_kp, e_g = max_err(kp, rkp), max_err(gmax, rgmax)
     expect(e_kp <= 1e-3, f"decoder kp err {e_kp} > 1e-3")
     expect(e_g <= 2.0 ** -7 * float(rgmax.abs().max()), f"decoder gmax err {e_g}")
-    argmax_same = bool((trans.reshape(b, -1).argmax(-1)
-                        == rtrans.reshape(b, -1).argmax(-1)).all())
+    argmax_same = bool((trans.reshape(b, -1, heads).argmax(1)
+                        == rtrans.reshape(b, -1, heads).argmax(1)).all())
     ms = time_ms(lambda: decoder_head(*args))
     plain = time_ms(lambda: decoder_head_reference(*args), reps=5)
     n3 = n ** 3
-    nbytes = 2.0 * b * n3 * 64 * 2 + b * n3 * 4 + b * 64 * 4 * 4 \
-        + (27 * 128 * 64 + 27 * 64) * 2 + 65 * 4
-    flops = 2.0 * b * n3 * 27 * 128 * 64 + 2.0 * b * n3 * 27 * 64
+    nbytes = 2.0 * b * n3 * 64 * 2 + b * n3 * 4 * heads + b * 64 * 4 * 4 \
+        + (27 * 128 * 64 + 27 * 64 * heads) * 2 + (64 + heads) * 4
+    flops = 2.0 * b * n3 * 27 * 128 * 64 + 2.0 * b * n3 * 27 * 64 * heads
     bms, by = bound_ms(nbytes, flops)
-    row = dict(shape=f"N={n} B={b} T=1", max_abs_err=e_t, tol=tol_t, kp_err=e_kp,
+    row = dict(shape=f"N={n} B={b} T={heads}", max_abs_err=e_t, tol=tol_t, kp_err=e_kp,
                gmax_err=e_g, argmax_same=argmax_same, ms=ms, plain_ms=plain,
                bound_ms=bms, bound_by=by, library_ms=None)
-    details.setdefault("decoder_head", []).append(row)
-    log(f"[kernels] decoder_head N={n}: trans err {e_t:.3g} (tol {tol_t:.3g}), "
+    details.setdefault("decoder_head" if heads == 1 else "decoder_head_two_heads",
+                       []).append(row)
+    log(f"[kernels] decoder_head N={n} T={heads}: trans err {e_t:.3g} (tol {tol_t:.3g}), "
         f"kp err {e_kp:.3g}, gmax err {e_g:.3g}, argmax same {argmax_same}; "
         f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by})")
+
+
+def kernel_keep_mask(seed, bh, tq, tk, dropout):
+    """K4's dropout mask read back through the forward kernel itself: with
+    q = 0 every probability is 1/Tk, so with a one-hot slice of 64 keys as v
+    an output is non-zero exactly where the kernel kept that key."""
+    import torch
+    from voxactb_tpu_torch.ops.cuda.flash_attention_train import (
+        flash_attention_train_forward)
+
+    dev = torch.device(DEVICE)
+    q = torch.zeros(bh, tq, 64, dtype=torch.bfloat16, device=dev)
+    k = torch.zeros(bh, tk, 64, dtype=torch.bfloat16, device=dev)
+    keep = torch.empty(bh, tq, tk, dtype=torch.bool, device=dev)
+    eye = torch.eye(64, dtype=torch.bfloat16, device=dev)
+    for c0 in range(0, tk, 64):
+        w = min(64, tk - c0)
+        v = torch.zeros(bh, tk, 64, dtype=torch.bfloat16, device=dev)
+        v[:, c0:c0 + w] = eye[:w]
+        out, _ = flash_attention_train_forward(q, k, v, seed, dropout)
+        keep[:, :, c0:c0 + w] = out[:, :, :w] != 0
+    return keep
+
+
+# K4 at the train step's shapes (50^3 crop, batch 8): (BH, Tq, Tk, the
+# dropout of that attention in the step)
+TRAIN_ATTENTION_SHAPES = {"cross": (8, 2048, 1077, 0.1), "self": (64, 2048, 2048, 0.1),
+                          "decoder": (8, 1077, 2048, 0.0), "ragged": (2, 333, 1077, 0.1)}
+
+
+def check_attention_train(rng, details):
+    """K4 forward and backward against the plain version on the card."""
+    import torch
+    import torch.nn.functional as F
+    from voxactb_tpu_torch.ops.cuda import flash_attention_train as K4
+
+    dev = torch.device(DEVICE)
+    rows = {}
+    for name, (bh, tq, tk, step_dropout) in TRAIN_ATTENTION_SHAPES.items():
+        g = torch.Generator(device="cpu").manual_seed(int(rng.integers(1 << 30)))
+        if name == "ragged":
+            q, k, v = tail_inputs(g, tq, tk, dev)
+        else:
+            q = (torch.randn(bh, tq, 64, generator=g) * 0.125).to(dev, torch.bfloat16)
+            k = torch.randn(bh, tk, 64, generator=g).to(dev, torch.bfloat16)
+            v = torch.randn(bh, tk, 64, generator=g).to(dev, torch.bfloat16)
+        d_out = torch.randn(bh, tq, 64, generator=g).to(dev, torch.bfloat16)
+        seed = torch.tensor(int(rng.integers(1 << 32)), dtype=torch.int64, device=dev)
+        row = dict(shape=f"{name} BH={bh} Tq={tq} Tk={tk}", step_dropout=step_dropout)
+
+        # the mask, bit for bit
+        want = K4.keep_mask(seed, bh, tq, tk, 0.1)
+        got = kernel_keep_mask(seed, bh, tq, tk, 0.1)
+        torch.cuda.synchronize()
+        row["mask_elements_differing"] = int((want != got).sum())
+        row["mask_drop_rate"] = float(1.0 - got.float().mean())
+        expect(row["mask_elements_differing"] == 0,
+               f"attention_train {name}: keep mask differs in "
+               f"{row['mask_elements_differing']} elements")
+        del want, got
+
+        for dropout in (0.0, 0.1):
+            out, lse = K4.flash_attention_train_forward(q, k, v, seed, dropout)
+            dq, dk, dv = K4.flash_attention_train_backward(q, k, v, lse, d_out, seed,
+                                                           dropout)
+            rout, rlse = K4.plain_forward(q, k, v, seed, dropout)
+            rdq, rdk, rdv = K4.plain_backward(q, k, v, rlse, d_out, seed, dropout)
+            torch.cuda.synchronize()
+            # kernel and plain version round at the same points and differ in
+            # f32 summation order only, so a bf16 output (out, dq, dk, dv) may
+            # sit one bf16 ulp of its own size away, and 2^-7 of the largest is
+            # one to two ulps of it. lse is f32: a few ulps of the largest.
+            tols = {"out": 2.0 ** -7, "lse": 2.0 ** -20, "dq": 2.0 ** -7, "dk": 2.0 ** -7,
+                    "dv": 2.0 ** -7}
+            pairs = {"out": (out, rout), "lse": (lse, rlse), "dq": (dq, rdq),
+                     "dk": (dk, rdk), "dv": (dv, rdv)}
+            errs = {}
+            for key, (a, r) in pairs.items():
+                tol = tols[key] * float(r.float().abs().max())
+                errs[key] = dict(max_abs_err=max_err(a, r), tol=tol)
+                expect(errs[key]["max_abs_err"] <= tol,
+                       f"attention_train {name} dropout {dropout}: {key} err "
+                       f"{errs[key]['max_abs_err']} > {tol}")
+            row[f"dropout_{dropout}"] = errs
+            if dropout > 0.0:
+                # planted fault: the backward draws its mask from another seed
+                wrong = K4.flash_attention_train_backward(q, k, v, lse, d_out, seed + 1,
+                                                          dropout)
+                caught = [key for key, a in zip(("dq", "dk", "dv"), wrong)
+                          if max_err(a, pairs[key][1]) > errs[key]["tol"]]
+                row["planted_other_seed_caught_by"] = caught
+                expect(len(caught) == 3, f"attention_train {name}: a backward with "
+                                         f"another seed's mask passed in {caught}")
+            if name == "ragged" and dropout == 0.0:
+                # planted fault: the keys zero-filled up to the next tile take part
+                z = k.new_zeros(bh, -tk % 64, 64)
+                wrong, _ = K4.flash_attention_train_forward(
+                    q, torch.cat([k, z], 1), torch.cat([v, z], 1), seed, 0.0)
+                e = max_err(wrong, rout)
+                row["planted_unmasked_err"] = e
+                expect(e > errs["out"]["tol"],
+                       f"attention_train ragged: an unmasked key tail erred by {e} only")
+            del rout, rlse, rdq, rdk, rdv
+        log(f"[kernels] flash_attention_train {name} BH={bh} Tq={tq} Tk={tk}: mask "
+            f"bit-equal (drop rate {row['mask_drop_rate']:.4f}); " + "; ".join(
+                f"dropout {d}: " + ", ".join(
+                    f"{key} err {v_['max_abs_err']:.3g} (tol {v_['tol']:.3g})"
+                    for key, v_ in row[f"dropout_{d}"].items()) for d in (0.0, 0.1)))
+
+        # no atomics: a second launch gives the same bits
+        d = step_dropout
+        out, lse = K4.flash_attention_train_forward(q, k, v, seed, d)
+        first = (out, lse) + K4.flash_attention_train_backward(q, k, v, lse, d_out, seed, d)
+        out2, lse2 = K4.flash_attention_train_forward(q, k, v, seed, d)
+        again = (out2, lse2) + K4.flash_attention_train_backward(q, k, v, lse2, d_out,
+                                                                 seed, d)
+        expect(all(torch.equal(a, b_) for a, b_ in zip(first, again)),
+               f"attention_train {name}: two launches on the same inputs differ")
+        del first, again, out2, lse2
+
+        # times at the dropout this attention has in the train step
+        row["fwd_ms"] = time_ms(lambda: K4.flash_attention_train_forward(q, k, v, seed, d),
+                                reps=5)
+        row["bwd_ms"] = time_ms(lambda: K4.flash_attention_train_backward(
+            q, k, v, lse, d_out, seed, d), reps=5)
+        row["plain_fwd_ms"] = time_ms(lambda: K4.plain_forward(q, k, v, seed, d),
+                                      reps=3, warmup=1)
+        row["plain_bwd_ms"] = time_ms(lambda: K4.plain_backward(
+            q, k, v, lse, d_out, seed, d), reps=3, warmup=1)
+        # the library call, as [1, BH, T, 64] so that it may take its fused kernel
+        ql, kl, vl = (t.detach()[None].clone().requires_grad_() for t in (q, k, v))
+        with torch.no_grad():
+            row["sdpa_fwd_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=1.0), reps=5)
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=1.0)
+        row["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            lib_out, (ql, kl, vl), d_out[None], retain_graph=True), reps=5)
+        del lib_out, ql, kl, vl
+        flops = 4.0 * bh * tq * tk * 64
+        qkv_bytes = 2.0 * (bh * tq * 64 + 2 * bh * tk * 64)
+        row["fwd_bound_ms"], row["fwd_bound_by"] = bound_ms(
+            qkv_bytes + 2.0 * bh * tq * 64 + 4.0 * bh * tq, flops)
+        row["bwd_bound_ms"], row["bwd_bound_by"] = bound_ms(
+            2.0 * qkv_bytes + 2.0 * 2 * bh * tq * 64 + 4.0 * bh * tq, 2.5 * flops)
+        rows[name] = row
+        log(f"[kernels] flash_attention_train {name} at dropout {d}: forward "
+            f"{row['fwd_ms']:.4f} ms (plain {row['plain_fwd_ms']:.4f}, sdpa "
+            f"{row['sdpa_fwd_ms']:.4f}, bound {row['fwd_bound_ms']:.4f} "
+            f"{row['fwd_bound_by']}); backward {row['bwd_ms']:.4f} ms (plain "
+            f"{row['plain_bwd_ms']:.4f}, sdpa {row['sdpa_bwd_ms']:.4f}, bound "
+            f"{row['bwd_bound_ms']:.4f} {row['bwd_bound_by']})")
+        torch.cuda.empty_cache()
+    details["flash_attention_train"] = rows
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -409,8 +585,10 @@ ACT_FAULTS = (
 # outputs that share a tolerance: the MLP heads' logits come from one feature
 # vector through two-layer heads of one initialisation scale (rot_grip and
 # collision are even slices of one Dense output), so they carry bf16 noise of
-# one size; a group of 2 logits alone would give no estimate of it
-TOL_GROUPS = {"trans": ("trans",), "logits": ("rot_grip", "collision", "arm")}
+# one size; a group of 2 logits alone would give no estimate of it. The
+# two-head variant's ``*_right`` / ``*_left`` outputs fall into the same groups.
+def tol_group(key: str) -> str:
+    return "trans" if key.startswith("trans") else "logits"
 
 
 def compare_paths(cfg, model_on, refs, inputs, bounds, tag, details, faults=()):
@@ -428,8 +606,8 @@ def compare_paths(cfg, model_on, refs, inputs, bounds, tag, details, faults=()):
     b = inputs["proprio"].shape[0]
     nr = cfg.num_rotation_classes
     report = {}
-    for keys in TOL_GROUPS.values():
-        keys = [k for k in keys if k in on]
+    for group in ("trans", "logits"):
+        keys = [k for k in on if tol_group(k) == group]
         plain_err = max(max_err(off[k], f32[k]) for k in keys)
         for k in keys:
             report[k] = dict(max_abs_err=max_err(on[k], off[k]), tol=2.0 * plain_err,
@@ -440,8 +618,8 @@ def compare_paths(cfg, model_on, refs, inputs, bounds, tag, details, faults=()):
     # integer actions: a flip is allowed only at a near-tie of the plain path;
     # each argmax group as (output key, columns)
     rot = [slice(i * nr, (i + 1) * nr) for i in range(3)] + [slice(3 * nr, None)]
-    groups = [("trans", slice(None))] + [("rot_grip", sl) for sl in rot] + [
-        ("collision", slice(None))] + ([("arm", slice(None))] if "arm" in on else [])
+    groups = [(k, sl) for k in on
+              for sl in (rot if k.startswith("rot_grip") else [slice(None)])]
     flips, bad_flips = 0, 0
     for key, cols in groups:
         a, r = on[key].reshape(b, -1)[:, cols], off[key].reshape(b, -1)[:, cols]
@@ -545,10 +723,10 @@ def act100(rng, details, timings):
 
 
 def profile_act(fn, tag, details, act_ms, top=12):
-    """One act under torch.profiler: device time by kernel (device-side
-    events only, so no kernel is counted twice through the op that launched
-    it) and the device's busy share of ``act_ms``, the act's median wall time
-    measured without the profiler."""
+    """One call (an act, a train step) under torch.profiler: device time by
+    kernel (device-side events only, so no kernel is counted twice through the
+    op that launched it) and the device's busy share of ``act_ms``, the call's
+    median wall time measured without the profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -566,7 +744,7 @@ def profile_act(fn, tag, details, act_ms, top=12):
     details.setdefault("profile", {})[tag] = dict(
         act_ms=act_ms, device_ms=device_ms, busy_share=device_ms / act_ms,
         kernels=[dict(name=k[:120], ms=ms, calls=c) for k, ms, c in rows])
-    log(f"[profile] {tag}: device busy {device_ms:.3f} ms of the {act_ms:.3f} ms act "
+    log(f"[profile] {tag}: device busy {device_ms:.3f} ms of the {act_ms:.3f} ms call "
         f"({100 * device_ms / act_ms:.1f}%)")
     for k, ms, c in rows[:top]:
         log(f"[profile]   {ms:8.3f} ms  x{c:<4d} {k[:90]}")
@@ -639,6 +817,234 @@ def dual50(rng, details, timings, n_acts=25):
     return dict(acts=n_acts, launches=counts)
 
 
+def two_head50(rng, details):
+    """One act of the 'one_policy_more_heads' variant at 50^3 (two proprio
+    streams, right and left heads, K3 with trans [B,N,N,N,2]): kernels on
+    against kernels off under the act-level tolerance, then the act itself."""
+    import torch
+    from voxactb_tpu_torch.agents.qfunction import make_infer_fn
+    from voxactb_tpu_torch.ops import cuda as kernels
+
+    cfg = act_config(50, which_arm="both", variant="one_policy_more_heads",
+                     crop_target_obj_voxel=True, crop_radius=0.3)
+    model_on, infer = make_infer_fn(cfg, device=DEVICE, seed=2)
+    refs = {d: reference_model(cfg, model_on, d) for d in ("bfloat16", "float32")}
+    inputs = act_inputs(rng, 1, cfg.proprio_width())
+    compare_paths(cfg, model_on, refs, inputs, [CROP_BOUNDS], "two_head50", details)
+    del refs
+    kernels.reset_launch_counts()
+    out = infer(model_on, inputs["rgbs"], inputs["pcds"], inputs["proprio"],
+                inputs["lang_goal_emb"], inputs["lang_token_embs"], [CROP_BOUNDS])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    cont = out.continuous_action
+    expect(tuple(cont.shape) == (2, 1, 9) and bool(torch.isfinite(cont).all()),
+           "two_head50 continuous action")
+    expect(bool(((out.trans_idx >= 0) & (out.trans_idx < 50)).all()),
+           "two_head50 trans idx range")
+    expect(counts["decoder_head"] == 1 and counts["front_fused"] == 1
+           and counts["flash_attention"] == 8, f"two_head50 launches {counts}")
+    log(f"[two_head50] one act of the two-head variant: right {cont[0, 0, :3].tolist()}, "
+        f"left {cont[1, 0, :3].tolist()}; launches: {counts}")
+    return dict(acts=1, launches=counts)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the BC train step
+# ---------------------------------------------------------------------------
+
+TRAIN_CAMERAS = ["wrist", "wrist2"]
+
+
+def train_config(**kw):
+    """The configuration the repo trains: 50^3 VLM-cropped grid, bf16, dominant
+    arm with the arm loss, SE(3) augmentation, LAMB, trainable attention kernel."""
+    from voxactb_tpu_torch.config import MethodConfig
+
+    base = dict(voxel_sizes=[50], which_arm="dominant", arm_pred_loss=True,
+                crop_target_obj_voxel=True, crop_radius=0.3, compute_dtype="bfloat16",
+                apply_se3=True, pallas_attention_train=True)
+    base.update(kw)
+    return MethodConfig(**base)
+
+
+def train_batch(rng, cfg, b):
+    """A synthetic replay batch with the bench's signature and value ranges."""
+    batch = {
+        "trans_action_indicies": rng.integers(0, 50, (b, 3)).astype(np.int32),
+        "rot_grip_action_indicies": np.concatenate(
+            [rng.integers(0, 72, (b, 3)), rng.integers(0, 2, (b, 1))], -1).astype(np.int32),
+        "ignore_collisions": rng.integers(0, 2, (b, 1)).astype(np.int32),
+        "gripper_pose": np.concatenate(
+            [rng.uniform([-0.1, -0.3, 0.6], [0.4, 0.3, 1.0], (b, 3)),
+             rng.normal(size=(b, 4))], -1).astype(np.float32),
+        "lang_goal_emb": rng.normal(size=(b, 1024)).astype(np.float32),
+        "lang_token_embs": rng.normal(size=(b, 77, 512)).astype(np.float32),
+        "low_dim_state": rng.normal(size=(b, cfg.low_dim_size())).astype(np.float32),
+        "label": rng.integers(0, 2, (b, 1)).astype(np.int32),
+        "scene_bounds": np.asarray([-0.3, -0.5, 0.4, 0.5, 0.5, 1.2], np.float32),
+        "target_object_scene_bounds": np.tile(np.asarray(CROP_BOUNDS, np.float32), (b, 1)),
+    }
+    batch["gripper_pose"][:, 3:] /= np.linalg.norm(batch["gripper_pose"][:, 3:], axis=-1,
+                                                   keepdims=True)
+    for c in TRAIN_CAMERAS:
+        batch[f"{c}_rgb"] = rng.integers(0, 255, (b, IMG, IMG, 3)).astype(np.float32)
+        batch[f"{c}_point_cloud"] = rng.uniform(-0.3, 1.2, (b, IMG, IMG, 3)).astype(
+            np.float32)
+    return batch
+
+
+def compare_train_paths(batch, details):
+    """One step's losses and gradients with dropout and augmentation off:
+    kernels on (K4) against the plain attention path at bf16, on the same
+    seeded weights. The tolerance is twice the plain bf16 path's own distance
+    from the plain path at f32, as at act level: over the losses as one group,
+    and per gradient leaf, scaled by the leaf's largest f32 gradient (a leaf
+    whose own distance happens to be small gets the median leaf's)."""
+    import torch
+    from voxactb_tpu_torch.agents.qfunction import make_optimizer, make_train_step
+
+    quiet = dict(apply_se3=False, input_dropout=0.0, attn_dropout=0.0)
+    results = {}
+    for tag, kw in (("on", {}), ("off", dict(pallas_attention_train=False)),
+                    ("f32", dict(pallas_attention_train=False, compute_dtype="float32"))):
+        cfg = train_config(**quiet, **kw)
+        _, init_fn, step = make_train_step(cfg, make_optimizer(cfg, 100_000),
+                                           TRAIN_CAMERAS, device=DEVICE, seed=0)
+        metrics, grads = step.loss_and_grads(init_fn(), batch)
+        torch.cuda.synchronize()
+        results[tag] = ({k: float(v) for k, v in metrics.items()},
+                        {k: v.float() for k, v in grads.items()})
+        del step, init_fn, metrics, grads
+        torch.cuda.empty_cache()
+    (m_on, g_on), (m_off, g_off), (m_32, g_32) = (results[t] for t in ("on", "off", "f32"))
+    loss_tol = 2.0 * max(abs(m_off[k] - m_32[k]) for k in m_32)
+    loss_err = {k: abs(m_on[k] - m_off[k]) for k in m_32}
+    scale = {k: float(g_32[k].abs().max()) for k in g_32}
+    live = [k for k in g_32 if scale[k] > 0.0]
+    plain = {k: max_err(g_off[k], g_32[k]) / scale[k] for k in live}
+    kernel = {k: max_err(g_on[k], g_off[k]) / scale[k] for k in live}
+    typical = statistics.median(plain.values())
+    grad_tol = {k: 2.0 * max(plain[k], typical) for k in live}
+    worst = max(kernel, key=lambda k: kernel[k] / grad_tol[k])
+    report = dict(losses=m_on, losses_plain=m_off, losses_f32=m_32, loss_err=loss_err,
+                  loss_tol=loss_tol, grad_err_worst=kernel[worst],
+                  grad_tol_worst=grad_tol[worst], grad_err_worst_leaf=worst,
+                  grad_plain_vs_f32_median=typical,
+                  grad_plain_vs_f32_worst=max(plain.values()), leaves=len(live),
+                  grad_err=kernel, grad_plain_vs_f32=plain)
+    details["train_compare"] = report
+    log(f"[train50] kernels on vs plain attention path, dropout and aug off: total loss "
+        f"{m_on['total_loss']:.5f} vs {m_off['total_loss']:.5f} (f32 {m_32['total_loss']:.5f}"
+        f"); largest loss err {max(loss_err.values()):.3g} (tol {loss_tol:.3g}); largest "
+        f"gradient err against its tolerance {kernel[worst]:.3g} of the leaf's largest "
+        f"gradient, at {worst} (tol {grad_tol[worst]:.3g}; the plain bf16 path is "
+        f"{typical:.3g} median, {max(plain.values()):.3g} worst from f32), over "
+        f"{len(live)} leaves")
+    expect(all(np.isfinite(v) for v in m_on.values()), "train50: non-finite loss")
+    expect(max(loss_err.values()) <= loss_tol, f"train50: loss err {loss_err} > {loss_tol}")
+    bad = [k for k in live if kernel[k] > grad_tol[k]]
+    expect(not bad, f"train50: gradients beyond tolerance in {bad}")
+
+
+def train50(rng, details, timings, n_steps=10, warm=2):
+    import torch
+    from voxactb_tpu_torch.agents.qattention_agent import QAttentionBCAgent
+    from voxactb_tpu_torch.agents.qfunction import make_optimizer, make_train_step
+    from voxactb_tpu_torch.ops import cuda as kernels
+
+    b = 8
+    cfg = train_config()
+    batch = train_batch(rng, cfg, b)
+    compare_train_paths(batch, details)
+
+    dev = torch.device(DEVICE)
+    _, init_fn, step = make_train_step(cfg, make_optimizer(cfg, 100_000), TRAIN_CAMERAS,
+                                       device=DEVICE, seed=0)
+    device_batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+    def run(seed, timed):
+        """warm + n_steps steps from the seeded weights; losses of every step,
+        and the wall time of each step after the warm ones."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        state = init_fn()
+        losses, walls = [], []
+        for i in range(warm + n_steps):
+            if timed and i == warm:
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, metrics = step(state, device_batch, gen)
+            if timed:
+                torch.cuda.synchronize()
+                if i >= warm:
+                    walls.append((time.perf_counter() - t0) * 1e3)
+            losses.append(metrics["total_loss"])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        return [float(x) for x in losses], walls, counts, state
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, counts, state = run(0, True)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect(all(np.isfinite(losses)), f"train50: non-finite loss in {losses}")
+    expect(losses[-1] < losses[0], f"train50: loss did not fall: {losses}")
+    expect(counts["flash_attention_train_fwd"] == 8 * n_steps
+           and counts["flash_attention_train_bwd"] == 8 * n_steps,
+           f"train50: launches {counts} in {n_steps} steps")
+    ms = statistics.median(walls)
+    # the same chain without a sync after every step
+    t0 = time.perf_counter()
+    again, _, _, _ = run(0, False)
+    chain_ms = (time.perf_counter() - t0) * 1e3 / (warm + n_steps)
+    spread = max(abs(a - b_) for a, b_ in zip(losses, again))
+    bit_equal = losses == again
+    # K4 has no atomics, but the voxel scatter (index_add_) and cuDNN's weight
+    # gradients sum in an order that changes from run to run, and the steps
+    # that follow amplify a last-bit difference: the first step must agree, the
+    # spread over the run is reported
+    expect(abs(losses[0] - again[0]) <= 1e-3 * abs(losses[0]),
+           f"train50: a second run from the same seed starts at {again[0]}, not "
+           f"{losses[0]}")
+    timings["train50_b8"] = dict(ms_per_step=ms, samples_per_s=b / ms * 1e3,
+                                 ms_per_step_unsynced_chain=chain_ms, steps=n_steps,
+                                 losses=losses, second_run_losses=again,
+                                 second_run_bit_equal=bit_equal,
+                                 second_run_max_loss_diff=spread, peak_memory_gib=peak_gb,
+                                 walls_ms=walls)
+    log(f"[train50] batch {b}, {n_steps} steps after {warm} warm ones, SE(3) aug and "
+        f"dropout on: {ms:.3f} ms/step median ({b / ms * 1e3:.3f} samples/s; "
+        f"{chain_ms:.3f} ms/step without a sync per step); loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; second run from the same seed "
+        + ("bit-equal" if bit_equal else f"differs by at most {spread:.3g} (first step by "
+           f"{abs(losses[0] - again[0]):.3g})") + f"; peak memory "
+        f"{peak_gb:.2f} GiB; launches: {counts}")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    profile_act(lambda: step(state, device_batch, gen), "train50_step", details, ms)
+    del state, step, init_fn
+    torch.cuda.empty_cache()
+
+    # through the agent
+    agent = QAttentionBCAgent(cfg, TRAIN_CAMERAS, SCENE_BOUNDS, batch_size=b,
+                              training_iterations=100_000, device=DEVICE, seed=0)
+    agent.build(training=True)
+    kernels.reset_launch_counts()
+    agent_losses = [float(agent.update(i, dict(batch))["total_loss"]) for i in range(2)]
+    agent_counts = kernels.launch_counts()
+    expect(all(np.isfinite(agent_losses)), f"train50: agent.update losses {agent_losses}")
+    expect(agent_counts["flash_attention_train_fwd"] == 16
+           and agent_counts["flash_attention_train_bwd"] == 16,
+           f"train50: agent.update launches {agent_counts}")
+    names = {s_.name for s_ in agent.update_summaries()}
+    expect(any(n.endswith("losses/grad_norm") for n in names), "train50: agent summaries")
+    log(f"[train50] agent.update x2: losses {agent_losses}; launches: {agent_counts}")
+    timings["train50_b8"]["agent_update_losses"] = agent_losses
+    del agent
+    torch.cuda.empty_cache()
+    return dict(steps=n_steps, launches={k: counts[k] + agent_counts[k] for k in counts},
+                per_step={k: counts[k] // n_steps for k in counts})
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -676,9 +1082,12 @@ def main() -> int:
         model = build_encoder(act_config(n, which_arm="right"), device=DEVICE, seed=0)
         d0 = check_front(model, n, 1, rng, details)
         check_decoder(model, d0, rng, details)
+        if n == 50:
+            check_decoder(model, d0, rng, details, heads=2)
         attn[n] = check_attention(1, (n // 5) ** 3, rng, details)
         del model, d0
         torch.cuda.empty_cache()
+    train_attn = check_attention_train(rng, details)
     log(f"[kernels] checks took {time.perf_counter() - t0:.1f} s")
 
     runs = {}
@@ -687,19 +1096,29 @@ def main() -> int:
     log(f"[act100] took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     runs["dual50"] = dual50(rng, details, timings)
+    runs["two_head50"] = two_head50(rng, details)
     log(f"[dual50] took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    runs["train50"] = train50(rng, details, timings)
+    log(f"[train50] took {time.perf_counter() - t0:.1f} s")
 
-    # phase 5
-    total = {k: 0 for k in ("front_fused", "flash_attention", "decoder_head")}
-    for run in runs.values():
-        for k, v in run["launches"].items():
+    # phase 6: every kernel was launched on the main path that runs it
+    act_kernels = ("front_fused", "flash_attention", "decoder_head")
+    train_kernels = ("flash_attention_train_fwd", "flash_attention_train_bwd")
+    total = {k: 0 for k in act_kernels + train_kernels}
+    for name, run in runs.items():
+        for k in train_kernels if name == "train50" else act_kernels:
+            v = run["launches"][k]
             total[k] += v
-            expect(v > 0, f"kernel {k} was not launched on the main path")
+            expect(v > 0, f"kernel {k} was not launched on the main path {name}")
     f100 = details["front_fused"][-1]
     d100 = details["decoder_head"][-1]
     a100 = attn[100]  # B = 1: one cross, six self, one decoder attention per act
     per_act = lambda key: (a100["cross"][key] + 6 * a100["self"][key]
                            + a100["decoder"][key])
+    # batch 8 at 50^3: one cross, six self, one decoder attention per train step
+    per_step = lambda key: (train_attn["cross"][key] + 6 * train_attn["self"][key]
+                            + train_attn["decoder"][key])
     kernels_line = {"kernels": [
         dict(name="front_fused", route="cuda",
              source="voxactb_tpu_torch/csrc/front_fused.cu",
@@ -724,6 +1143,24 @@ def main() -> int:
                  r["max_abs_err"] for r in details["decoder_head"]),
              ms=d100["ms"], plain_ms=d100["plain_ms"], bound_ms=d100["bound_ms"],
              bound_by=d100["bound_by"], library_ms=None),
+        dict(name="flash_attention_train_fwd", route="cuda",
+             source="voxactb_tpu_torch/csrc/flash_attention_train.cu",
+             replaces="voxactb_tpu/ops/pallas/flash_attention.py:140",
+             launches=total["flash_attention_train_fwd"], max_abs_err=max(
+                 r[f"dropout_{d}"]["out"]["max_abs_err"] for r in train_attn.values()
+                 for d in (0.0, 0.1)),
+             ms=per_step("fwd_ms"), plain_ms=per_step("plain_fwd_ms"),
+             bound_ms=per_step("fwd_bound_ms"), bound_by="operations",
+             library_ms=per_step("sdpa_fwd_ms")),
+        dict(name="flash_attention_train_bwd", route="cuda",
+             source="voxactb_tpu_torch/csrc/flash_attention_train.cu",
+             replaces="voxactb_tpu/ops/pallas/flash_attention.py:164",
+             launches=total["flash_attention_train_bwd"], max_abs_err=max(
+                 r[f"dropout_{d}"][g]["max_abs_err"] for r in train_attn.values()
+                 for d in (0.0, 0.1) for g in ("dq", "dk", "dv")),
+             ms=per_step("bwd_ms"), plain_ms=per_step("plain_bwd_ms"),
+             bound_ms=per_step("bwd_bound_ms"), bound_by="operations",
+             library_ms=per_step("sdpa_bwd_ms")),
     ]}
     details["timings"] = timings
     details["runs"] = runs

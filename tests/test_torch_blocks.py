@@ -92,18 +92,71 @@ def test_conv3d_upsample_module(dt):
         assert ulps <= 1.0 and frac < 1e-2, (frac, ulps)
 
 
+def _softargmax_f64(x, temperature=0.01):
+    """The soft-argmax formula in float64, and the error that f32 arithmetic
+    can put on each keypoint, per (batch, channel, axis).
+
+    kp = sum_i e_i pos_i / sum_i e_i with e_i = exp(a_i), a_i = (x_i - m) * 100.
+    With u = 2^-24 (half an f32 ulp, relative):
+    - the argument carries two roundings (the subtraction, the product by 100),
+      so e_i moves by up to 2u |a_i| relative, and exp itself by about one ulp
+      (2u): e_i (1 + d_i) with |d_i| <= 2u (|a_i| + 1). A relative error d_i on
+      term i moves kp by w_i d_i (pos_i - kp), w the softmax weights;
+    - each of the two n^3-term sums is taken in f32 in an order that depends on
+      the machine's blocking and vector width. Every addition rounds a partial
+      sum no larger than sum|t_i|; the errors of n^3 additions accumulate as a
+      random walk: sqrt(n^3) u sum|t_i| (Higham's rule of thumb; the worst case
+      is n^3 u). On kp: sqrt(n^3) u (sum_i w_i |pos_i| + |kp|).
+    The positions (linspace) differ by at most one ulp between the packages,
+    which is within the first term.
+    """
+    b, n = x.shape[0], x.shape[1]
+    u = 2.0 ** -24
+    flat = x.reshape(b, n ** 3, -1).astype(np.float64)
+    m = flat.max(1)
+    a = (flat - m[:, None]) / temperature
+    e = np.exp(a)
+    w = e / e.sum(1, keepdims=True)
+    lin = np.linspace(-1.0, 1.0, n)
+    pos = np.stack([np.broadcast_to(lin[None, :, None], (n, n, n)).reshape(-1),
+                    np.broadcast_to(lin[:, None, None], (n, n, n)).reshape(-1),
+                    np.broadcast_to(lin[None, None, :], (n, n, n)).reshape(-1)], -1)
+    kp = np.einsum("bsc,sk->bck", w, pos)
+    spread = np.abs(pos[None, :, None, :] - kp[:, None])        # [b, s, c, 3]
+    terms = np.einsum("bsc,bsck->bck", w * 2 * u * (np.abs(a) + 1), spread)
+    sums = np.sqrt(n ** 3) * u * (np.einsum("bsc,sk->bck", w, np.abs(pos)) + np.abs(kp))
+    return kp.reshape(b, -1), m, (terms + sums).reshape(b, -1)
+
+
 @pytest.mark.parametrize("n", [10, 20])
 def test_softargmax_stats_3d(n):
+    """Port and JAX package each against the float64 evaluation of the same
+    formula, within 6x the error f32 arithmetic can give (``_softargmax_f64``;
+    the largest bound over the keypoints, since which keypoint draws the
+    unlucky summation order depends on the machine), and against each other
+    within 8x of it, which is 3e-5 at n = 10 and 7e-5 at n = 20: T = 0.01
+    multiplies the logits by 100, so last-bit differences in exp and in the
+    order of an n^3-term f32 sum show in the fifth decimal. The global max has
+    no arithmetic in it and stays exact."""
     rng = np.random.default_rng(n)
     x = (rng.normal(size=(2, n, n, n, 6)) * 0.05).astype(np.float32)
+    kp64, m64, bound = _softargmax_f64(x)
+    bound = bound.max()
+    assert 1e-6 < bound < 1e-5, bound
     kp_ref, m_ref = JB.softargmax_stats_3d(jnp.asarray(x))
     kp, m = B.softargmax_stats_3d(torch.tensor(x))
     np.testing.assert_array_equal(m.numpy(), np.asarray(m_ref))
-    # linspace may differ by one ulp between torch and jnp; f32 sum order
-    np.testing.assert_allclose(kp.numpy(), np.asarray(kp_ref), atol=1e-5)
-    np.testing.assert_allclose(B.spatial_softmax_3d(torch.tensor(x)).numpy(),
-                               np.asarray(JB.spatial_softmax_3d(jnp.asarray(x))),
-                               atol=1e-5)
+    np.testing.assert_array_equal(m.numpy(), m64.astype(np.float32))
+    kp, kp_ref = kp.numpy().astype(np.float64), np.asarray(kp_ref, np.float64)
+    np.testing.assert_allclose(kp, kp64, atol=6 * bound, rtol=0)
+    np.testing.assert_allclose(kp_ref, kp64, atol=6 * bound, rtol=0)
+    np.testing.assert_allclose(kp, kp_ref, atol=8 * bound, rtol=0)
+    # the softmax form of the same function, under the same bounds
+    ss = B.spatial_softmax_3d(torch.tensor(x)).numpy().astype(np.float64)
+    ss_ref = np.asarray(JB.spatial_softmax_3d(jnp.asarray(x)), np.float64)
+    np.testing.assert_allclose(ss, kp64, atol=6 * bound, rtol=0)
+    np.testing.assert_allclose(ss_ref, kp64, atol=6 * bound, rtol=0)
+    np.testing.assert_allclose(ss, ss_ref, atol=8 * bound, rtol=0)
 
 
 @pytest.mark.parametrize("dt", [F32, BF], ids=["f32", "bf16"])

@@ -43,7 +43,9 @@ def test_import_and_cpu_act_load_no_jax():
         from voxactb_tpu_torch.agents.qfunction import make_infer_fn
         from voxactb_tpu_torch.config import MethodConfig
         import voxactb_tpu_torch.weights, voxactb_tpu_torch.agents.qattention_agent
-        import voxactb_tpu_torch.ops.cuda.build
+        import voxactb_tpu_torch.ops.cuda.build, voxactb_tpu_torch.optim
+        import voxactb_tpu_torch.ops.augmentation
+        import voxactb_tpu_torch.ops.cuda.flash_attention_train
 
         cfg = MethodConfig(voxel_sizes=[10], num_latents=8, latent_dim=16,
                            transformer_depth=1, latent_heads=1, latent_dim_head=8,
@@ -57,6 +59,29 @@ def test_import_and_cpu_act_load_no_jax():
                     rng.normal(size=(1, 4)), rng.normal(size=(1, 1024)),
                     rng.normal(size=(1, 77, 512)), [0, 0, 0, 1, 1, 1])
         assert out.continuous_action.shape == (1, 9)
+
+        # the agent's train path: two updates, then an act, on the CPU
+        from voxactb_tpu_torch.agents.qattention_agent import QAttentionBCAgent
+        import dataclasses
+        cfg = dataclasses.replace(cfg, pallas_attention_train=True, which_arm="dominant",
+                                  arm_pred_loss=True)
+        agent = QAttentionBCAgent(cfg, ["wrist"], [0, 0, 0, 1, 1, 1], device="cpu")
+        agent.build(training=True)
+        b = 2
+        pose = rng.normal(size=(b, 7)).astype(np.float32)
+        pose[:, :3] = 0.5
+        batch = {"trans_action_indicies": rng.integers(0, 10, (b, 3)),
+                 "rot_grip_action_indicies": rng.integers(0, 2, (b, 4)),
+                 "ignore_collisions": rng.integers(0, 2, (b, 1)),
+                 "gripper_pose": pose, "label": rng.integers(0, 2, (b, 1)),
+                 "lang_goal_emb": rng.normal(size=(b, 1024)),
+                 "lang_token_embs": rng.normal(size=(b, 77, 512)),
+                 "low_dim_state": rng.normal(size=(b, 7)),
+                 "wrist_rgb": rng.integers(0, 255, (b, 8, 8, 3)),
+                 "wrist_point_cloud": rng.uniform(0, 1, (b, 8, 8, 3))}
+        for i in range(2):
+            loss = float(agent.update(i, batch)["total_loss"])
+            assert np.isfinite(loss)
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in %r)
         print("LOADED", loaded)
@@ -70,7 +95,8 @@ def test_import_and_cpu_act_load_no_jax():
 
 def test_entry_points_raise_without_cuda(monkeypatch):
     from voxactb_tpu_torch.agents.qattention_agent import QAttentionBCAgent
-    from voxactb_tpu_torch.agents.qfunction import build_encoder, make_infer_fn
+    from voxactb_tpu_torch.agents.qfunction import (
+        build_encoder, make_infer_fn, make_optimizer, make_train_step)
     from voxactb_tpu_torch.config import MethodConfig
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -82,3 +108,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         build_encoder(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         QAttentionBCAgent(cfg, ["wrist"], [0, 0, 0, 1, 1, 1]).build(training=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        QAttentionBCAgent(cfg, ["wrist"], [0, 0, 0, 1, 1, 1]).build(training=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(cfg, make_optimizer(cfg), ["wrist"])
+    # the caller may ask for the CPU
+    QAttentionBCAgent(cfg, ["wrist"], [0, 0, 0, 1, 1, 1], device="cpu").build(training=True)

@@ -1,28 +1,30 @@
-"""QAttention BC agent, act-only: the YARR-contract wrapper around the act program.
+"""QAttention BC agent: the YARR-contract wrapper around the act and train programs.
 
 Counterpart of ``voxactb_tpu.agents.qattention_agent.QAttentionBCAgent``
 (itself ``QAttentionPerActBCAgent`` + the decode half of
-``QAttentionStackAgent``). All math runs inside ``make_infer_fn``; the host
-work here is dict plumbing, the proprio selection by arm mode and the
-per-camera pixel projection. Training and checkpoint IO land with the BC
-train-step slice of the port.
+``QAttentionStackAgent``). All math runs inside ``make_infer_fn`` and
+``make_train_step``; the host work here is dict plumbing, the proprio
+selection by arm mode and the per-camera pixel projection. Checkpoints are the
+port's own: one ``torch.save`` file of parameters, optimizer state and step.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from voxactb_tpu_torch.agents.base import ActResult, Agent, ScalarSummary, Summary
-from voxactb_tpu_torch.agents.qfunction import InferOutput, make_infer_fn
+from voxactb_tpu_torch.agents.qfunction import (
+    InferOutput, TrainState, make_infer_fn, make_optimizer, make_train_step)
 from voxactb_tpu_torch.config import MethodConfig
 from voxactb_tpu_torch.device import resolve_device
+from voxactb_tpu_torch.optim import state_from_saved, state_to_cpu
 from voxactb_tpu_torch.utils.observation import point_to_pixel_index
 
 NAME = "QAttentionAgent"
-_TRAIN_SLICE = "the BC train-step slice of the port"
 
 
 def _with_batch(x, event_ndim: int, dtype=np.float32):
@@ -50,25 +52,69 @@ class QAttentionBCAgent(Agent):
         self._camera_names = list(camera_names)
         self._scene_bounds = np.asarray(scene_bounds, np.float32)
         self._batch_size = batch_size
+        self._training_iterations = training_iterations
         self._lang_encoder = lang_encoder
         self._layer = layer
         self._name = f"{NAME}_layer{layer}"
         self._device = device
         self._seed = seed
         self._model = None
-        self._summaries: Dict[str, float] = {}
+        self._training = False
+        self._state: Optional[TrainState] = None
+        self._model_stale = False  # the state's weights are newer than the module's
+        self._pending_opt = None
+        self._summaries: Dict[str, torch.Tensor] = {}
 
     # -- lifecycle -----------------------------------------------------------------
 
     def build(self, training: bool, device=None) -> None:
-        if training:
-            raise NotImplementedError(f"training lands with {_TRAIN_SLICE}")
+        self._training = training
         self._device = resolve_device(device if device is not None else self._device)
+        model = None
+        if training:
+            self._optimizer = make_optimizer(self._cfg, self._training_iterations)
+            model, self._init_fn, self._train_step = make_train_step(
+                self._cfg, self._optimizer, self._camera_names, device=self._device,
+                seed=self._seed)
+            # the crop jitter, the augmentation and the dropout draw from here
+            self._generator = torch.Generator(device=self._device).manual_seed(self._seed)
         self._model, self._infer = make_infer_fn(self._cfg, device=self._device,
-                                                 seed=self._seed)
+                                                 seed=self._seed, model=model)
+
+    def _ensure_state(self) -> None:
+        if self._state is None:
+            # from the module's weights: seeded, or loaded before the first update
+            self._state = self._init_fn()
+            if self._pending_opt is not None:
+                # resume: the checkpoint's optimizer state and step were loaded
+                # before any state existed; dropping them would restart the
+                # LAMB moments and the LR schedule from step 0
+                step, saved = self._pending_opt
+                self._state = TrainState(
+                    torch.tensor(int(step), dtype=torch.int64, device=self._device),
+                    self._state.params, state_from_saved(saved, self._device))
+                self._pending_opt = None
+
+    def _sync_model(self) -> None:
+        """Bring the module's weights up to the train state's before acting."""
+        if self._model_stale:
+            self._model.load_state_dict(self._state.params)
+            self._model_stale = False
+
+    # -- training ------------------------------------------------------------------
 
     def update(self, step: int, replay_sample: dict) -> dict:
-        raise NotImplementedError(f"update lands with {_TRAIN_SLICE}")
+        if not self._training:
+            raise RuntimeError("update() needs build(training=True)")
+        batch = {k: v for k, v in replay_sample.items()
+                 if isinstance(v, (np.ndarray, torch.Tensor, list, float, int))}
+        if "scene_bounds" not in batch:
+            batch["scene_bounds"] = self._scene_bounds
+        self._ensure_state()
+        self._state, metrics = self._train_step(self._state, batch, self._generator)
+        self._model_stale = True
+        self._summaries = {f"losses/{k}": v for k, v in metrics.items()}
+        return {"total_loss": metrics["total_loss"]}
 
     # -- inference -----------------------------------------------------------------
 
@@ -128,6 +174,7 @@ class QAttentionBCAgent(Agent):
 
         if self._model is None:
             self.build(training=False)
+        self._sync_model()
         out: InferOutput = self._infer(self._model, rgbs, pcds, proprio, lang_goal,
                                        lang_tok, bounds)
 
@@ -178,15 +225,51 @@ class QAttentionBCAgent(Agent):
     def act_summaries(self) -> List[Summary]:
         return []
 
+    def _ckpt_path(self, savedir: str) -> str:
+        return os.path.join(savedir, f"{self._name}.pt")
+
     def save_weights(self, savedir: str) -> None:
-        raise NotImplementedError(f"checkpoint IO lands with {_TRAIN_SLICE}")
+        """One ``torch.save`` file: parameters, step and, once training has
+        begun, the optimizer state (all as CPU tensors)."""
+        os.makedirs(savedir, exist_ok=True)
+        if self._model is None:
+            self.build(training=False)
+        self._sync_model()
+        payload = {"params": {k: v.detach().cpu()
+                              for k, v in self._model.state_dict().items()},
+                   "step": 0 if self._state is None else int(self._state.step)}
+        if self._state is not None:
+            payload["opt_state"] = state_to_cpu(self._state.opt_state)
+        torch.save(payload, self._ckpt_path(savedir))
 
     def load_weights(self, savedir: str) -> None:
-        raise NotImplementedError(f"checkpoint IO lands with {_TRAIN_SLICE}")
+        self.load_weight(self._ckpt_path(savedir))
+
+    def load_weight(self, ckpt_file: str) -> None:
+        if str(ckpt_file).endswith(".msgpack"):
+            raise NotImplementedError(
+                "reading the JAX package's msgpack checkpoints is not ported yet (it "
+                "needs flax/msgpack); convert the tree to numpy and assign it to "
+                "`params`, or load a checkpoint written by this agent's save_weights")
+        payload = torch.load(ckpt_file, map_location="cpu", weights_only=True)
+        if self._model is None:
+            self.build(training=False)
+        self._model.load_state_dict(payload["params"])
+        self._model_stale = False
+        had_state = self._state is not None
+        self._state = None  # rebuilt from the loaded weights
+        if self._training and "opt_state" in payload:
+            # restored inside _ensure_state: right away when this agent already
+            # trains, else at the first update (the resume path loads first)
+            self._pending_opt = (payload.get("step", 0), payload["opt_state"])
+            if had_state:
+                self._ensure_state()
 
     @property
     def params(self) -> Optional[torch.nn.Module]:
         """The Q-network module that holds the weights."""
+        if self._model is not None:
+            self._sync_model()
         return self._model
 
     @params.setter
@@ -199,3 +282,8 @@ class QAttentionBCAgent(Agent):
             self._model.load_state_dict(p)  # a state_dict
         else:
             load_flax_params(self._model, p)  # a flax tree of numpy arrays
+        self._model_stale = False
+        if self._state is not None:
+            # keep the optimizer state, train on from the assigned weights
+            self._state = self._state._replace(
+                params={k: v.detach().clone() for k, v in self._model.named_parameters()})

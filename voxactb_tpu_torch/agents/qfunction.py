@@ -1,26 +1,37 @@
-"""Q-attention inference program: observation -> voxelize -> Perceiver -> action.
+"""Functional Q-attention core: the inference and the training program.
 
-Counterpart of the inference half of ``voxactb_tpu.agents.qfunction``
-(``make_infer_fn`` and the dispatch it shares with the bench,
-qfunction.py:35-226). PyTorch runs eagerly, so the program is a plain function
-under ``torch.inference_mode``; its weights are the ``nn.Module`` passed as
-argument 0, so one program serves several parameter sets (the acting and
-stabilizing policies of a VoxAct-B episode).
+Counterpart of ``voxactb_tpu.agents.qfunction``. PyTorch runs eagerly, so each
+direction is a plain function:
+
+- ``make_infer_fn``: observation -> voxelize -> Perceiver -> argmax decode ->
+  continuous action, under ``torch.inference_mode``. Its weights are the
+  ``nn.Module`` passed as argument 0, so one program serves several parameter
+  sets (the acting and stabilizing policies of a VoxAct-B episode).
+- ``make_train_step``: replay batch -> (bounds select | crop jitter) -> SE(3)
+  aug -> voxelize -> forward(dropout) -> vectorised CE losses -> LAMB/Adam
+  update, a function of ``(state, batch)`` whose weights and optimizer state
+  travel in a ``TrainState`` of ``name -> tensor`` dictionaries.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from voxactb_tpu_torch.config import MethodConfig
 from voxactb_tpu_torch.device import resolve_device
 from voxactb_tpu_torch.models.blocks import lrelu
 from voxactb_tpu_torch.models.perceiver import PerceiverVoxelLangEncoder
 from voxactb_tpu_torch.ops import geometry as G
+from voxactb_tpu_torch.ops.augmentation import Se3AugConfig, apply_se3_augmentation
 from voxactb_tpu_torch.ops.voxelize import (
     flatten_camera_observations, reciprocal, voxelize)
+from voxactb_tpu_torch.optim import (
+    Optimizer, OptState, cosine_hard_restarts_schedule, global_norm)
 
 
 def _unported(flag: str, slice_name: str) -> NotImplementedError:
@@ -65,6 +76,9 @@ def build_encoder(cfg: MethodConfig, low_dim_size: Optional[int] = None, *,
         cross_dim_head=cfg.cross_dim_head,
         latent_dim_head=cfg.latent_dim_head,
         activation=cfg.activation,
+        input_dropout=cfg.input_dropout,
+        attn_dropout=cfg.attn_dropout,
+        decoder_dropout=cfg.decoder_dropout,
         voxel_patch_size=cfg.voxel_patch_size,
         voxel_patch_stride=cfg.voxel_patch_stride,
         final_dim=cfg.final_dim,
@@ -77,6 +91,7 @@ def build_encoder(cfg: MethodConfig, low_dim_size: Optional[int] = None, *,
         fused_upsample=cfg.fused_upsample,
         pallas_decoder=cfg.pallas_decoder,
         pallas_attention=cfg.pallas_attention,
+        pallas_attention_train=cfg.pallas_attention_train,
         dtype=torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32,
         generator=gen,
     )
@@ -161,16 +176,18 @@ class InferOutput(NamedTuple):
 
 
 def make_infer_fn(cfg: MethodConfig, low_dim_size: Optional[int] = None, *,
-                  device=None, seed: int = 0):
+                  device=None, seed: int = 0, model=None):
     """Build the act program. Returns ``(model, infer)``; ``infer(model, rgbs,
     pcds, proprio, lang_goal_emb, lang_token_embs, bounds)`` takes any module
-    of this config as its weights.
+    of this config as its weights. ``model``, when given, is returned in place
+    of a newly built one (the train step's module).
 
     For the 'one_policy_more_heads' variant the InferOutput gains a leading
     head axis of size 2 (right, left) on every action field.
     """
     device = resolve_device(device)
-    model = build_encoder(cfg, low_dim_size, device=device, seed=seed)
+    if model is None:
+        model = build_encoder(cfg, low_dim_size, device=device, seed=seed)
     n = cfg.voxel_size
     num_rot = cfg.num_rotation_classes
     two_heads = cfg.variant == "one_policy_more_heads"
@@ -211,3 +228,183 @@ def make_infer_fn(cfg: MethodConfig, low_dim_size: Optional[int] = None, *,
                            voxel_grid=grid, front_overflow=overflow)
 
     return model, infer
+
+
+# ---------------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------------
+
+
+class TrainState(NamedTuple):
+    step: torch.Tensor                 # int64 scalar on the device
+    params: Dict[str, torch.Tensor]    # parameter name -> f32 tensor
+    opt_state: OptState
+
+
+def make_optimizer(cfg: MethodConfig, training_iterations: int = 1_000_000) -> Optimizer:
+    """LAMB (default) or Adam with the reference hyperparameters
+    (qattention_peract_bc_agent.py:255-268; PERACT_BC.yaml:30-35). The
+    trust-ratio leaves are set by ``make_train_step`` from its model."""
+    lr = (cosine_hard_restarts_schedule(cfg.lr, cfg.num_warmup_steps, training_iterations,
+                                        max(1, training_iterations // 10_000))
+          if cfg.lr_scheduler else cfg.lr)
+    return Optimizer(cfg.optimizer, lr, weight_decay=cfg.lambda_weight_l2)
+
+
+def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-sample cross entropy with integer labels, in f32."""
+    return F.cross_entropy(logits.to(torch.float32), labels.to(torch.int64),
+                           reduction="none")
+
+
+def make_train_step(cfg: MethodConfig, optimizer: Optimizer, camera_names: Sequence[str],
+                    low_dim_size: Optional[int] = None, *, device=None, seed: int = 0):
+    """Build the BC train step. Returns ``(model, init_fn, step_fn)``.
+
+    ``step_fn(state, batch, generator) -> (state, metrics)``: ``batch`` carries
+    the replay signature (launch_utils.py:37-166): per-camera ``{cam}_rgb``
+    (uint8 scale) and ``{cam}_point_cloud``, ``trans_action_indicies``,
+    ``rot_grip_action_indicies``, ``ignore_collisions``, ``gripper_pose``,
+    ``lang_goal_emb``, ``lang_token_embs``, ``low_dim_state``, optional
+    ``target_object_scene_bounds`` / ``label`` and the ``*_left`` twins for the
+    one_policy_more_heads variant. ``generator`` is a ``torch.Generator`` on
+    the device (None: the device's default generator); the crop jitter, the
+    augmentation candidates and the dropout seeds are drawn from it in that
+    order. ``metrics`` are 0-dim tensors on the device (no host sync).
+    ``model`` holds the seeded initial weights; the step reads its weights
+    from ``state`` and leaves the module's own untouched.
+    ``step_fn.loss_and_grads(state, batch, generator)`` gives the losses and
+    the gradients without the update.
+    """
+    from voxactb_tpu_torch.weights import leaf_groups
+
+    device = resolve_device(device)
+    model = build_encoder(cfg, low_dim_size, device=device, seed=seed)
+    optimizer = optimizer.with_leaf_groups(leaf_groups(model))
+    n = cfg.voxel_size
+    num_rot = cfg.num_rotation_classes
+    two_heads = cfg.variant == "one_policy_more_heads"
+    aug_cfg = Se3AugConfig(trans_range=tuple(cfg.aug_xyz), rot_range_deg=tuple(cfg.aug_rpy),
+                           rot_resolution_deg=cfg.aug_rot_resolution)
+
+    def to_device(batch):
+        out = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(v)
+            if t.is_floating_point():
+                t = t.to(torch.float32)
+            out[k] = t.to(device)
+        return out
+
+    def forward(params, grid, low_dim, lang_emb, lang_toks, seeds):
+        return functional_call(model, params, (grid, low_dim, lang_emb, lang_toks),
+                               dict(train=True, dropout_seeds=seeds))
+
+    def loss_fn(params, batch, bounds, generator):
+        pcds = [batch[f"{c}_point_cloud"] for c in camera_names]
+        rgbs = [normalize_rgb(batch[f"{c}_rgb"]) for c in camera_names]
+        b = pcds[0].shape[0]
+
+        trans_labels = batch["trans_action_indicies"][:, :3].to(torch.int32)
+        rot_grip_labels = batch["rot_grip_action_indicies"].to(torch.int32)
+        if two_heads:
+            trans_labels_l = batch["trans_action_indicies_left"][:, :3].to(torch.int32)
+            rot_grip_labels_l = batch["rot_grip_action_indicies_left"].to(torch.int32)
+
+        with torch.no_grad():
+            if cfg.apply_se3:
+                aug = apply_se3_augmentation(
+                    generator, pcds, batch["gripper_pose"], rot_grip_labels, bounds,
+                    voxel_size=n, rot_resolution_deg=cfg.rotation_resolution, cfg=aug_cfg,
+                    action_gripper_pose_left=batch.get("gripper_pose_left")
+                    if two_heads else None,
+                    action_rot_grip_left=rot_grip_labels_l if two_heads else None)
+                pcds = list(aug.pcds)
+                trans_labels, rot_grip_labels = aug.trans_indices, aug.rot_grip_indices
+                if two_heads:
+                    trans_labels_l = aug.trans_indices_left
+                    rot_grip_labels_l = aug.rot_grip_indices_left
+            coords, feats = flatten_camera_observations(rgbs, pcds)
+            grid = voxelize(coords, feats, bounds, voxel_size=n)
+
+        # the dropout seeds are drawn before the (optionally rematerialised)
+        # forward and passed in, so a recomputed forward sees the same masks
+        seeds = model.draw_dropout_seeds(generator)
+        args = (params, grid, batch["low_dim_state"], batch["lang_goal_emb"],
+                batch["lang_token_embs"], seeds)
+        out = checkpoint(forward, *args, use_reentrant=False) if cfg.remat \
+            else forward(*args)
+
+        collision_labels = batch["ignore_collisions"][:, 0]
+
+        def head_losses(trans, rot_grip, collision, t_lab, rg_lab):
+            t_lab = t_lab.to(torch.int64)
+            flat_label = (t_lab[:, 0] * n + t_lab[:, 1]) * n + t_lab[:, 2]
+            l_trans = _ce(trans.reshape(b, -1), flat_label)
+            l_rot = sum(_ce(rot_grip[:, i * num_rot:(i + 1) * num_rot], rg_lab[:, i])
+                        for i in range(3))
+            l_grip = _ce(rot_grip[:, 3 * num_rot:], rg_lab[:, 3])
+            l_coll = _ce(collision, collision_labels)
+            return l_trans, l_rot, l_grip, l_coll
+
+        metrics = {}
+        l_arm = 0.0
+        if two_heads:
+            right = head_losses(out["trans_right"], out["rot_grip_right"],
+                                out["collision_right"], trans_labels, rot_grip_labels)
+            left = head_losses(out["trans_left"], out["rot_grip_left"],
+                               out["collision_left"], trans_labels_l, rot_grip_labels_l)
+            l_trans, l_rot, l_grip, l_coll = (r + l for r, l in zip(right, left))
+        else:
+            l_trans, l_rot, l_grip, l_coll = head_losses(
+                out["trans"], out["rot_grip"], out["collision"], trans_labels,
+                rot_grip_labels)
+            if cfg.arm_pred_loss:
+                l_arm = _ce(out["arm"], batch["label"].reshape(b))
+                metrics["arm_loss"] = l_arm.mean()
+
+        total = (l_trans * cfg.trans_loss_weight + l_rot * cfg.rot_loss_weight
+                 + l_grip * cfg.grip_loss_weight + l_coll * cfg.collision_loss_weight
+                 + l_arm * cfg.arm_loss_weight).mean()
+        metrics.update(total_loss=total, trans_loss=l_trans.mean(), rot_loss=l_rot.mean(),
+                       grip_loss=l_grip.mean(), collision_loss=l_coll.mean())
+        return total, metrics
+
+    def loss_and_grads(state: TrainState, batch: dict, generator=None):
+        """``(metrics, grads)`` of one batch at ``state.params``: the losses as
+        0-dim tensors and ``parameter name -> gradient``."""
+        batch = to_device(batch)
+        b = batch["trans_action_indicies"].shape[0]
+
+        # bounds: per-sample VLM-crop bounds override the static scene bounds
+        # (qattention update :431-451), with optional +/-5cm crop-point jitter
+        if cfg.crop_target_obj_voxel:
+            bounds = batch["target_object_scene_bounds"]
+            if cfg.randomizations_crop_point:
+                shift = torch.rand((b, 3), generator=generator, device=device) * 0.1 - 0.05
+                bounds = bounds + shift.repeat(1, 2)
+        else:
+            bounds = torch.broadcast_to(batch["scene_bounds"].reshape(-1, 6), (b, 6))
+
+        names = list(state.params)
+        params = {k: state.params[k].detach().requires_grad_() for k in names}
+        total, metrics = loss_fn(params, batch, bounds, generator)
+        grads = dict(zip(names, torch.autograd.grad(total, [params[k] for k in names])))
+        return {k: v.detach() for k, v in metrics.items()}, grads
+
+    def train_step(state: TrainState, batch: dict, generator=None):
+        metrics, grads = loss_and_grads(state, batch, generator)
+        with torch.no_grad():
+            params, opt_state = optimizer.update(grads, state.opt_state, state.params)
+            metrics["grad_norm"] = global_norm(grads)
+        return TrainState(state.step + 1, params, opt_state), metrics
+
+    train_step.loss_and_grads = loss_and_grads
+
+    def init_fn() -> TrainState:
+        """The model's seeded weights, zero moments, step 0."""
+        params = {k: v.detach().clone() for k, v in model.named_parameters()}
+        return TrainState(torch.zeros((), dtype=torch.int64, device=device), params,
+                          optimizer.init(params))
+
+    return model, init_fn, train_step

@@ -7,7 +7,8 @@ importing the JAX package's module.
 
 The ``pallas_*`` kernel switches keep their names: in the port,
 ``pallas_front``, ``pallas_attention`` and ``pallas_decoder`` select the
-hand-written Hopper kernels of the act path (``ops/cuda/``).
+hand-written Hopper kernels of the act path and ``pallas_attention_train``
+the trainable attention kernel of the BC train step (``ops/cuda/``).
 """
 
 from __future__ import annotations
@@ -94,7 +95,7 @@ class MethodConfig:
 
     # Accelerator extras
     compute_dtype: str = "float32"  # 'bfloat16' for tensor-core inference
-    remat: bool = False             # training only (later slice)
+    remat: bool = False             # recompute the forward in the backward
     fused_upsample: bool = True     # phase-decomposed decoder upsample-conv
     pallas_stats: bool = False      # standalone stats kernel (later slice)
     zshift_conv3d: bool = True      # a TPU conv schedule; same math, ignored
@@ -106,7 +107,7 @@ class MethodConfig:
     front_scatter_unroll: int = 1   # TPU schedule of the front scatter; ignored
     front_scatter_matmul: bool = False  # TPU schedule of the front scatter; ignored
     pallas_attention: bool = False  # Hopper flash-attention kernel (inference, bf16)
-    pallas_attention_train: bool = False  # training attention (later slice)
+    pallas_attention_train: bool = False  # Hopper trainable attention kernel (bf16)
     pallas_interpret: bool = False  # TPU interpret mode; ignored (CPU tensors
     # always take the kernels' plain versions)
 

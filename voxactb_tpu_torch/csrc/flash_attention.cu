@@ -29,19 +29,14 @@
 // Products run on the tensor cores through WMMA 16x16x16 bf16 tiles; logits of
 // a 16 x 64 slab go through shared memory for the row-wise softmax.
 
-#include "common.cuh"
+#include "attention.cuh"
 
 namespace {
 
 using vx::bf16;
 using namespace nvcuda;
+using namespace vx::attn;
 
-constexpr int kHd = 64;
-constexpr int kBk = 64;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kLd = kHd + 8;     // bf16 row stride of the q/k/v/p tiles
-constexpr int kLdS = kBk + 4;    // f32 row stride of the logit slab
 constexpr int kMaxDevices = 64;
 
 // kRowGroups warps share each key tile; kWarps / kRowGroups key groups take
@@ -61,18 +56,6 @@ struct Layout {
   static constexpr int kBytes = kRow + 2 * kRows * 4;
 };
 
-// rows x 64 bf16 (8 chunks of 16 bytes per row) by `nt` threads; rows past
-// rows_valid are zero
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int rows,
-                                          int rows_valid, int t, int nt) {
-  for (int j = t; j < rows * (kHd / 8); j += nt) {
-    int r = j / (kHd / 8), ch = j % (kHd / 8);
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < rows_valid) val = *reinterpret_cast<const uint4*>(src + (size_t)r * kHd + ch * 8);
-    *reinterpret_cast<uint4*>(dst + r * kLd + ch * 8) = val;
-  }
-}
-
 // barrier of the warps that share a key tile (named barrier 1 + group)
 template <int kRowGroups>
 __device__ __forceinline__ void group_sync(int group) {
@@ -81,40 +64,6 @@ __device__ __forceinline__ void group_sync(int group) {
   } else {
     asm volatile("bar.sync %0, %1;" ::"r"(group + 1), "r"(32 * kRowGroups) : "memory");
   }
-}
-
-// S (16 x 64, f32, in shared memory) = Q_warp (16 x 64) . K_tile^T
-__device__ __forceinline__ void logits_slab(const bf16* Qw, const bf16* Ks, float* Sw) {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> s[4];
-#pragma unroll
-  for (int n = 0; n < 4; ++n) wmma::fill_fragment(s[n], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < kHd / 16; ++kk) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, Qw + kk * 16, kLd);
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      // K^T as a column-major (d x key) matrix is K's row-major (key x d) storage
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bk;
-      wmma::load_matrix_sync(bk, Ks + n * 16 * kLd + kk * 16, kLd);
-      wmma::mma_sync(s[n], a, bk, s[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-    wmma::store_matrix_sync(Sw + n * 16, s[n], kLdS, wmma::mem_row_major);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 template <int kRowGroups>
@@ -221,17 +170,7 @@ flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
       Pw[r * kLd + lane + 32] = __float2bfloat16_rn(p1);
     }
     __syncwarp();
-#pragma unroll
-    for (int kk = 0; kk < kBk / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, Pw + kk * 16, kLd);
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(bv, Vg + kk * 16 * kLd + n * 16, kLd);
-        wmma::mma_sync(acc[n], a, bv, acc[n]);
-      }
-    }
+    accumulate_pv(acc, Pw, Vg);
     group_sync<kRowGroups>(kg);
   }
 

@@ -14,6 +14,7 @@ Dense layers, zeros for biases.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -79,22 +80,55 @@ def lecun_normal_(w: torch.Tensor, fan_in: int,
 # -- f32-accumulating convolution ---------------------------------------------
 
 
+def _exact_products(x: torch.Tensor):
+    """Context in which an f32 cuDNN conv of upcast operands forms exact
+    products. For bf16 operands on the card TF32 is allowed: a bf16 value
+    (8-bit mantissa) is exact in TF32 (11-bit), so the tensor cores still form
+    exact products and sum them in f32."""
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        cudnn = torch.backends.cudnn
+        return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                           deterministic=cudnn.deterministic, allow_tf32=True)
+    return contextlib.nullcontext()
+
+
+class _ConvF32Acc(torch.autograd.Function):
+    """``_conv_f32acc`` of the JAX package (blocks.py:29-60): the forward
+    keeps the f32 sums; the backward casts the cotangent to the operand dtype
+    and runs the two transposed convolutions in that dtype, so ``dx`` and
+    ``dw`` are f32 sums of exact products rounded once to the operand dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride):
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        with _exact_products(x):
+            return F.conv3d(x.to(torch.float32), w.to(torch.float32), stride=stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        f32 = torch.float32
+        g = g.to(x.dtype).to(f32)
+        dx = dw = None
+        with _exact_products(x):
+            if ctx.needs_input_grad[0]:
+                dx = torch.nn.grad.conv3d_input(x.shape, w.to(f32), g,
+                                                stride=ctx.stride).to(x.dtype)
+            if ctx.needs_input_grad[1]:
+                dw = torch.nn.grad.conv3d_weight(x.to(f32), w.shape, g,
+                                                 stride=ctx.stride).to(w.dtype)
+        return dx, dw, None
+
+
 def conv3d_f32acc(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """VALID 3D conv of compute-dtype operands with f32 accumulation.
 
     ``x`` is NCDHW, ``w`` OIDHW, both already rounded to the compute dtype;
-    the result is f32. The operands are upcast so every product is exact. For
-    bf16 operands on the card TF32 is allowed: a bf16 value (8-bit mantissa)
-    is exact in TF32 (11-bit), so the tensor cores still form exact products
-    and sum them in f32.
+    the result is f32. The operands are upcast so every product is exact.
+    Differentiable, with the JAX package's mixed-precision backward.
     """
-    xf, wf = x.to(torch.float32), w.to(torch.float32)
-    if x.is_cuda and x.dtype == torch.bfloat16:
-        cudnn = torch.backends.cudnn
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                         deterministic=cudnn.deterministic, allow_tf32=True):
-            return F.conv3d(xf, wf, stride=stride)
-    return F.conv3d(xf, wf, stride=stride)
+    return _ConvF32Acc.apply(x, w, stride)
 
 
 def to_ncdhw(x: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""PerceiverIO voxel-language Q-network (inference), PyTorch.
+"""PerceiverIO voxel-language Q-network (inference and training), PyTorch.
 
 Counterpart of ``voxactb_tpu.models.perceiver`` (itself the behavioural twin of
 ``PerceiverVoxelLangEncoder``, peract/agents/peract_bc/perceiver_lang_io.py).
@@ -13,7 +13,10 @@ cross-attn--> [B,8000,128] --x5 upsample + skip-concat d0 + k3 conv--> u
 
 Three paths take the hand-written kernels (``ops/cuda``), exactly where the
 JAX package takes its Pallas kernels: ``front=`` (from the fused front,
-``pallas_front``), ``pallas_attention`` at bf16, ``pallas_decoder``.
+``pallas_front``), ``pallas_attention`` at bf16, ``pallas_decoder``. Under
+``train=True`` those three are off, as in the JAX package, and
+``pallas_attention_train`` at bf16 takes the trainable attention kernel with
+its in-kernel dropout; every other op differentiates through torch autograd.
 """
 
 from __future__ import annotations
@@ -31,18 +34,25 @@ from voxactb_tpu_torch.models.blocks import (
 class Attention(nn.Module):
     """Multi-head attention, queries from ``x``, keys/values from ``context``
     (perceiver_lang_io.py:93-132): no-bias q/k/v projections (flax's fused
-    ``to_kv`` is split into ``to_k`` and ``to_v``), biased output projection.
-    Softmax runs in f32 regardless of the compute dtype."""
+    ``to_kv`` is split into ``to_k`` and ``to_v``), biased output projection,
+    post-softmax dropout. Softmax runs in f32 regardless of the compute dtype.
+
+    Dropout, on either path, keeps the elements that ``keep_mask`` of
+    ``ops/cuda/flash_attention_train`` derives from a seed: the caller draws
+    the seed (from its generator, on the device) and passes it in, so a
+    recomputed forward (``torch.utils.checkpoint``) sees the same mask."""
 
     def __init__(self, query_dim: int, context_dim: int, heads: int, dim_head: int,
-                 out_dim: int, flash: bool = False,
-                 dtype: torch.dtype = torch.float32,
+                 out_dim: int, dropout: float = 0.0, flash: bool = False,
+                 flash_train: bool = False, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         inner = heads * dim_head
         self.heads = heads
         self.dim_head = dim_head
+        self.dropout = dropout
         self.flash = flash
+        self.flash_train = flash_train
         self.dtype = dtype
         self.to_q = Dense(query_dim, inner, use_bias=False, dtype=dtype,
                           generator=generator)
@@ -53,7 +63,8 @@ class Attention(nn.Module):
                           generator=generator)
         self.to_out = Dense(inner, out_dim, dtype=dtype, generator=generator)
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None):
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None, *,
+                train: bool = False, seed: Optional[torch.Tensor] = None):
         context = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(context), self.to_v(context)
 
@@ -64,16 +75,32 @@ class Attention(nn.Module):
         q, k, v = map(split_heads, (q, k, v))
         scale = self.dim_head ** -0.5
         b, h, n, d = q.shape
-        if self.flash and self.dtype == torch.bfloat16:
+        dropout = self.dropout if train else 0.0
+        if dropout > 0.0 and seed is None:
+            raise ValueError("attention dropout in train mode needs a seed")
+        bf16 = self.dtype == torch.bfloat16
+        flat = lambda t: t.reshape(b * h, t.shape[2], d)
+        if self.flash and not train and bf16:
             from voxactb_tpu_torch.ops.cuda.flash_attention import flash_attention
 
-            flat = lambda t: t.reshape(b * h, t.shape[2], d)
             # q scaled in the compute dtype before the kernel, as the JAX flash path
             out = flash_attention(flat(q * scale), flat(k), flat(v)).reshape(b, h, n, d)
+        elif self.flash_train and train and bf16:
+            from voxactb_tpu_torch.ops.cuda.flash_attention_train import (
+                flash_attention_train)
+
+            out = flash_attention_train(flat(q * scale), flat(k), flat(v),
+                                        0 if seed is None else seed,
+                                        dropout=dropout).reshape(b, h, n, d)
         else:
             sim = torch.matmul(q.to(torch.float32),
                                k.to(torch.float32).transpose(-1, -2))
             attn = torch.softmax(sim * scale, dim=-1)
+            if dropout > 0.0:
+                from voxactb_tpu_torch.ops.cuda.flash_attention_train import keep_mask
+
+                keep = keep_mask(seed, b * h, n, k.shape[2], dropout).reshape(sim.shape)
+                attn = attn * keep.to(torch.float32) * (1.0 / (1.0 - dropout))
             out = torch.matmul(attn.to(v.dtype).to(torch.float32),
                                v.to(torch.float32))
         out = out.transpose(1, 2).reshape(b, n, h * d).to(self.dtype)
@@ -84,20 +111,22 @@ class PreNormAttention(nn.Module):
     """LayerNorm(x) [+ LayerNorm(context)] -> Attention (perceiver_lang_io.py:56-71)."""
 
     def __init__(self, query_dim: int, context_dim: int, heads: int, dim_head: int,
-                 out_dim: int, norm_context: bool = False, flash: bool = False,
+                 out_dim: int, dropout: float = 0.0, norm_context: bool = False,
+                 flash: bool = False, flash_train: bool = False,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.norm = LayerNorm(query_dim, dtype=dtype)
         self.norm_context = LayerNorm(context_dim, dtype=dtype) if norm_context else None
         self.attn = Attention(query_dim, context_dim, heads, dim_head, out_dim,
-                              flash=flash, dtype=dtype, generator=generator)
+                              dropout=dropout, flash=flash, flash_train=flash_train,
+                              dtype=dtype, generator=generator)
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, *, train: bool = False, seed=None):
         y = self.norm(x)
         if context is not None and self.norm_context is not None:
             context = self.norm_context(context)
-        return self.attn(y, context)
+        return self.attn(y, context, train=train, seed=seed)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -130,8 +159,8 @@ class FeedForward(nn.Module):
 
 
 class PerceiverVoxelLangEncoder(nn.Module):
-    """Voxel grid + language + proprio -> Q values for trans/rot/grip/collision
-    (inference only). ``arm_pred=True`` adds the acting/stabilizing arm-ID head;
+    """Voxel grid + language + proprio -> Q values for trans/rot/grip/collision.
+    ``arm_pred=True`` adds the acting/stabilizing arm-ID head;
     ``num_proprio=2, two_arm_heads=True`` is the 'one_policy_more_heads'
     variant (right/left heads off one trunk)."""
 
@@ -142,14 +171,16 @@ class PerceiverVoxelLangEncoder(nn.Module):
                  im_channels: int = 64, latent_dim: int = 512, cross_heads: int = 1,
                  latent_heads: int = 8, cross_dim_head: int = 64,
                  latent_dim_head: int = 64, activation: str = "lrelu",
-                 voxel_patch_size: int = 5, voxel_patch_stride: int = 5,
+                 input_dropout: float = 0.1, attn_dropout: float = 0.1,
+                 decoder_dropout: float = 0.0, voxel_patch_size: int = 5,
+                 voxel_patch_stride: int = 5,
                  final_dim: int = 64, lang_emb_dim: int = 512,
                  lang_max_seq_len: int = 77, no_skip_connection: bool = False,
                  no_perceiver: bool = False, no_language: bool = False,
                  arm_pred: bool = False, num_proprio: int = 1,
                  two_arm_heads: bool = False, fused_upsample: bool = True,
                  pallas_decoder: bool = False, pallas_attention: bool = False,
-                 dtype: torch.dtype = torch.float32,
+                 pallas_attention_train: bool = False, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = generator
@@ -194,20 +225,21 @@ class PerceiverVoxelLangEncoder(nn.Module):
             self.pos_encoding.normal_(0.0, 1.0, generator=g)
             self.latents.normal_(0.0, 1.0, generator=g)
 
+        flash = dict(flash=pallas_attention, flash_train=pallas_attention_train)
+        self.dropouts = (input_dropout, attn_dropout, decoder_dropout)
         self.cross_attend = PreNormAttention(latent_dim, dim, cross_heads, cross_dim_head,
-                                             latent_dim, norm_context=True,
-                                             flash=pallas_attention, dtype=dtype,
-                                             generator=g)
+                                             latent_dim, input_dropout, norm_context=True,
+                                             dtype=dtype, generator=g, **flash)
         self.cross_ff = FeedForward(latent_dim, dtype=dtype, generator=g)
         for i in range(depth):
             setattr(self, f"self_attn_{i}", PreNormAttention(
                 latent_dim, latent_dim, latent_heads, latent_dim_head, latent_dim,
-                flash=pallas_attention, dtype=dtype, generator=g))
+                attn_dropout, dtype=dtype, generator=g, **flash))
             setattr(self, f"self_ff_{i}", FeedForward(latent_dim, dtype=dtype,
                                                       generator=g))
         self.decoder_cross_attn = PreNormAttention(
-            dim, latent_dim, cross_heads, cross_dim_head, dim, norm_context=True,
-            flash=pallas_attention, dtype=dtype, generator=g)
+            dim, latent_dim, cross_heads, cross_dim_head, dim, decoder_dropout,
+            norm_context=True, dtype=dtype, generator=g, **flash)
 
         self.up0 = Conv3DUpsample(dim, final_dim, voxel_patch_stride, voxel_patch_size,
                                   activation, fast=fused_upsample, dtype=dtype,
@@ -240,14 +272,38 @@ class PerceiverVoxelLangEncoder(nn.Module):
                 and not self.no_perceiver and self.activation == "lrelu"
                 and self.im_channels == self.final_dim)
 
+    def num_dropout_seeds(self) -> int:
+        """One seed per attention call of a forward."""
+        return self.iterations * (1 + self.depth) + 1
+
+    def draw_dropout_seeds(self, generator: Optional[torch.Generator] = None
+                           ) -> torch.Tensor:
+        """The dropout seeds of one train-mode forward: int64 values below
+        2^32, drawn on the parameters' device (no host sync) from ``generator``
+        (None: that device's default generator)."""
+        return torch.randint(0, 1 << 32, (self.num_dropout_seeds(),), dtype=torch.int64,
+                             device=self.latents.device, generator=generator)
+
     def forward(self, voxel_grid: torch.Tensor, proprio: torch.Tensor,
                 lang_goal_emb: Optional[torch.Tensor], lang_token_embs: torch.Tensor,
-                *, front=None):
+                *, train: bool = False, dropout_seeds: Optional[torch.Tensor] = None,
+                front=None):
         """``voxel_grid [B,N,N,N,10]`` (channels last), ``proprio [B, low_dim]``
         or ``[B, 2, low_dim]``, ``lang_token_embs [B, 77, 512]``. ``front``,
         when given, is ``(d0, patch_tokens, kp0, gmax0)`` from the fused front
-        kernel; ``voxel_grid`` then only carries the batch size."""
+        kernel; ``voxel_grid`` then only carries the batch size. ``train=True``
+        applies dropout from ``dropout_seeds`` (``draw_dropout_seeds``; drawn
+        here from the default generator when not given) and keeps to the
+        differentiable ops."""
         del lang_goal_emb  # 'seq' fusion conditions on token embeddings only
+        if train and front is not None:
+            raise ValueError("the fused front is an inference path")
+        seeds = [None] * self.num_dropout_seeds()
+        if train and any(d > 0.0 for d in self.dropouts):
+            if dropout_seeds is None:
+                dropout_seeds = self.draw_dropout_seeds()
+            seeds = list(dropout_seeds.unbind(0))
+        seeds = iter(seeds)
         dt = self.dtype
         b = voxel_grid.shape[0]
         spatial = self.voxel_size // self.voxel_patch_stride
@@ -277,13 +333,13 @@ class PerceiverVoxelLangEncoder(nn.Module):
 
         x = self.latents[None].to(dt).expand(b, self.num_latents, self.latent_dim)
         for _ in range(self.iterations):
-            x = self.cross_attend(x, seq) + x
+            x = self.cross_attend(x, seq, train=train, seed=next(seeds)) + x
             x = self.cross_ff(x) + x
             for i in range(self.depth):
-                x = getattr(self, f"self_attn_{i}")(x) + x
+                x = getattr(self, f"self_attn_{i}")(x, train=train, seed=next(seeds)) + x
                 x = getattr(self, f"self_ff_{i}")(x) + x
 
-        decoded = self.decoder_cross_attn(seq, x)
+        decoded = self.decoder_cross_attn(seq, x, train=train, seed=next(seeds))
         grid = decoded[:, self.lang_max_seq_len:].reshape(b, spatial, spatial, spatial, dim)
         kp1, gmax1 = softargmax_stats_3d(grid)
         feats.extend([kp1, gmax1])
@@ -291,7 +347,7 @@ class PerceiverVoxelLangEncoder(nn.Module):
         u0 = self.up0(grid)
         heads = ["", "_left"] if self.two_arm_heads else [""]
         trans = {}
-        if self._tail_eligible():
+        if self._tail_eligible() and not train:
             from voxactb_tpu_torch.ops.cuda.decoder_head import decoder_head
 
             tds = [getattr(self, f"trans_decoder{s}") for s in heads]

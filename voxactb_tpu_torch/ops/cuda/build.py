@@ -25,7 +25,8 @@ from typing import Dict
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-SOURCES = ("front_fused", "flash_attention", "decoder_head")
+SOURCES = ("front_fused", "flash_attention", "decoder_head",
+           "flash_attention_train")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
