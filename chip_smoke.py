@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's act path and BC train step on one NVIDIA H100
-and check them.
+"""Drive the PyTorch/CUDA port's act path, its VLM crop path and its BC train
+step on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py
 
@@ -12,9 +12,11 @@ Phases:
                attention at its cross/self/decoder shapes, decoder tail at 50^3
                and 100^3 and with two heads at 50^3, trainable attention
                forward and backward at the train step's three shapes and a
-               ragged one: keep mask bit-equal, planted faults must fail);
-               time kernel, plain version and, where one PyTorch call computes
-               the same function, that call.
+               ragged one: keep mask bit-equal, planted faults must fail; SAM
+               attention at ViT-H's global and windowed shapes and a ragged
+               case that planted faults must fail); time kernel, plain version
+               and, where one PyTorch call computes the same function, that
+               call.
   3. act100  - full-width ``make_infer_fn`` at 100^3, batch 1 and 8, seeded
                weights: kernels on against the same weights with the kernel
                flags off (Q-field and head logits each within twice the plain
@@ -25,14 +27,21 @@ Phases:
                acting (dominant, arm head) and stabilizing (assistive) policies
                alternating over a 25-act episode on a 50^3 crop; then one act
                of the two-head variant, kernels on against kernels off.
-  5. train50 - ``make_train_step`` at full width (50^3 crop, batch 8, bf16,
+  5. vlm_episode - the per-episode VLM crop path at full width on a synthetic
+               512^2 front RGB-D frame: OWL-ViT B/32 detect, SAM ViT-H (SAM
+               attention on its global and windowed blocks) and its mask
+               decoder, against the plain path at bf16 and f32 under the act's
+               rule; the crop point and radius, the scene bounds, and a 25-act
+               dual-policy episode at 50^3 inside them with CLIP-text language;
+               stage times and one profiled VLM pass.
+  6. train50 - ``make_train_step`` at full width (50^3 crop, batch 8, bf16,
                depth 6, LAMB): one step's losses and gradients with dropout
                and augmentation off, kernels on against the plain attention
                path (within twice the plain bf16 path's distance from f32);
                timed steps with SE(3) augmentation and dropout on (loss finite
                and falling); a second run from the same seed; one step under
                the profiler; two ``agent.update`` steps.
-  6. report  - every kernel's launch count rose during its main-path run;
+  7. report  - every kernel's launch count rose during its main-path run;
                one ``{"kernels": [...]}`` line.
 Then the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -491,6 +500,123 @@ def check_attention_train(rng, details):
     return rows
 
 
+# K7 at the SAM ViT-H encoder's shapes at 1024^2, head dim 80: (BH, kh, kw) of
+# a global block (16 heads over the 64 x 64 token grid), of a windowed one
+# (25 windows of 14 x 14 tokens x 16 heads), and of the ragged case, two heads
+# of one window (T = 196 = 3 * 64 + 4)
+SAM_ATTENTION_SHAPES = {"global": (16, 64, 64), "windowed": (400, 14, 14),
+                        "ragged": (2, 14, 14)}
+SAM_HD = 80
+
+
+def sam_attention_inputs(g, name, bh, kh, kw, dev):
+    """q (pre-scaled, bf16), k, v and the f32 rel terms. The ragged case's
+    real logits sit near -10 with a rel_h term of spread 2 and a small rel_w
+    term, and its values are near +1 in head 0 and -1 in head 1: keys past T
+    (logit 0 plus a small bias) would dominate their rows, and a rel_h read by
+    the key's grid column (h and w swapped) reweights every row."""
+    import torch
+
+    t = kh * kw
+    if name == "ragged":
+        sign = torch.tensor([1.0, -1.0]).reshape(2, 1, 1)
+        q = sign * 0.25 + 0.05 * torch.randn(bh, t, SAM_HD, generator=g)
+        k = -sign * 0.5 + 0.2 * torch.randn(bh, t, SAM_HD, generator=g)
+        v = sign + 0.5 * torch.randn(bh, t, SAM_HD, generator=g)
+        rel_h = 2.0 * torch.randn(bh, t, kh, generator=g)
+        rel_w = 0.25 * torch.randn(bh, t, kw, generator=g)
+    else:
+        q = torch.randn(bh, t, SAM_HD, generator=g) * SAM_HD ** -0.5
+        k = torch.randn(bh, t, SAM_HD, generator=g)
+        v = torch.randn(bh, t, SAM_HD, generator=g)
+        rel_h = 0.5 * torch.randn(bh, t, kh, generator=g)
+        rel_w = 0.5 * torch.randn(bh, t, kw, generator=g)
+    bf = torch.bfloat16
+    return (q.to(dev, bf), k.to(dev, bf), v.to(dev, bf), rel_h.to(dev), rel_w.to(dev))
+
+
+def sam_unmasked_tail(q, k, v, rel_h, rel_w, kh, kw):
+    """K7 with the keys past T in the last 64-key tile taking part: the grid
+    grows by enough rows of zero keys and values (and zero rel_h columns) to
+    cover that tile, so each such key enters its row with logit rel_w. A
+    planted fault, run through the real kernel; returns the first T rows."""
+    import torch
+    import torch.nn.functional as F
+    from voxactb_tpu_torch.ops.cuda.sam_attention import global_rel_attention
+
+    t = kh * kw
+    kh2 = kh + -(-(-t % 64) // kw)
+    pad = kh2 * kw - t
+    rows = lambda x: F.pad(x, (0, 0, 0, pad))
+    out = global_rel_attention(rows(q), rows(k), rows(v), F.pad(rel_h, (0, kh2 - kh, 0, pad)),
+                               rows(rel_w), kh=kh2, kw=kw)
+    return out[:, :t]
+
+
+def check_sam_attention(rng, details):
+    """K7 against its plain version on the card at the encoder's two shapes and
+    a ragged case that planted faults must fail; two launches bit-equal."""
+    import torch
+    import torch.nn.functional as F
+    from voxactb_tpu_torch.ops.cuda.sam_attention import global_rel_attention
+    from voxactb_tpu_torch.ops.sam_attention import global_rel_attention_plain
+
+    dev = torch.device(DEVICE)
+    rows = {}
+    for name, (bh, kh, kw) in SAM_ATTENTION_SHAPES.items():
+        g = torch.Generator(device="cpu").manual_seed(int(rng.integers(1 << 30)))
+        q, k, v, rel_h, rel_w = sam_attention_inputs(g, name, bh, kh, kw, dev)
+        t = kh * kw
+        got = global_rel_attention(q, k, v, rel_h, rel_w, kh=kh, kw=kw)
+        ref = global_rel_attention_plain(q, k, v, rel_h, rel_w, kh=kh, kw=kw)
+        again = global_rel_attention(q, k, v, rel_h, rel_w, kh=kh, kw=kw)
+        torch.cuda.synchronize()
+        # kernel and plain version round P and the output at the same points
+        # and differ in f32 summation order only: an output may sit one bf16
+        # ulp of its own size away, and 2^-7 of the largest is one to two ulps
+        ref_max = float(ref.float().abs().max())
+        tol = 2.0 ** -7 * ref_max
+        err = max_err(got, ref)
+        expect(err <= tol, f"sam_attention {name}: err {err} > {tol}")
+        expect(torch.equal(got, again), f"sam_attention {name}: two launches differ")
+        planted = {}
+        if name == "ragged":
+            wrong = {"rel_h_w_swapped": global_rel_attention(q, k, v, rel_w, rel_h,
+                                                             kh=kw, kw=kh),
+                     "unmasked_tail": sam_unmasked_tail(q, k, v, rel_h, rel_w, kh, kw)}
+            for fault, out in wrong.items():
+                planted[fault] = max_err(out, ref)
+                expect(planted[fault] > tol, f"sam_attention ragged: planted fault {fault} "
+                                             f"err {planted[fault]} within {tol}")
+        del got, again
+        ms = time_ms(lambda: global_rel_attention(q, k, v, rel_h, rel_w, kh=kh, kw=kw))
+        plain = time_ms(lambda: global_rel_attention_plain(q, k, v, rel_h, rel_w, kh=kh,
+                                                           kw=kw), reps=5)
+        # the library call on [1, BH, T, hd] with the whole [BH, T, T] bias built
+        # beforehand (SDPA takes a float mask in the operands' dtype); the call
+        # alone is timed
+        bias = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(bh, t, t).to(q.dtype)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], attn_mask=bias[None], scale=1.0))
+        del bias
+        nbytes = 2.0 * 4 * bh * t * SAM_HD + 4.0 * bh * t * (kh + kw)
+        flops = 4.0 * bh * t * t * SAM_HD
+        bms, by = bound_ms(nbytes, flops)
+        rows[name] = dict(shape=f"{name} BH={bh} T={t} kh={kh} kw={kw} hd={SAM_HD}",
+                          max_abs_err=err, tol=tol, ref_max=ref_max,
+                          planted_fault_err=planted, ms=ms, plain_ms=plain,
+                          library_ms=lib, bound_ms=bms, bound_by=by)
+        log(f"[kernels] sam_attention {name} BH={bh} T={t} kh={kh} kw={kw}: err {err:.3g} "
+            f"(tol {tol:.3g}), two launches bit-equal" + "".join(
+                f", planted {f} err {e:.3g}" for f, e in planted.items())
+            + f"; {ms:.4f} ms, plain {plain:.4f} ms, sdpa with the bias {lib:.4f} ms, "
+            f"bound {bms:.4f} ms ({by})")
+        del q, k, v, rel_h, rel_w, ref
+        torch.cuda.empty_cache()
+    details["sam_attention"] = rows
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: the act path
 # ---------------------------------------------------------------------------
@@ -850,7 +976,294 @@ def two_head50(rng, details):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the BC train step
+# phase 5: the VLM crop path (VoxAct-B's once-per-episode perception)
+# ---------------------------------------------------------------------------
+
+VLM_TASK = "open_drawer"
+VLM_DESCRIPTION = "hold the drawer with left hand and open the bottom drawer with right hand"
+VLM_FRAME = 512
+# the towers at the reference's widths: OWL-ViT B/32 at 768^2 (embed 512)
+# with its text tower (width 512, 12 layers, projection 512), SAM ViT-H at
+# 1024^2 (sam_vit_h's arguments) with the mask decoder at its defaults, and
+# the CLIP RN50 text tower of the acts (ClipLanguageEncoder's defaults)
+VLM_TOWERS = dict(
+    owl=dict(img_size=768, patch=32, dim=768, depth=12, heads=12), owl_embed=512,
+    owl_text=dict(width=512, heads=8, layers=12, embed_dim=512),
+    sam=dict(img_size=1024, embed_dim=1280, depth=32, num_heads=16,
+             global_attn_indexes=(7, 15, 23, 31)),
+    decoder=dict())
+
+
+def vlm_frame(rng):
+    """A front RGB-D frame (from numpy seed 0 in the run): a cloud spread over the workspace with the task's
+    object (a 6 cm cube of points) on a 128 x 128 pixel patch, which has the
+    task's colour on a dark background."""
+    from voxactb_tpu_torch.vlm.pipeline import TASK_COLORS
+
+    n = VLM_FRAME
+    pcd = rng.uniform(-1, 1, (n, n, 3)).astype(np.float32)
+    pcd[..., 2] += 1.0
+    obj = np.zeros((n, n), bool)
+    obj[n // 4:n // 4 + 128, n // 2 - 64:n // 2 + 64] = True
+    pcd[obj] = np.asarray([0.2, -0.1, 0.9], np.float32) + rng.uniform(
+        -0.03, 0.03, (int(obj.sum()), 3)).astype(np.float32)
+    rgb = rng.integers(0, 60, (n, n, 3)).astype(np.uint8)
+    rgb[obj] = TASK_COLORS[VLM_TASK].astype(np.uint8)
+    return rgb, pcd
+
+
+def vlm_towers(seed):
+    """The kernel path's towers in bf16 with weights from ``seed``, on the card:
+    K7 on SAM's global and windowed blocks. The weights are drawn on the card
+    from a generator there (ViT-H's 637M draws take minutes on the host). The
+    rel-pos tables, zero at initialisation, get seeded values so that the bias
+    path does work."""
+    import torch
+    from voxactb_tpu_torch.models.clip_text import ClipTextEncoder
+    from voxactb_tpu_torch.models.owlvit import OwlViTDetector, OwlViTImageEncoder
+    from voxactb_tpu_torch.models.sam_decoder import SamMaskDecoder
+    from voxactb_tpu_torch.models.sam_encoder import SamImageEncoder
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    bf = torch.bfloat16
+    t = VLM_TOWERS
+    with torch.device(DEVICE):
+        towers = dict(
+            owl=OwlViTDetector(t["owl_embed"], OwlViTImageEncoder(**t["owl"], dtype=bf,
+                                                                  generator=g),
+                               dtype=bf, generator=g),
+            owl_text=ClipTextEncoder(**t["owl_text"], dtype=bf, generator=g),
+            sam=SamImageEncoder(**t["sam"], fused_global=True, fused_windowed=True,
+                                dtype=bf, generator=g),
+            decoder=SamMaskDecoder(**t["decoder"], dtype=bf, generator=g))
+    with torch.no_grad():
+        for name, p in towers["sam"].named_parameters():
+            if "rel_pos" in name:
+                p.normal_(0.0, 0.1, generator=g)
+    return {k: m.eval() for k, m in towers.items()}
+
+
+def sam_plain(seg, dtype):
+    """The segmenter ``seg`` with its weights, K7 off, at ``dtype`` (built on
+    the meta device, then filled)."""
+    import torch
+    from voxactb_tpu_torch.models.sam_decoder import SamMaskDecoder, SamSegmenter
+    from voxactb_tpu_torch.models.sam_encoder import SamImageEncoder
+
+    dt = getattr(torch, dtype)
+    with torch.device("meta"):
+        enc = SamImageEncoder(**VLM_TOWERS["sam"], fused_global=False, dtype=dt)
+        dec = SamMaskDecoder(**VLM_TOWERS["decoder"], dtype=dt)
+    enc, dec = enc.to_empty(device=DEVICE), dec.to_empty(device=DEVICE)
+    enc.load_state_dict(seg.encoder.state_dict())
+    dec.load_state_dict(seg.decoder.state_dict())
+    return SamSegmenter(enc.eval(), dec.eval(), VLM_TOWERS["sam"]["img_size"])
+
+
+def compare_sam_paths(seg, rgb, box, details):
+    """SAM on the kernel path against the plain path at bf16 on the same
+    weights, frame and box, under the act's rule: each group (the image
+    embedding, the mask logits, the IoU predictions) within twice the plain
+    bf16 path's distance from the plain f32 path. The chosen mask may differ
+    only where the plain path's top-two IoU gap is within that tolerance, and
+    a mask pixel only where the plain path's |logit| is."""
+    import torch
+
+    groups = ("embedding", "mask_logits", "iou")
+    outs = {"kernel": seg.predict(rgb, box)}
+    for dtype in ("bfloat16", "float32"):
+        ref = sam_plain(seg, dtype)
+        outs[dtype] = ref.predict(rgb, box)
+        del ref
+        torch.cuda.empty_cache()
+    report = {}
+    for i, g in enumerate(groups):
+        on, off, f32 = (outs[p][i].float() for p in ("kernel", "bfloat16", "float32"))
+        expect(bool(torch.isfinite(on).all()), f"vlm_episode: non-finite {g}")
+        report[g] = dict(max_abs_err=max_err(on, off), tol=2.0 * max_err(off, f32),
+                         plain_vs_f32=max_err(off, f32), kernel_vs_f32=max_err(on, f32),
+                         ref_max=float(off.abs().max()))
+    iou_on, iou_off = (outs[p][2][0].float().cpu() for p in ("kernel", "bfloat16"))
+    best_on, best_off = int(iou_on.argmax()), int(iou_off.argmax())
+    top2 = iou_off.topk(2).values
+    gap = float(top2[0] - top2[1])
+    report["mask_index"] = dict(kernel=best_on, plain=best_off, plain_top2_gap=gap)
+    # the pixels, both at the plain path's choice, resized to the frame
+    frame_hw = rgb.shape[:2]
+    on_px = seg.mask_logits(outs["kernel"][1], frame_hw, best_off)
+    off_px = seg.mask_logits(outs["bfloat16"][1], frame_hw, best_off)
+    flipped = (on_px > 0) != (off_px > 0)
+    tol_px = report["mask_logits"]["tol"]
+    report["mask_pixels"] = dict(
+        differing=int(flipped.sum()),
+        beyond_tolerance=int((flipped & (off_px.abs() > tol_px)).sum()),
+        area=int((off_px > 0).sum()), frame=list(frame_hw))
+    details["vlm_compare"] = report
+    log("[vlm_episode] SAM kernel path vs plain path: " + ", ".join(
+        f"{g} err {report[g]['max_abs_err']:.3g} (tol {report[g]['tol']:.3g}; plain bf16 "
+        f"vs f32 {report[g]['plain_vs_f32']:.3g}, kernel vs f32 "
+        f"{report[g]['kernel_vs_f32']:.3g}, largest {report[g]['ref_max']:.3g})"
+        for g in groups) + f"; mask index {best_on} (plain {best_off}, top-two gap "
+        f"{gap:.3g}); {report['mask_pixels']['differing']} of "
+        f"{report['mask_pixels']['area']} mask pixels differ, "
+        f"{report['mask_pixels']['beyond_tolerance']} beyond the tolerance")
+    bad = [g for g in groups if report[g]["max_abs_err"] > report[g]["tol"]]
+    expect(not bad, f"vlm_episode: kernel vs plain beyond tolerance in {bad}")
+    expect(best_on == best_off or gap <= report["iou"]["tol"],
+           f"vlm_episode: mask index {best_on} vs {best_off} with a top-two gap {gap}")
+    expect(report["mask_pixels"]["beyond_tolerance"] == 0,
+           "vlm_episode: mask pixels flipped beyond the tolerance")
+    del outs
+    torch.cuda.empty_cache()
+    return report
+
+
+def vlm_episode(rng, details, timings, n_acts=25):
+    """The per-episode VLM crop path at full width, then a 25-act dual-policy
+    episode at 50^3 inside the crop it derives, language from CLIP text."""
+    import torch
+    from voxactb_tpu_torch.agents.qattention_agent import QAttentionBCAgent
+    from voxactb_tpu_torch.models.clip_text import ClipLanguageEncoder
+    from voxactb_tpu_torch.models.owlvit import OwlViTPipeline
+    from voxactb_tpu_torch.models.sam_decoder import SamSegmenter
+    from voxactb_tpu_torch.models.sam_encoder import preprocess_image
+    from voxactb_tpu_torch.ops import cuda as kernels
+    from voxactb_tpu_torch.ops.geometry import scene_bounds_from_crop
+    from voxactb_tpu_torch.vlm.pipeline import VLM, TorchOwlVitSamDetector, task_queries
+
+    t0 = time.perf_counter()
+    towers = vlm_towers(seed=3)
+    lang = ClipLanguageEncoder(dtype=torch.bfloat16, device=DEVICE, seed=4)
+    owl = OwlViTPipeline(towers["owl"], towers["owl_text"],
+                         img_size=VLM_TOWERS["owl"]["img_size"])
+    seg = SamSegmenter(towers["sam"], towers["decoder"], VLM_TOWERS["sam"]["img_size"])
+    detector = TorchOwlVitSamDetector(owl, seg, score_threshold=0.0)
+    vlm = VLM(detector)
+    log(f"[vlm_episode] towers built in {time.perf_counter() - t0:.1f} s")
+    rgb, pcd = vlm_frame(np.random.default_rng(0))
+
+    # the kernel path against the plain path, on the box OWL-ViT proposes
+    query_emb = owl.embed_queries([task_queries(VLM_TASK)])
+    box, score = owl.detect(rgb, query_emb, score_threshold=0.0)
+    compare_sam_paths(seg, rgb, box, details)
+
+    cams = ["wrist", "wrist2"]
+    acting = QAttentionBCAgent(act_config(50, which_arm="dominant", arm_pred_loss=True,
+                                          crop_target_obj_voxel=True, crop_radius=0.3),
+                               cams, SCENE_BOUNDS, lang_encoder=lang, device=DEVICE, seed=0)
+    stabilizing = QAttentionBCAgent(act_config(50, which_arm="assistive",
+                                               crop_target_obj_voxel=True, crop_radius=0.3),
+                                    cams, SCENE_BOUNDS, lang_encoder=lang, device=DEVICE,
+                                    seed=1)
+    acting.build(training=False)
+    stabilizing.build(training=False)
+    tokens = lang.tokenize(VLM_DESCRIPTION)[0]
+
+    def observation(t):
+        rgbs, pcds = clouds(rng, 1)
+        obs = {"lang_goal_tokens": tokens}
+        for c, r, p in zip(cams, rgbs, pcds):
+            obs[f"{c}_rgb"], obs[f"{c}_point_cloud"] = r[0], p[0]
+        time_ch = (1.0 - t / (n_acts - 1)) * 2.0 - 1.0
+        for arm in ("left", "right"):
+            obs[f"low_dim_state_{arm}_arm"] = np.asarray([1.0, 0.02, 0.02, time_ch],
+                                                         np.float32)
+        return obs
+
+    episode = [observation(t) for t in range(n_acts)]
+
+    def run_episode():
+        """VLM pass -> crop bounds -> 25 alternating acts; per-act walls."""
+        t_vlm = time.perf_counter()
+        point, radius = vlm.get_target_object_world_coords(rgb, pcd, VLM_TASK)
+        bounds = scene_bounds_from_crop(point, radius).numpy()
+        vlm_ms = (time.perf_counter() - t_vlm) * 1e3
+        walls, actions = [], []
+        for t, obs in enumerate(episode):
+            agent, arm = (acting, "dominant") if t % 2 == 0 else (stabilizing, "assistive")
+            t_act = time.perf_counter()
+            res = agent.act(t, obs, which_arm=arm, new_scene_bounds=bounds,
+                            dominant_assitive_policy=True)
+            walls.append((time.perf_counter() - t_act) * 1e3)
+            actions.append(np.asarray(res.action))
+        return point, radius, bounds, vlm_ms, walls, actions
+
+    run_episode()  # warm every path
+    torch.cuda.synchronize()
+    shapes = {}
+
+    sam = VLM_TOWERS["sam"]
+    window = sam.get("window_size", 14)
+    n_global = len(sam["global_attn_indexes"])
+    want = {"global": n_global, "windowed": sam["depth"] - n_global}
+
+    def count_shapes(attention):
+        def fn(q, k, v, rel_h, rel_w, *, kh, kw):
+            key = "windowed" if (kh, kw) == (window, window) else "global"
+            shapes[key] = shapes.get(key, 0) + 1
+            return attention(q, k, v, rel_h, rel_w, kh=kh, kw=kw)
+        return fn
+
+    torch.cuda.reset_peak_memory_stats()
+    with planted("voxactb_tpu_torch.ops.cuda.sam_attention", "global_rel_attention",
+                 count_shapes):
+        kernels.reset_launch_counts()
+        t_ep = time.perf_counter()
+        point, radius, bounds, vlm_ms, walls, actions = run_episode()
+        torch.cuda.synchronize()
+        episode_ms = (time.perf_counter() - t_ep) * 1e3
+        counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect(counts["sam_attention"] == sam["depth"] and shapes == want,
+           f"vlm_episode: K7 launches {counts['sam_attention']} ({shapes}) in one VLM pass")
+    lo, hi = bounds[:3], bounds[3:]
+    for a in actions:
+        expect(a.shape == (9,) and bool(np.isfinite(a).all()), "vlm_episode action")
+        expect(bool(((a[:3] >= lo) & (a[:3] <= hi)).all()),
+               f"vlm_episode: action {a[:3]} outside the derived bounds {bounds}")
+        expect(abs(float(np.linalg.norm(a[3:7])) - 1.0) < 1e-3, "vlm_episode quaternion")
+
+    # stage times on the card (CUDA events), and one profiled VLM pass
+    img = VLM_TOWERS["sam"]["img_size"]
+    x = preprocess_image(rgb, img, torch.device(DEVICE))
+    # the decoder's box as SamSegmenter.predict normalises it
+    box_t = torch.as_tensor((np.asarray(box, np.float32)[None] * (img / VLM_FRAME) + 0.5)
+                            / img, device=DEVICE)
+    with torch.inference_mode():
+        emb = seg.encoder(x)
+        stage = dict(
+            sam_encode_ms=time_ms(lambda: seg.encoder(x), reps=5),
+            owl_detect_ms=time_ms(lambda: owl.detect(rgb, query_emb, 0.0), reps=5),
+            sam_decode_ms=time_ms(lambda: seg.decoder(emb, box_t), reps=5))
+    vlm_walls = []
+    for _ in range(3):
+        t_vlm = time.perf_counter()
+        vlm.get_target_object_world_coords(rgb, pcd, VLM_TASK)
+        vlm_walls.append((time.perf_counter() - t_vlm) * 1e3)
+    vlm_pass_ms = statistics.median(vlm_walls)
+    profile_act(lambda: vlm.get_target_object_world_coords(rgb, pcd, VLM_TASK), "vlm_pass",
+                details, vlm_pass_ms)
+    timings["vlm_episode"] = dict(
+        vlm_pass_ms=vlm_pass_ms, vlm_pass_ms_in_episode=vlm_ms, **stage,
+        ms_per_act_median=statistics.median(walls), ms_per_act_mean=statistics.mean(walls),
+        episode_ms=episode_ms, acts=n_acts, peak_memory_gib=peak_gb,
+        crop_point=[float(v) for v in point], crop_radius=radius,
+        bounds=[float(v) for v in bounds], owl_box=[float(v) for v in box],
+        owl_score=score)
+    log(f"[vlm_episode] box {np.round(box, 1).tolist()} (score {score:.3f}) -> crop point "
+        f"{np.round(point, 4).tolist()}, radius {radius:.4f}, bounds "
+        f"{np.round(bounds, 3).tolist()}; SAM-H encode {stage['sam_encode_ms']:.3f} ms, OWL "
+        f"detect {stage['owl_detect_ms']:.3f} ms, SAM decode {stage['sam_decode_ms']:.3f} "
+        f"ms, VLM pass {vlm_pass_ms:.3f} ms; {statistics.median(walls):.3f} ms/act median; "
+        f"episode (VLM pass + {n_acts} acts) {episode_ms:.3f} ms; peak memory "
+        f"{peak_gb:.2f} GiB; launches: {counts}, K7 by shape {shapes}")
+    del towers, seg, owl, detector, vlm, acting, stabilizing, lang, emb, x
+    torch.cuda.empty_cache()
+    return dict(acts=n_acts, vlm_passes=1, launches=counts, sam_attention_by_shape=shapes)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the BC train step
 # ---------------------------------------------------------------------------
 
 TRAIN_CAMERAS = ["wrist", "wrist2"]
@@ -1056,6 +1469,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from voxactb_tpu_torch.agents.qfunction import build_encoder
+    from voxactb_tpu_torch.ops import cuda as kernels
     from voxactb_tpu_torch.ops.cuda import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1088,6 +1502,9 @@ def main() -> int:
         del model, d0
         torch.cuda.empty_cache()
     train_attn = check_attention_train(rng, details)
+    # the VLM slice's phases draw from streams of their own, so that the
+    # earlier phases keep their inputs
+    sam_attn = check_sam_attention(np.random.default_rng(1), details)
     log(f"[kernels] checks took {time.perf_counter() - t0:.1f} s")
 
     runs = {}
@@ -1099,15 +1516,19 @@ def main() -> int:
     runs["two_head50"] = two_head50(rng, details)
     log(f"[dual50] took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    runs["vlm_episode"] = vlm_episode(np.random.default_rng(2), details, timings)
+    log(f"[vlm_episode] took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     runs["train50"] = train50(rng, details, timings)
     log(f"[train50] took {time.perf_counter() - t0:.1f} s")
 
-    # phase 6: every kernel was launched on the main path that runs it
+    # phase 7: every kernel was launched on the main path that runs it
     act_kernels = ("front_fused", "flash_attention", "decoder_head")
-    train_kernels = ("flash_attention_train_fwd", "flash_attention_train_bwd")
-    total = {k: 0 for k in act_kernels + train_kernels}
+    path_kernels = {"train50": ("flash_attention_train_fwd", "flash_attention_train_bwd"),
+                    "vlm_episode": act_kernels + ("sam_attention",)}
+    total = {k: 0 for k in kernels.LAUNCHES}
     for name, run in runs.items():
-        for k in train_kernels if name == "train50" else act_kernels:
+        for k in path_kernels.get(name, act_kernels):
             v = run["launches"][k]
             total[k] += v
             expect(v > 0, f"kernel {k} was not launched on the main path {name}")
@@ -1119,6 +1540,12 @@ def main() -> int:
     # batch 8 at 50^3: one cross, six self, one decoder attention per train step
     per_step = lambda key: (train_attn["cross"][key] + 6 * train_attn["self"][key]
                             + train_attn["decoder"][key])
+    # one VLM pass of ViT-H: its global and its windowed launches
+    sam_blocks = {"global": len(VLM_TOWERS["sam"]["global_attn_indexes"])}
+    sam_blocks["windowed"] = VLM_TOWERS["sam"]["depth"] - sam_blocks["global"]
+    per_pass = lambda key: sum(n * sam_attn[s][key] for s, n in sam_blocks.items())
+    sam_by = {by: sum(n * sam_attn[s]["bound_ms"] for s, n in sam_blocks.items()
+                      if sam_attn[s]["bound_by"] == by) for by in ("bytes", "operations")}
     kernels_line = {"kernels": [
         dict(name="front_fused", route="cuda",
              source="voxactb_tpu_torch/csrc/front_fused.cu",
@@ -1161,6 +1588,13 @@ def main() -> int:
              ms=per_step("bwd_ms"), plain_ms=per_step("plain_bwd_ms"),
              bound_ms=per_step("bwd_bound_ms"), bound_by="operations",
              library_ms=per_step("sdpa_bwd_ms")),
+        dict(name="sam_attention", route="cuda",
+             source="voxactb_tpu_torch/csrc/sam_attention.cu",
+             replaces="voxactb_tpu/ops/pallas/sam_attention.py:67",
+             launches=total["sam_attention"],
+             max_abs_err=max(r["max_abs_err"] for r in sam_attn.values()),
+             ms=per_pass("ms"), plain_ms=per_pass("plain_ms"), bound_ms=per_pass("bound_ms"),
+             bound_by=max(sam_by, key=sam_by.get), library_ms=per_pass("library_ms")),
     ]}
     details["timings"] = timings
     details["runs"] = runs

@@ -9,6 +9,16 @@ from voxactb_tpu_torch.agents.qattention_agent import QAttentionBCAgent
 from voxactb_tpu_torch.agents.qfunction import make_infer_fn
 from voxactb_tpu_torch.config import MethodConfig
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run torch on one thread: at these sizes its intra-op pool only contends
+    with itself and with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 CAMERAS = ["wrist", "wrist2"]
 BOUNDS = [-0.8, -1.0, 0.1, 1.2, 1.0, 2.1]
 IMG = 16
@@ -152,15 +162,18 @@ def test_resume_restores_optimizer_state_and_step(trained_agent, tmp_path):
 def test_agent_memorizes_training_batch():
     """Enough updates on one batch drive the translation argmax to the
     ground-truth voxel: loss, gradients, optimizer and decode are consistent.
-    How far 60 updates get depends on the initial draw (of four seeds of
-    either package's initialiser two end near 6, from the same draw the two
-    packages follow one curve); seed 1 ends near 1e-4."""
+    How far the updates get depends on the initial draw (of four seeds of
+    either package's initialiser two end near 6 after 60 updates, from the
+    same draw the two packages follow one curve) and on the f32 summation
+    order, which changes with torch's thread count: on one thread seed 1's
+    loss is 2e-4 after 60 updates with sample 0's translation argmax still
+    off, and the argmax is exact from 80 updates on (loss 7e-5 at 100)."""
     cfg = tiny_cfg(apply_se3=False, lr=5e-3, arm_pred_loss=False, input_dropout=0.0,
                    attn_dropout=0.0)
     agent = _agent(cfg, seed=1)
     batch = synthetic_batch(np.random.default_rng(0), cfg)
     batch.pop("label")
-    for i in range(60):
+    for i in range(100):
         out = agent.update(i, dict(batch))
     assert float(out["total_loss"]) < 2.0
     _, infer = make_infer_fn(cfg, device="cpu", model=agent.params)

@@ -12,6 +12,16 @@ import torch
 from voxactb_tpu.ops import augmentation as JA
 from voxactb_tpu_torch.ops import augmentation as A
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run torch on one thread: at these sizes its intra-op pool only contends
+    with itself and with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 BOUNDS = np.asarray([-0.3, -0.5, 0.6, 0.7, 0.5, 1.6], np.float32)
 N = 20
 

@@ -20,6 +20,16 @@ from voxactb_tpu_torch.models import perceiver as P
 from voxactb_tpu_torch.ops import upsample_conv as U
 from voxactb_tpu_torch.weights import load_flax_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run torch on one thread: at these sizes its intra-op pool only contends
+    with itself and with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 BF = (jnp.bfloat16, torch.bfloat16)
 F32 = (jnp.float32, torch.float32)
 

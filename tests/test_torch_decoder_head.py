@@ -12,6 +12,16 @@ from voxactb_tpu_torch.ops.cuda import LAUNCHES
 from voxactb_tpu_torch.ops.cuda.decoder_head import decoder_head, decoder_head_reference
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run torch on one thread: at these sizes its intra-op pool only contends
+    with itself and with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _case(t_heads, n=10, c=16, b=2):
     rng = np.random.default_rng(t_heads)
     d0 = rng.normal(size=(b, n, n, n, c)).astype(np.float32)

@@ -18,6 +18,16 @@ from voxactb_tpu_torch.ops.cuda.flash_attention import (
 from voxactb_tpu_torch.weights import load_flax_params
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run torch on one thread: at these sizes its intra-op pool only contends
+    with itself and with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _qkv(rng, bh, tq, tk, hd):
     q = (rng.normal(size=(bh, tq, hd)) * hd ** -0.5).astype(np.float32)
     k = rng.normal(size=(bh, tk, hd)).astype(np.float32)

@@ -18,6 +18,16 @@ from voxactb_tpu_torch.ops.cuda import LAUNCHES
 from voxactb_tpu_torch.ops.cuda import flash_attention_train as K4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run torch on one thread: at these sizes its intra-op pool only contends
+    with itself and with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _mk(rng, *shape):
     return rng.normal(size=shape).astype(np.float32)
 

@@ -14,6 +14,16 @@ from voxactb_tpu.ops.voxelize import voxelize as jax_voxelize
 from voxactb_tpu_torch.ops.cuda import LAUNCHES
 from voxactb_tpu_torch.ops.cuda.front_fused import front_fused, front_fused_reference
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run torch on one thread: at these sizes its intra-op pool only contends
+    with itself and with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 N, C, P = 10, 16, 2048
 
 

@@ -12,6 +12,16 @@ from voxactb_tpu.ops import geometry as JG
 from voxactb_tpu_torch.ops import geometry as G
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run torch on one thread: at these sizes its intra-op pool only contends
+    with itself and with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _quats(rng, n):
     q = rng.normal(size=(n, 4)).astype(np.float32)
     return q / np.linalg.norm(q, axis=-1, keepdims=True)

@@ -11,6 +11,17 @@ import textwrap
 import pytest
 import torch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run torch on one thread: at these sizes its intra-op pool only contends
+    with itself and with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "voxactb_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "voxactb_tpu")
@@ -40,12 +51,26 @@ def test_import_and_cpu_act_load_no_jax():
     script = textwrap.dedent("""
         import sys
         import numpy as np
+        import torch
+        torch.set_num_threads(1)
         from voxactb_tpu_torch.agents.qfunction import make_infer_fn
         from voxactb_tpu_torch.config import MethodConfig
         import voxactb_tpu_torch.weights, voxactb_tpu_torch.agents.qattention_agent
         import voxactb_tpu_torch.ops.cuda.build, voxactb_tpu_torch.optim
         import voxactb_tpu_torch.ops.augmentation
         import voxactb_tpu_torch.ops.cuda.flash_attention_train
+        import voxactb_tpu_torch.vlm.pipeline, voxactb_tpu_torch.models.sam_encoder
+        import voxactb_tpu_torch.models.sam_decoder, voxactb_tpu_torch.models.owlvit
+        import voxactb_tpu_torch.ops.cuda.sam_attention
+        from voxactb_tpu_torch.models.clip_text import ClipLanguageEncoder
+
+        # the tokenizer reads the port's own copy of the BPE vocab
+        import os
+        from voxactb_tpu_torch.utils import bpe
+        vocab = os.path.realpath(bpe._DEFAULT_VOCAB_PATHS[1])
+        assert vocab.endswith("voxactb_tpu_torch/assets/bpe_simple_vocab_16e6.txt.gz"), vocab
+        enc = ClipLanguageEncoder(device="cpu")
+        assert list(enc.tokenize("open the jar")[0][:5]) == [49406, 1488, 518, 10837, 49407]
 
         cfg = MethodConfig(voxel_sizes=[10], num_latents=8, latent_dim=16,
                            transformer_depth=1, latent_heads=1, latent_dim_head=8,

@@ -17,6 +17,16 @@ from voxactb_tpu_torch import optim as O
 from voxactb_tpu_torch.agents.qfunction import make_optimizer
 from voxactb_tpu_torch.config import MethodConfig
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run torch on one thread: at these sizes its intra-op pool only contends
+    with itself and with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 STEPS = 10
 GROUPS = [["attn.to_k", "attn.to_v"]]
 

@@ -14,6 +14,16 @@ from voxactb_tpu.models.perceiver import PerceiverVoxelLangEncoder as JaxEncoder
 from voxactb_tpu_torch.models.perceiver import PerceiverVoxelLangEncoder
 from voxactb_tpu_torch.weights import load_flax_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run torch on one thread: at these sizes its intra-op pool only contends
+    with itself and with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 SMALL = dict(depth=2, voxel_size=10, num_latents=32, latent_dim=64, im_channels=8,
              cross_dim_head=16, latent_heads=2, latent_dim_head=16, final_dim=8,
              num_rotation_classes=72)

@@ -22,6 +22,16 @@ from voxactb_tpu_torch.ops.cuda import LAUNCHES
 from voxactb_tpu_torch.weights import (
     flax_tree_to_tensors, load_flax_params, opt_state_from_optax, tensors_to_flax_tree)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run torch on one thread: at these sizes its intra-op pool only contends
+    with itself and with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 CAMERAS = ["wrist", "wrist2"]
 IMG = 12
 TINY = dict(voxel_sizes=[10], num_latents=16, latent_dim=32, transformer_depth=1,

@@ -14,6 +14,16 @@ from voxactb_tpu_torch.ops import geometry as G
 from voxactb_tpu_torch.ops.voxelize import (
     bin_points, flatten_camera_observations, voxelize)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run torch on one thread: at these sizes its intra-op pool only contends
+    with itself and with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 # mixed per-sample bounds: a scene volume, a VLM crop, a degenerate-ish thin box
 BOUNDS = np.array([[-0.8, -1.0, 0.1, 1.2, 1.0, 2.1],
                    [-0.1, -0.3, 0.5, 0.5, 0.3, 1.1],

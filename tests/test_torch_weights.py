@@ -16,6 +16,16 @@ from voxactb_tpu_torch.agents.qfunction import build_encoder
 from voxactb_tpu_torch.config import MethodConfig
 from voxactb_tpu_torch.weights import flax_targets, load_flax_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run torch on one thread: at these sizes its intra-op pool only contends
+    with itself and with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 TINY = dict(voxel_sizes=[10], num_latents=16, latent_dim=32, transformer_depth=1,
             latent_heads=2, latent_dim_head=16, cross_dim_head=16)
 

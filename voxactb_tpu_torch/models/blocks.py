@@ -284,6 +284,83 @@ class Conv3DUpsample(nn.Module):
         return act_fn(self.activation)(y).to(self.dtype)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as XLA expands it, ``1 / (1 + exp(-x))`` op by op in
+    ``x``'s dtype (at bf16 ``torch.sigmoid`` rounds once and differs from it
+    in about a third of the outputs)."""
+    one = torch.tensor(1.0, dtype=x.dtype, device=x.device)
+    return one / (one + torch.exp(-x))
+
+
+def gelu_erf(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=False)``, ``0.5 x erfc(-x sqrt(1/2))``,
+    op by op in ``x``'s dtype with the constants rounded to it (at bf16 every
+    op rounds, as in the JAX package)."""
+    def c(v):
+        return torch.tensor(v, dtype=x.dtype, device=x.device)
+
+    return c(0.5) * x * torch.special.erfc(-x * c(math.sqrt(0.5)))
+
+
+class Conv2D(nn.Module):
+    """flax ``nn.Conv`` in 2D, ``[B, H, W, C]`` in and out: operands cast to
+    ``dtype``, the f32 sum of their exact products rounded to ``dtype``, then
+    the bias added in ``dtype``. ``weight`` is stored OIHW. ``padding`` is
+    "VALID" or "SAME" (stride 1, odd kernel)."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int,
+                 strides: int = 1, padding: str = "VALID", use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if padding not in ("VALID", "SAME") or (padding == "SAME" and (
+                strides != 1 or kernel_size % 2 == 0)):
+            raise ValueError(f"Conv2D padding {padding!r} with kernel {kernel_size}, "
+                             f"stride {strides}")
+        self.strides = strides
+        self.pad = kernel_size // 2 if padding == "SAME" else 0
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(features, in_features, kernel_size,
+                                               kernel_size))
+        lecun_normal_(self.weight, in_features * kernel_size ** 2, generator)
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xc = x.permute(0, 3, 1, 2).to(self.dtype)
+        with _exact_products(xc):
+            y = F.conv2d(xc.to(torch.float32), self.weight.to(self.dtype).to(torch.float32),
+                         stride=self.strides, padding=self.pad)
+        y = y.to(self.dtype).permute(0, 2, 3, 1)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
+
+
+class ConvTranspose2D(nn.Module):
+    """flax ``nn.ConvTranspose`` with "VALID" padding, ``[B, H, W, C]`` in and
+    out, rounded as ``Conv2D``. ``weight`` is stored ``[in, out, kh, kw]`` as
+    torch's ``ConvTranspose2d`` holds it: flax keeps the kernel ``[kh, kw, in,
+    out]`` in forward-conv orientation, i.e. spatially flipped
+    (``weights.py`` maps one to the other)."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int, strides: int,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.strides = strides
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(in_features, features, kernel_size,
+                                               kernel_size))
+        lecun_normal_(self.weight, in_features * kernel_size ** 2, generator)
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xc = x.permute(0, 3, 1, 2).to(self.dtype)
+        with _exact_products(xc):
+            y = F.conv_transpose2d(xc.to(torch.float32),
+                                   self.weight.to(self.dtype).to(torch.float32),
+                                   stride=self.strides)
+        return y.to(self.dtype).permute(0, 2, 3, 1) + self.bias.to(self.dtype)
+
+
 # -- spatial statistics ---------------------------------------------------------
 
 

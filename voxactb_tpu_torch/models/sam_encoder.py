@@ -1,0 +1,216 @@
+"""SAM image encoder (ViT-det with windowed attention).
+
+Counterpart of ``voxactb_tpu.models.sam_encoder``: a ViT with a 16x16 patch
+embed, decomposed relative-position attention, window attention except at the
+global blocks, and the 256-channel conv neck. ``sam_vit_h()/l()/b()`` build
+the released sizes. Channels-last, parameters in f32 under the flax names,
+cast to the compute ``dtype`` at use.
+
+Attention goes through K7 (``ops/cuda/sam_attention``, the hand-written
+kernel on a CUDA tensor) where the JAX package takes its Pallas kernel: at
+bf16, with rel-pos, in the global blocks (``fused_global``, on by default)
+and, with ``fused_windowed``, in the windowed ones. Elsewhere it is the plain
+formulation (``ops/sam_attention``), which is also K7's plain version.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from voxactb_tpu_torch.models.blocks import Conv2D, Dense, LayerNorm, gelu_erf
+from voxactb_tpu_torch.ops.resize import resize_linear
+
+
+def _rel_pos_embed(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor:
+    """Interpolate/select relative position embeddings (SAM's get_rel_pos):
+    ``[2 * max(q, k) - 1, hd]`` (resized linearly if it has another length)
+    -> ``[q_size, k_size, hd]``."""
+    max_rel_dist = 2 * max(q_size, k_size) - 1
+    if rel_pos.shape[0] != max_rel_dist:
+        rel_pos = resize_linear(rel_pos, (max_rel_dist, rel_pos.shape[1]))
+    dev = rel_pos.device
+    q_coords = torch.arange(q_size, device=dev)[:, None] * max(k_size / q_size, 1.0)
+    k_coords = torch.arange(k_size, device=dev)[None, :] * max(q_size / k_size, 1.0)
+    rel = (q_coords - k_coords) + (k_size - 1) * max(q_size / k_size, 1.0)
+    return rel_pos[rel.to(torch.int64)]
+
+
+class WindowAttention(nn.Module):
+    """Multi-head attention with decomposed relative positions over a 2D token grid."""
+
+    def __init__(self, dim: int, num_heads: int, use_rel_pos: bool = True,
+                 input_size: Tuple[int, int] = (14, 14), fused_global: bool = False,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dim, self.num_heads = dim, num_heads
+        self.use_rel_pos = use_rel_pos
+        self.fused_global = fused_global
+        self.dtype = dtype
+        head_dim = dim // num_heads
+        self.qkv = Dense(dim, dim * 3, dtype=dtype, generator=generator)
+        self.proj = Dense(dim, dim, dtype=dtype, generator=generator)
+        if use_rel_pos:
+            self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1, head_dim))
+            self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size[1] - 1, head_dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, H, W, C]
+        from voxactb_tpu_torch.ops.cuda.sam_attention import global_rel_attention
+        from voxactb_tpu_torch.ops.sam_attention import global_rel_attention_plain
+
+        b, h, w, _ = x.shape
+        heads, hd = self.num_heads, self.dim // self.num_heads
+        qkv = self.qkv(x).reshape(b, h * w, 3, heads, hd)
+        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))  # each [B, heads, HW, hd]
+
+        f32 = torch.float32
+        if self.use_rel_pos:
+            # the rel terms come from the UNSCALED q, in f32
+            rq = q.reshape(b, heads, h, w, hd).to(f32)
+            rh = torch.einsum("bnhwc,hkc->bnhwk", rq,
+                              _rel_pos_embed(h, h, self.rel_pos_h.to(f32)))
+            rw = torch.einsum("bnhwc,wkc->bnhwk", rq,
+                              _rel_pos_embed(w, w, self.rel_pos_w.to(f32)))
+            rel_h_term = rh.reshape(b * heads, h * w, h)
+            rel_w_term = rw.reshape(b * heads, h * w, w)
+        else:
+            rel_h_term = x.new_zeros(b * heads, h * w, h, dtype=f32)
+            rel_w_term = x.new_zeros(b * heads, h * w, w, dtype=f32)
+        # q * scale rounds to the compute dtype before the logits
+        scale = torch.tensor(hd ** -0.5, dtype=q.dtype, device=q.device)
+        flat = lambda t: t.reshape(b * heads, h * w, hd)
+        fused = self.fused_global and self.use_rel_pos and self.dtype == torch.bfloat16
+        attention = global_rel_attention if fused else global_rel_attention_plain
+        out = attention(flat(q * scale), flat(k), flat(v), rel_h_term, rel_w_term,
+                        kh=h, kw=w)
+        out = out.reshape(b, heads, h * w, hd).transpose(1, 2).reshape(b, h, w, self.dim)
+        return self.proj(out)
+
+
+def window_partition(x: torch.Tensor, window: int):
+    """``[B, H, W, C]`` -> (``[B * nW, window, window, C]``, padded (Hp, Wp));
+    the grid is zero-padded to a multiple of the window."""
+    b, h, w, c = x.shape
+    pad_h = (window - h % window) % window
+    pad_w = (window - w % window) % window
+    if pad_h or pad_w:
+        x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
+    hp, wp = h + pad_h, w + pad_w
+    x = x.reshape(b, hp // window, window, wp // window, window, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, window, window, c), (hp, wp)
+
+
+def window_unpartition(windows: torch.Tensor, window: int, pad_hw, hw) -> torch.Tensor:
+    hp, wp = pad_hw
+    h, w = hw
+    b = windows.shape[0] // (hp * wp // window // window)
+    x = windows.reshape(b, hp // window, wp // window, window, window, -1)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, hp, wp, -1)[:, :h, :w]
+
+
+class SamBlock(nn.Module):
+    def __init__(self, dim: int, num_heads: int, window_size: int = 14,
+                 grid_size: Tuple[int, int] = (64, 64), mlp_ratio: float = 4.0,
+                 fused_global: bool = False, fused_windowed: bool = False,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.window_size = window_size  # 0: global attention
+        self.norm1 = LayerNorm(dim, eps=1e-6, dtype=dtype)
+        inp = (window_size, window_size) if window_size > 0 else grid_size
+        fuse = fused_global if window_size == 0 else fused_windowed
+        self.attn = WindowAttention(dim, num_heads, input_size=inp, fused_global=fuse,
+                                    dtype=dtype, generator=generator)
+        self.norm2 = LayerNorm(dim, eps=1e-6, dtype=dtype)
+        hidden = int(dim * mlp_ratio)
+        self.mlp_fc1 = Dense(dim, hidden, dtype=dtype, generator=generator)
+        self.mlp_fc2 = Dense(hidden, dim, dtype=dtype, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.norm1(x)
+        if self.window_size > 0:
+            hw = y.shape[1:3]
+            y, pad_hw = window_partition(y, self.window_size)
+            y = window_unpartition(self.attn(y), self.window_size, pad_hw, hw)
+        else:
+            y = self.attn(y)
+        x = x + y
+        return x + self.mlp_fc2(gelu_erf(self.mlp_fc1(self.norm2(x))))
+
+
+class SamImageEncoder(nn.Module):
+    """``[B, img, img, 3]`` normalised -> ``[B, g, g, out_chans]`` f32."""
+
+    def __init__(self, img_size: int = 1024, patch_size: int = 16, embed_dim: int = 1280,
+                 depth: int = 32, num_heads: int = 16, window_size: int = 14,
+                 global_attn_indexes: Sequence[int] = (7, 15, 23, 31), out_chans: int = 256,
+                 fused_global: bool = True, fused_windowed: bool = False,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.depth = depth
+        self.dtype = dtype
+        g = img_size // patch_size
+        self.patch_embed = Conv2D(3, embed_dim, patch_size, patch_size, dtype=dtype,
+                                  generator=generator)
+        self.pos_embed = nn.Parameter(torch.zeros(1, g, g, embed_dim))
+        for i in range(depth):
+            self.add_module(f"block_{i}", SamBlock(
+                embed_dim, num_heads,
+                window_size=0 if i in global_attn_indexes else window_size,
+                grid_size=(g, g), fused_global=fused_global,
+                fused_windowed=fused_windowed, dtype=dtype, generator=generator))
+        # neck: 1x1 conv -> LN -> 3x3 conv -> LN, to out_chans channels
+        self.neck_conv1 = Conv2D(embed_dim, out_chans, 1, use_bias=False, dtype=dtype,
+                                 generator=generator)
+        self.neck_ln1 = LayerNorm(out_chans, eps=1e-6, dtype=dtype)
+        self.neck_conv2 = Conv2D(out_chans, out_chans, 3, padding="SAME", use_bias=False,
+                                 dtype=dtype, generator=generator)
+        self.neck_ln2 = LayerNorm(out_chans, eps=1e-6, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.patch_embed(x) + self.pos_embed.to(self.dtype)
+        for i in range(self.depth):
+            x = getattr(self, f"block_{i}")(x)
+        x = self.neck_ln1(self.neck_conv1(x))
+        return self.neck_ln2(self.neck_conv2(x)).float()
+
+
+def sam_vit_h(dtype=torch.float32, **kw) -> SamImageEncoder:
+    return SamImageEncoder(embed_dim=1280, depth=32, num_heads=16,
+                           global_attn_indexes=(7, 15, 23, 31), dtype=dtype, **kw)
+
+
+def sam_vit_l(dtype=torch.float32, **kw) -> SamImageEncoder:
+    return SamImageEncoder(embed_dim=1024, depth=24, num_heads=16,
+                           global_attn_indexes=(5, 11, 17, 23), dtype=dtype, **kw)
+
+
+def sam_vit_b(dtype=torch.float32, **kw) -> SamImageEncoder:
+    return SamImageEncoder(embed_dim=768, depth=12, num_heads=12,
+                           global_attn_indexes=(2, 5, 8, 11), dtype=dtype, **kw)
+
+
+SAM_PIXEL_MEAN = np.array([123.675, 116.28, 103.53], np.float32)
+SAM_PIXEL_STD = np.array([58.395, 57.12, 57.375], np.float32)
+
+
+def preprocess_image(rgb: np.ndarray, img_size: int = 1024, device=None) -> torch.Tensor:
+    """uint8 RGB ``[H, W, 3]`` -> normalised, resized (longest side to
+    ``img_size``) and zero-padded ``[1, img_size, img_size, 3]`` f32 on
+    ``device``."""
+    h, w = rgb.shape[:2]
+    scale = img_size / max(h, w)
+    nh, nw = int(round(h * scale)), int(round(w * scale))
+    x = torch.as_tensor(np.asarray(rgb), dtype=torch.float32, device=device)
+    x = resize_linear(x, (nh, nw, 3))
+    x = (x - torch.as_tensor(SAM_PIXEL_MEAN, device=device)) \
+        / torch.as_tensor(SAM_PIXEL_STD, device=device)
+    out = x.new_zeros(img_size, img_size, 3)
+    out[:nh, :nw] = x
+    return out[None]

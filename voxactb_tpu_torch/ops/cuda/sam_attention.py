@@ -1,0 +1,64 @@
+"""K7: SAM attention with a decomposed relative-position bias.
+
+Replaces ``voxactb_tpu/ops/pallas/sam_attention.py::global_rel_attention``
+(``csrc/sam_attention.cu``). On an H100 a global block of ViT-H (BH 16,
+T 4096, head dim 80) is bounded by operations and a windowed one (BH 400,
+T 196) by bytes. The kernel adds the f32 rel terms to the f32 logits and
+normalises P over the whole row before its bf16 cast, as the plain version
+(``ops/sam_attention.global_rel_attention_plain``) does; its online row sum
+adds in another f32 order, so a P entry on a bf16 rounding boundary can round
+the other way.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from voxactb_tpu_torch.ops.cuda import LAUNCHES
+from voxactb_tpu_torch.ops.sam_attention import global_rel_attention_plain
+
+HEAD_DIMS = (64, 80)
+MAX_GRID = 64
+
+
+def global_rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         rel_h_term: torch.Tensor, rel_w_term: torch.Tensor, *,
+                         kh: int, kw: int) -> torch.Tensor:
+    """``[BH, T, hd]`` bf16 q (pre-scaled by ``hd ** -0.5`` and rounded to
+    bf16), k, v and f32 ``[BH, T, kh]`` / ``[BH, T, kw]`` rel terms ->
+    ``[BH, T, hd]`` bf16, over a ``kh x kw`` grid (``T = kh * kw``). CPU
+    tensors take the plain version."""
+    if not q.is_cuda:
+        return global_rel_attention_plain(q, k, v, rel_h_term, rel_w_term, kh=kh, kw=kw)
+    from voxactb_tpu_torch.ops.cuda.build import check, library, stream_ptr
+
+    bh, t, hd = q.shape
+    if (hd not in HEAD_DIMS or t != kh * kw or not 1 <= kh <= MAX_GRID
+            or not 1 <= kw <= MAX_GRID):
+        raise ValueError(f"sam_attention kernel takes head dim {HEAD_DIMS} and a grid of "
+                         f"at most {MAX_GRID} x {MAX_GRID} with T = kh * kw; got q "
+                         f"{tuple(q.shape)}, kh {kh}, kw {kw}")
+    if k.shape != q.shape or v.shape != q.shape or rel_h_term.shape != (bh, t, kh) \
+            or rel_w_term.shape != (bh, t, kw):
+        raise ValueError(f"sam_attention kernel: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, rel_h {tuple(rel_h_term.shape)}, rel_w "
+                         f"{tuple(rel_w_term.shape)} do not match")
+    if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
+        raise ValueError(f"sam_attention kernel takes bf16 q, k, v; got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    rel_h = rel_h_term.to(torch.float32).contiguous()
+    rel_w = rel_w_term.to(torch.float32).contiguous()
+    out = torch.empty_like(q)
+    lib = library("sam_attention")
+    fn = lib.voxactb_sam_attention
+    fn.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
+             out.data_ptr(), bh, t, kh, kw, hd, stream_ptr(q.device))
+    check(lib, "sam_attention", err)
+    LAUNCHES["sam_attention"] += 1
+    return out

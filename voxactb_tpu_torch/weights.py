@@ -8,10 +8,14 @@ exactly once, every torch parameter is set, every shape is checked, and any
 mismatch raises before a single parameter is written.
 
 Mappings: Dense ``kernel [in, out]`` -> ``weight [out, in]``; Conv ``kernel
-DHWIO`` -> ``weight OIDHW``; LayerNorm ``scale/bias`` -> ``weight/bias``; the
+DHWIO`` -> ``weight OIDHW`` and ``HWIO`` -> ``OIHW``; ConvTranspose ``kernel
+[kh, kw, in, out]`` (flax's forward-conv orientation) -> torch's ``[in, out,
+kh, kw]``, spatially flipped; LayerNorm ``scale/bias`` -> ``weight/bias``; the
 attention's fused ``to_kv`` kernel splits into ``to_k`` (first half of the
 output columns) and ``to_v`` (second half); everything else (``pos_encoding``,
-``latents``, ``up0/out_kernel``, ``up0/out_bias``) is copied as it is.
+``latents``, ``up0/out_kernel``, the towers' embeddings, ``rel_pos_h``...)
+is copied as it is. The same bridge carries the VLM towers (CLIP text,
+OWL-ViT, SAM encoder and decoder).
 
 The same mapping carries anything laid out like the parameters:
 ``flax_tree_to_tensors`` turns a flax-layout tree (parameters, or optax's
@@ -30,7 +34,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from voxactb_tpu_torch.models.blocks import Conv3D, Dense, LayerNorm
+from voxactb_tpu_torch.models.blocks import (
+    Conv2D, Conv3D, ConvTranspose2D, Dense, LayerNorm)
 from voxactb_tpu_torch.models.perceiver import Attention
 
 Path = Tuple[str, ...]
@@ -53,6 +58,22 @@ def _oidhw_to_dhwio(a: np.ndarray) -> np.ndarray:
     return a.transpose(2, 3, 4, 1, 0)
 
 
+def _hwio_to_oihw(a: np.ndarray) -> np.ndarray:
+    return a.transpose(3, 2, 0, 1)
+
+
+def _oihw_to_hwio(a: np.ndarray) -> np.ndarray:
+    return a.transpose(2, 3, 1, 0)
+
+
+def _flax_to_torch_transposed(a: np.ndarray) -> np.ndarray:
+    return a[::-1, ::-1].transpose(2, 3, 0, 1)
+
+
+def _torch_to_flax_transposed(a: np.ndarray) -> np.ndarray:
+    return a.transpose(2, 3, 0, 1)[::-1, ::-1]
+
+
 def _columns(lo: int, hi: int):
     """Columns ``lo:hi`` of a fused flax kernel, transposed to ``[out, in]``."""
     def fn(a: np.ndarray) -> np.ndarray:
@@ -66,6 +87,8 @@ def _columns(lo: int, hi: int):
 _identity.inverse = _identity
 _transpose.inverse = _transpose
 _dhwio_to_oidhw.inverse = _oidhw_to_dhwio
+_hwio_to_oihw.inverse = _oihw_to_hwio
+_flax_to_torch_transposed.inverse = _torch_to_flax_transposed
 
 
 def flax_targets(module: nn.Module) -> Dict[Path, List[Target]]:
@@ -85,9 +108,12 @@ def flax_targets(module: nn.Module) -> Dict[Path, List[Target]]:
             add(prefix + ("scale",), mod.weight, _identity)
             add(prefix + ("bias",), mod.bias, _identity)
             return
-        if isinstance(mod, Conv3D):
-            add(prefix + ("kernel",), mod.weight, _dhwio_to_oidhw)
-            add(prefix + ("bias",), mod.bias, _identity)
+        if isinstance(mod, (Conv3D, Conv2D, ConvTranspose2D)):
+            fn = {Conv3D: _dhwio_to_oidhw, Conv2D: _hwio_to_oihw,
+                  ConvTranspose2D: _flax_to_torch_transposed}[type(mod)]
+            add(prefix + ("kernel",), mod.weight, fn)
+            if mod.bias is not None:
+                add(prefix + ("bias",), mod.bias, _identity)
             return
         if isinstance(mod, Attention):
             visit(mod.to_q, prefix + ("to_q",))
