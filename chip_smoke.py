@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's act path, its VLM crop path and its BC train
-step on one NVIDIA H100 and check them.
+"""Drive the PyTorch/CUDA port's act paths (fused front and dense grid), its
+VLM crop path and its BC train step on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py
 
@@ -14,9 +14,15 @@ Phases:
                forward and backward at the train step's three shapes and a
                ragged one: keep mask bit-equal, planted faults must fail; SAM
                attention at ViT-H's global and windowed shapes and a ragged
-               case that planted faults must fail); time kernel, plain version
-               and, where one PyTorch call computes the same function, that
-               call.
+               case that planted faults must fail; the dense-grid encoder
+               front at 50^3 and 100^3, batch 1 and 8, the stats kernel at the
+               dense paths' five shapes and the inline-upsample tail at 50^3
+               and 100^3 and with two heads, each within 2^-7 of its largest
+               output, two launches bit-equal, planted faults (swapped 'xy'
+               positions, a zero-padded slab) failing; the inline-upsample
+               tail against cuDNN ``up0`` + the decoder tail); time kernel,
+               plain version and, where one PyTorch call computes the same
+               function, that call.
   3. act100  - full-width ``make_infer_fn`` at 100^3, batch 1 and 8, seeded
                weights: kernels on against the same weights with the kernel
                flags off (Q-field and head logits each within twice the plain
@@ -27,21 +33,28 @@ Phases:
                acting (dominant, arm head) and stabilizing (assistive) policies
                alternating over a 25-act episode on a 50^3 crop; then one act
                of the two-head variant, kernels on against kernels off.
-  5. vlm_episode - the per-episode VLM crop path at full width on a synthetic
+  5. dense100 - the dense-grid act path (``pallas_front=False``: voxelize ->
+               encoder front -> Perceiver with the stats kernel -> inline-
+               upsample tail) as act100, a planted phase-table fault failing;
+               one ``QAttentionBCAgent.act`` whose ``voxel_grid_depth0`` is
+               voxelize's grid; then checked single acts of the two-head
+               variant at 50^3 (``dense_two_head50``) and of ``pallas_stats``
+               alone at 100^3 (``stats100``, three stats launches).
+  6. vlm_episode - the per-episode VLM crop path at full width on a synthetic
                512^2 front RGB-D frame: OWL-ViT B/32 detect, SAM ViT-H (SAM
                attention on its global and windowed blocks) and its mask
                decoder, against the plain path at bf16 and f32 under the act's
                rule; the crop point and radius, the scene bounds, and a 25-act
                dual-policy episode at 50^3 inside them with CLIP-text language;
                stage times and one profiled VLM pass.
-  6. train50 - ``make_train_step`` at full width (50^3 crop, batch 8, bf16,
+  7. train50 - ``make_train_step`` at full width (50^3 crop, batch 8, bf16,
                depth 6, LAMB): one step's losses and gradients with dropout
                and augmentation off, kernels on against the plain attention
                path (within twice the plain bf16 path's distance from f32);
                timed steps with SE(3) augmentation and dropout on (loss finite
                and falling); a second run from the same seed; one step under
                the profiler; two ``agent.update`` steps.
-  7. report  - every kernel's launch count rose during its main-path run;
+  8. report  - every kernel's launch count rose during its main-path run;
                one ``{"kernels": [...]}`` line.
 Then the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -64,6 +77,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 SCENE_BOUNDS = [-0.8, -1.0, 0.1, 1.2, 1.0, 2.1]
 CROP_BOUNDS = [-0.1, -0.3, 0.5, 0.5, 0.3, 1.1]
@@ -101,9 +115,12 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, f32_ops: float = 0.0):
+    """The larger of the bytes' time at the memory rate and the operations'
+    time: ``flops`` on bf16 operands at the tensor-core peak, ``f32_ops``
+    (element-wise float32 work) at the float32 peak."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = (flops / PEAK_BF16_FLOPS + f32_ops / PEAK_F32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -344,6 +361,232 @@ def check_decoder(model, d0, rng, details, heads=1):
     log(f"[kernels] decoder_head N={n} T={heads}: trans err {e_t:.3g} (tol {tol_t:.3g}), "
         f"kp err {e_kp:.3g}, gmax err {e_g:.3g}, argmax same {argmax_same}; "
         f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by})")
+
+
+def dense_grid(rng, n, batch):
+    """The ``[B,N,N,N,10]`` grid that ``voxelize`` builds from the bench's
+    clouds: the dense-grid act path's input."""
+    import torch
+    from voxactb_tpu_torch.agents.qfunction import normalize_rgb
+    from voxactb_tpu_torch.ops.voxelize import flatten_camera_observations, voxelize
+
+    dev = torch.device(DEVICE)
+    rgbs, pcds = clouds(rng, batch)
+    coords, feats = flatten_camera_observations(
+        [normalize_rgb(torch.tensor(r, device=dev)) for r in rgbs],
+        [torch.tensor(p, device=dev) for p in pcds])
+    bounds = torch.tensor([SCENE_BOUNDS if n == 100 else CROP_BOUNDS] * batch, device=dev)
+    return voxelize(coords, feats, bounds, voxel_size=n)
+
+
+def hold(kernel, tag, names, got, ref, again):
+    """Each output of a dense-grid kernel within 2^-7 of the largest plain
+    output, with no floor: kernel and plain version round at the same points
+    and differ in f32 summation order only, so a bf16 output may sit one ulp
+    of its own size away. Two launches on the same inputs give the same bits
+    (no atomics). Returns ``{name: {max_abs_err, tol}}``."""
+    import torch
+
+    errs = {}
+    for name, a, r in zip(names, got, ref):
+        tol = 2.0 ** -7 * float(r.float().abs().max())
+        e = max_err(a, r)
+        expect(e <= tol, f"{kernel} {tag}: {name} err {e} > {tol}")
+        errs[name] = dict(max_abs_err=e, tol=tol)
+    expect(all(torch.equal(a, b) for a, b in zip(got, again)),
+           f"{kernel} {tag}: two launches on the same inputs differ")
+    return errs
+
+
+def swapped_xy(x):
+    """A ``[B,n,n,n,C]`` grid with its d and h axes swapped: a stats kernel
+    fed it computes the keypoints with the 'xy' position axes swapped. A
+    planted fault, run through the real kernel."""
+    return x.transpose(1, 2).contiguous()
+
+
+def check_encoder_stats(model, n, batch, rng, details):
+    """K5 against its plain version on the voxelized grid of the bench's
+    clouds, with the model's preprocess weights and a seeded bias. Returns
+    the kernel's d0."""
+    import torch
+    from voxactb_tpu_torch.ops.cuda.encoder_stats import (
+        encoder_stats, encoder_stats_reference)
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device="cpu").manual_seed(int(rng.integers(1 << 30)))
+    grid = dense_grid(rng, n, batch)
+    w1 = model.input_preprocess.kernel_dhwio()[0, 0, 0].detach()
+    b1 = (0.1 * torch.randn(64, generator=g)).to(dev)
+    tag = f"N={n} B={batch}"
+    with torch.inference_mode():
+        got = encoder_stats(grid, w1, b1)
+        again = encoder_stats(grid, w1, b1)
+        ref = encoder_stats_reference(grid, w1, b1)
+        _, kp_swapped, _ = encoder_stats(swapped_xy(grid), w1, b1)
+        torch.cuda.synchronize()
+    errs = hold("encoder_stats", tag, ("d0", "kp", "gmax"), got, ref, again)
+    d0 = got[0]
+    d0_frac = float((d0 != ref[0]).float().mean())
+    planted = max_err(kp_swapped, ref[1])
+    expect(planted > errs["kp"]["tol"],
+           f"encoder_stats {tag}: swapped xy positions erred by {planted} only")
+    del got, again, kp_swapped
+    with torch.inference_mode():
+        ms = time_ms(lambda: encoder_stats(grid, w1, b1))
+        plain = time_ms(lambda: encoder_stats_reference(grid, w1, b1), reps=5)
+    n3 = batch * n ** 3
+    # the grid as the path hands it over (f32), d0 written, the statistics;
+    # the 1x1 conv's products on bf16 operands, and the fold's ~10 f32
+    # operations per d0 element
+    nbytes = grid.numel() * grid.element_size() + n3 * 64 * 2 + batch * 4 * 4 * 64 \
+        + 10 * 64 * 2 + 64 * 4
+    bms, by = bound_ms(nbytes, 2.0 * n3 * 10 * 64, f32_ops=10.0 * n3 * 64)
+    row = dict(shape=tag, max_abs_err=errs["d0"]["max_abs_err"], errs=errs,
+               d0_frac_differing=d0_frac, planted_xy_swapped_kp_err=planted, ms=ms,
+               plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None)
+    details.setdefault("encoder_stats", []).append(row)
+    log(f"[kernels] encoder_stats {tag}: " + ", ".join(
+        f"{k} err {v['max_abs_err']:.3g} (tol {v['tol']:.3g})" for k, v in errs.items())
+        + f", {d0_frac:.2e} of d0 differs; two launches bit-equal; planted xy swap kp err "
+        f"{planted:.3g}; {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by})")
+    del grid, ref
+    torch.cuda.empty_cache()
+    return d0
+
+
+# K6 at the shapes the dense-grid paths give it: d0 and u at 100^3 (with K5 or
+# K8 off), the decoder grid (C = 128; 192 with two heads) at 100^3 batch 1 and
+# 8, and d0 at f32 (the plain f32 path's statistics at 50^3)
+STATS_SHAPES = (((1, 100, 64), "bfloat16"), ((1, 20, 128), "bfloat16"),
+                ((8, 20, 128), "bfloat16"), ((1, 10, 192), "bfloat16"),
+                ((1, 50, 64), "float32"))
+
+
+def check_stats_head(rng, details):
+    """K6 against its plain version on d0-like features (bf16-rounded lrelu of
+    a normal) at each of ``STATS_SHAPES``."""
+    import torch
+    from voxactb_tpu_torch.ops.cuda.stats_head import stats_head, stats_head_reference
+
+    dev = torch.device(DEVICE)
+    rows = []
+    for (b, n, c), dtype in STATS_SHAPES:
+        g = torch.Generator(device="cpu").manual_seed(int(rng.integers(1 << 30)))
+        x = torch.randn(b, n, n, n, c, generator=g).to(dev)
+        x = torch.where(x >= 0, x, 0.02 * x).to(getattr(torch, dtype))
+        tag = f"[{b},{n}^3,{c}] {dtype}"
+        got = stats_head(x)
+        again = stats_head(x)
+        ref = stats_head_reference(x)
+        kp_swapped, _ = stats_head(swapped_xy(x))
+        torch.cuda.synchronize()
+        errs = hold("stats_head", tag, ("kp", "gmax"), got, ref, again)
+        planted = max_err(kp_swapped, ref[0])
+        expect(planted > errs["kp"]["tol"],
+               f"stats_head {tag}: swapped xy positions erred by {planted} only")
+        ms = time_ms(lambda: stats_head(x))
+        plain = time_ms(lambda: stats_head_reference(x), reps=5)
+        # x read once, kp and gmax written; ~10 f32 operations per element
+        bms, by = bound_ms(x.numel() * x.element_size() + b * 4 * 4 * c, 0.0,
+                           f32_ops=10.0 * x.numel())
+        row = dict(shape=tag, max_abs_err=errs["kp"]["max_abs_err"], errs=errs,
+                   planted_xy_swapped_kp_err=planted, ms=ms, plain_ms=plain, bound_ms=bms,
+                   bound_by=by, library_ms=None)
+        rows.append(row)
+        log(f"[kernels] stats_head {tag}: " + ", ".join(
+            f"{k} err {v['max_abs_err']:.3g} (tol {v['tol']:.3g})" for k, v in errs.items())
+            + f"; two launches bit-equal; planted xy swap kp err {planted:.3g}; {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by})")
+        del x, got, again, ref, kp_swapped
+    torch.cuda.empty_cache()
+    details["stats_head"] = rows
+    return rows
+
+
+def check_decoder_v3(model, d0, rng, details, heads=1):
+    """K8 against its plain version: h from the model's own ``up0.conv_in`` on
+    a seeded decoder grid, its ``out_kernel``, seeded biases; ``heads=2``
+    adds a seeded second trans head. A zero-padded h (the kernel's edge
+    padding skipped) must fail. At T = 1 also the A/B of the two decoder
+    tails on the model's own weights: K8 (conv_in, then the tail that makes
+    u0 itself) against K3 after the whole cuDNN ``up0``."""
+    import torch
+    import torch.nn.functional as F
+    from voxactb_tpu_torch.ops.cuda.decoder_head import decoder_head
+    from voxactb_tpu_torch.ops.cuda.decoder_head_v3 import (
+        decoder_head_v3, decoder_head_v3_reference, launch_decoder_head_v3,
+        phase_weight_table)
+
+    dev = torch.device(DEVICE)
+    b, n = d0.shape[0], d0.shape[1]
+    s = n // 5
+    g = torch.Generator(device="cpu").manual_seed(int(rng.integers(1 << 30)))
+    grid = torch.randn(b, s, s, s, model.up0.conv_in.weight.shape[1],
+                       generator=g).to(dev, torch.bfloat16)
+    rnd = lambda *shape, scale: (scale * torch.randn(*shape, generator=g)).to(dev)  # noqa: E731
+    with torch.inference_mode():
+        h, up_kernel, _ = model.up0(grid, pre_only=True)
+    up_bias = rnd(64, scale=0.1)
+    wf = model.final.kernel_dhwio().detach()
+    bf = rnd(64, scale=0.05)
+    wt = model.trans_decoder.kernel_dhwio().detach()[None]
+    if heads == 2:
+        wt = torch.cat([wt, rnd(*wt.shape[1:], scale=float(wt.std()))[None]])
+    bt = rnd(heads, scale=0.01)
+    args = (d0, h, up_kernel.detach(), up_bias, wf, bf, wt, bt)
+    tag = f"N={n} B={b} T={heads}"
+    with torch.inference_mode():
+        got = decoder_head_v3(*args)
+        again = decoder_head_v3(*args)
+        ref = decoder_head_v3_reference(*args)
+        table = phase_weight_table(up_kernel.float())
+        zero_padded = F.pad(h, (0, 0, 1, 1, 1, 1, 1, 1))
+        wrong, _, _ = launch_decoder_head_v3(d0, zero_padded, table, up_bias, wf, bf, wt, bt)
+        torch.cuda.synchronize()
+    expect(tuple(got[0].shape) == (b, n, n, n, heads), f"decoder_head_v3 trans shape "
+                                                       f"{tuple(got[0].shape)}")
+    errs = hold("decoder_head_v3", tag, ("trans", "kp", "gmax"), got, ref, again)
+    argmax_same = bool((got[0].reshape(b, -1, heads).argmax(1)
+                        == ref[0].reshape(b, -1, heads).argmax(1)).all())
+    planted = max_err(wrong, ref[0])
+    expect(planted > errs["trans"]["tol"],
+           f"decoder_head_v3 {tag}: a zero-padded h erred by {planted} only")
+    del got, again, wrong, table, zero_padded
+    with torch.inference_mode():
+        ms = time_ms(lambda: decoder_head_v3(*args))
+        plain = time_ms(lambda: decoder_head_v3_reference(*args), reps=3, warmup=1)
+    n3, s3 = b * n ** 3, b * s ** 3
+    nbytes = d0.numel() * 2 + h.numel() * 2 + up_kernel.numel() * 4 + wf.numel() * 4 \
+        + wt.numel() * 4 + (64 + 64 + heads) * 4 + n3 * heads * 4 + b * 4 * 4 * 64
+    flops = 2.0 * s3 * 27 * 64 * 125 * 64 + 2.0 * n3 * 27 * 128 * 64 \
+        + 2.0 * n3 * 27 * 64 * heads
+    bms, by = bound_ms(nbytes, flops)
+    row = dict(shape=tag, max_abs_err=errs["trans"]["max_abs_err"], errs=errs,
+               argmax_same=argmax_same, planted_zero_pad_trans_err=planted, ms=ms,
+               plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None)
+    if heads == 1:
+        def v3_tail():
+            h_, k_, b_ = model.up0(grid, pre_only=True)
+            return decoder_head_v3(d0, h_, k_, b_, wf, bf, wt, bt)
+
+        def k3_tail():
+            return decoder_head(d0, model.up0(grid), wf, bf, wt, bt)
+
+        with torch.inference_mode():  # in turns: K8, K3, K3, K8
+            ab = [time_ms(f, reps=5) for f in (v3_tail, k3_tail, k3_tail, v3_tail)]
+        row["ab_v3_tail_ms"] = statistics.mean((ab[0], ab[3]))
+        row["ab_k3_cudnn_up0_tail_ms"] = statistics.mean((ab[1], ab[2]))
+        row["ab_runs_ms"] = ab
+    details.setdefault("decoder_head_v3", []).append(row)
+    log(f"[kernels] decoder_head_v3 {tag}: " + ", ".join(
+        f"{k} err {v['max_abs_err']:.3g} (tol {v['tol']:.3g})" for k, v in errs.items())
+        + f", argmax same {argmax_same}; two launches bit-equal; planted zero-padded h trans "
+        f"err {planted:.3g}; {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by})"
+        + ("" if heads != 1 else f"; A/B conv_in + K8 {row['ab_v3_tail_ms']:.4f} ms vs "
+           f"cuDNN up0 + K3 {row['ab_k3_cudnn_up0_tail_ms']:.4f} ms (runs {ab})"))
+    del args, ref, grid, h
+    torch.cuda.empty_cache()
 
 
 def kernel_keep_mask(seed, bh, tq, tk, dropout):
@@ -636,7 +879,8 @@ def plain_config(cfg, dtype=None):
 
     extra = {} if dtype is None else {"compute_dtype": dtype}
     return dataclasses.replace(cfg, pallas_front=False, pallas_attention=False,
-                               pallas_decoder=False, **extra)
+                               pallas_decoder=False, pallas_encoder=False,
+                               pallas_stats=False, pallas_decoder_v3=False, **extra)
 
 
 def act_inputs(rng, batch, low_dim):
@@ -786,11 +1030,19 @@ def compare_paths(cfg, model_on, refs, inputs, bounds, tag, details, faults=()):
 
 
 def act100(rng, details, timings):
+    return act_phase("act100", act_config(100, which_arm="right"), ACT_FAULTS, rng, details,
+                     timings)
+
+
+def act_phase(tag, cfg, faults, rng, details, timings):
+    """``make_infer_fn`` of ``cfg`` at 100^3, batch 1 (10 calls) and 8 (5
+    calls): kernels on against kernels off on the same weights under the act
+    rule (``faults`` planted at batch 1), then the timed main-path run, with
+    one profiled call at batch 1."""
     import torch
     from voxactb_tpu_torch.agents.qfunction import make_infer_fn
     from voxactb_tpu_torch.ops import cuda as kernels
 
-    cfg = act_config(100, which_arm="right")
     model_on, infer = make_infer_fn(cfg, device=DEVICE, seed=0)
     model_off, infer_off = make_infer_fn(plain_config(cfg), device=DEVICE, seed=0)
     model_off.load_state_dict(model_on.state_dict())
@@ -799,8 +1051,8 @@ def act100(rng, details, timings):
     for batch, reps in ((1, 10), (8, 5)):
         inputs = act_inputs(rng, batch, cfg.low_dim_size())
         bounds = [SCENE_BOUNDS] * batch
-        compare_paths(cfg, model_on, refs, inputs, bounds, f"act100_b{batch}",
-                      details, faults=ACT_FAULTS if batch == 1 else ())
+        compare_paths(cfg, model_on, refs, inputs, bounds, f"{tag}_b{batch}",
+                      details, faults=faults if batch == 1 else ())
         args = (inputs["rgbs"], inputs["pcds"], inputs["proprio"],
                 inputs["lang_goal_emb"], inputs["lang_token_embs"], bounds)
         out = infer(model_on, *args)  # warm
@@ -808,13 +1060,13 @@ def act100(rng, details, timings):
         torch.cuda.synchronize()
         cont = out.continuous_action
         expect(tuple(cont.shape) == (batch, 9) and bool(torch.isfinite(cont).all()),
-               "act100 continuous action")
+               f"{tag} continuous action")
         expect(bool(((out.trans_idx >= 0) & (out.trans_idx < 100)).all()),
-               "act100 trans idx range")
+               f"{tag} trans idx range")
         differ = int((out.trans_idx != out_off.trans_idx).sum()
                      + (out.rot_grip_idx != out_off.rot_grip_idx).sum()
                      + (out.collision_idx != out_off.collision_idx).sum())
-        details["path_compare"][f"act100_b{batch}"]["integer_action_elements_differing"] = (
+        details["path_compare"][f"{tag}_b{batch}"]["integer_action_elements_differing"] = (
             differ)
 
         def drive(m, f, n_acts):
@@ -833,11 +1085,11 @@ def act100(rng, details, timings):
         runs[batch] = dict(acts=reps, launches=counts)
         if batch == 1:
             profile_act(lambda: infer(model_on, *args).continuous_action.cpu(),
-                        "act100_b1", details, ms)
-        timings[f"act100_b{batch}"] = dict(ms_per_call=ms, plain_ms_per_call=plain_ms,
-                                           batch=batch, ms_per_act=ms / batch,
-                                           integer_action_elements_differing=differ)
-        log(f"[act100] batch {batch}: {ms:.3f} ms/call ({ms / batch:.3f} ms/act) "
+                        f"{tag}_b1", details, ms)
+        timings[f"{tag}_b{batch}"] = dict(ms_per_call=ms, plain_ms_per_call=plain_ms,
+                                          batch=batch, ms_per_act=ms / batch,
+                                          integer_action_elements_differing=differ)
+        log(f"[{tag}] batch {batch}: {ms:.3f} ms/call ({ms / batch:.3f} ms/act) "
             f"kernels on, {plain_ms:.3f} ms/call plain; {differ} integer action "
             f"elements differ; launches in {reps} calls: {counts}")
     del model_on, model_off, refs
@@ -945,38 +1197,175 @@ def dual50(rng, details, timings, n_acts=25):
 
 def two_head50(rng, details):
     """One act of the 'one_policy_more_heads' variant at 50^3 (two proprio
-    streams, right and left heads, K3 with trans [B,N,N,N,2]): kernels on
-    against kernels off under the act-level tolerance, then the act itself."""
+    streams, right and left heads, K3 with trans [B,N,N,N,2])."""
+    cfg = act_config(50, which_arm="both", variant="one_policy_more_heads",
+                     crop_target_obj_voxel=True, crop_radius=0.3)
+    return checked_act("two_head50", cfg, 2, CROP_BOUNDS, rng, details,
+                       want={"decoder_head": 1, "front_fused": 1, "flash_attention": 8})
+
+
+def checked_act(tag, cfg, seed, bounds, rng, details, want):
+    """One act of ``cfg``: kernels on against kernels off under the act-level
+    tolerance, then the act itself, whose launches must be ``want``."""
     import torch
     from voxactb_tpu_torch.agents.qfunction import make_infer_fn
     from voxactb_tpu_torch.ops import cuda as kernels
 
-    cfg = act_config(50, which_arm="both", variant="one_policy_more_heads",
-                     crop_target_obj_voxel=True, crop_radius=0.3)
-    model_on, infer = make_infer_fn(cfg, device=DEVICE, seed=2)
+    n = cfg.voxel_size
+    model_on, infer = make_infer_fn(cfg, device=DEVICE, seed=seed)
     refs = {d: reference_model(cfg, model_on, d) for d in ("bfloat16", "float32")}
     inputs = act_inputs(rng, 1, cfg.proprio_width())
-    compare_paths(cfg, model_on, refs, inputs, [CROP_BOUNDS], "two_head50", details)
+    compare_paths(cfg, model_on, refs, inputs, [bounds], tag, details)
     del refs
     kernels.reset_launch_counts()
     out = infer(model_on, inputs["rgbs"], inputs["pcds"], inputs["proprio"],
-                inputs["lang_goal_emb"], inputs["lang_token_embs"], [CROP_BOUNDS])
+                inputs["lang_goal_emb"], inputs["lang_token_embs"], [bounds])
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     cont = out.continuous_action
-    expect(tuple(cont.shape) == (2, 1, 9) and bool(torch.isfinite(cont).all()),
-           "two_head50 continuous action")
-    expect(bool(((out.trans_idx >= 0) & (out.trans_idx < 50)).all()),
-           "two_head50 trans idx range")
-    expect(counts["decoder_head"] == 1 and counts["front_fused"] == 1
-           and counts["flash_attention"] == 8, f"two_head50 launches {counts}")
-    log(f"[two_head50] one act of the two-head variant: right {cont[0, 0, :3].tolist()}, "
-        f"left {cont[1, 0, :3].tolist()}; launches: {counts}")
+    two = cfg.variant == "one_policy_more_heads"
+    expect(tuple(cont.shape) == ((2, 1, 9) if two else (1, 9))
+           and bool(torch.isfinite(cont).all()), f"{tag} continuous action")
+    expect(bool(((out.trans_idx >= 0) & (out.trans_idx < n)).all()), f"{tag} trans idx range")
+    expect(all(counts[k] == v for k, v in want.items()), f"{tag} launches {counts}")
+    heads = (f"right {cont[0, 0, :3].tolist()}, left {cont[1, 0, :3].tolist()}" if two
+             else f"{cont[0, :3].tolist()}")
+    log(f"[{tag}] one act at {n}^3: {heads}; launches: {counts}")
+    del model_on
+    torch.cuda.empty_cache()
     return dict(acts=1, launches=counts)
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the VLM crop path (VoxAct-B's once-per-episode perception)
+# phase 5: the dense-grid act path (voxelize -> K5 -> Perceiver with K6 -> K8)
+# ---------------------------------------------------------------------------
+
+
+def dense_config(n, **kw):
+    """The act program on the dense voxel grid (``pallas_front=False``), the
+    path that hands out the real grid: K5 makes d0 and its statistics, K6 the
+    decoder grid's, K8 the decoder tail from the post-``conv_in`` slab, K2
+    the attention."""
+    from voxactb_tpu_torch.config import MethodConfig
+
+    return MethodConfig(voxel_sizes=[n], compute_dtype="bfloat16", pallas_front=False,
+                        pallas_encoder=True, pallas_stats=True, pallas_decoder_v3=True,
+                        pallas_attention=True, **kw)
+
+
+# one dense-grid act's launches
+DENSE_LAUNCHES = {"encoder_stats": 1, "stats_head": 1, "decoder_head_v3": 1,
+                  "flash_attention": 8, "front_fused": 0, "decoder_head": 0}
+
+
+def swapped_phase_axes(phase_weight_table):
+    """K8 fed a phase table with its ry and rx axes swapped: a layout fault
+    between the table and the kernel. A planted fault."""
+    def fn(up_kernel, scale=5):
+        t = phase_weight_table(up_kernel, scale)
+        rows, c = t.shape[2], t.shape[3] // (3 * scale)
+        return t.reshape(scale, scale, rows, 3, scale, c).transpose(1, 4).reshape(t.shape)
+    return fn
+
+
+DENSE_FAULTS = (
+    ("phase_table_ry_rx_swapped", "voxactb_tpu_torch.ops.cuda.decoder_head_v3",
+     "phase_weight_table", swapped_phase_axes, True),
+)
+
+
+def dense100(rng, details, timings):
+    """The dense-grid act path at 100^3, batch 1 and 8, as ``act100``; every
+    call launches K5, K6 and K8 once and K2 eight times."""
+    run = act_phase("dense100", dense_config(100, which_arm="right"), DENSE_FAULTS, rng,
+                    details, timings)
+    for batch, r in run["per_batch"].items():
+        expect(all(r["launches"][k] == v * r["acts"] for k, v in DENSE_LAUNCHES.items()),
+               f"dense100 batch {batch}: launches {r['launches']} in {r['acts']} calls")
+    return run
+
+
+def dense_agent_act(rng, details):
+    """One ``QAttentionBCAgent.act`` on the dense-grid path at 100^3: its
+    ``voxel_grid_depth0`` is the ``[1,100,100,100,10]`` grid that ``voxelize``
+    builds from the observation's clouds, and nothing overflowed."""
+    import torch
+    from voxactb_tpu_torch.agents.qattention_agent import QAttentionBCAgent
+    from voxactb_tpu_torch.agents.qfunction import normalize_rgb
+    from voxactb_tpu_torch.ops import cuda as kernels
+    from voxactb_tpu_torch.ops.voxelize import flatten_camera_observations, voxelize
+
+    cams = ["front", "wrist"]
+    cfg = dense_config(100, which_arm="right")
+    n = cfg.voxel_size
+    agent = QAttentionBCAgent(cfg, cams, SCENE_BOUNDS, device=DEVICE, seed=0)
+    agent.build(training=False)
+    rgbs, pcds = clouds(rng, 1)
+    obs = {"lang_goal_emb": rng.normal(size=(1024,)).astype(np.float32),
+           "lang_token_embs": rng.normal(size=(77, 512)).astype(np.float32),
+           "low_dim_state_right_arm": rng.normal(size=(cfg.low_dim_size(),)).astype(
+               np.float32)}
+    for c, r, p in zip(cams, rgbs, pcds):
+        obs[f"{c}_rgb"], obs[f"{c}_point_cloud"] = r[0], p[0]
+    agent.act(0, obs, which_arm="right")  # warm
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    res = agent.act(1, obs, which_arm="right")
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    dev = torch.device(DEVICE)
+    with torch.inference_mode():
+        coords, feats = flatten_camera_observations(
+            [normalize_rgb(torch.tensor(r, device=dev)) for r in rgbs],
+            [torch.tensor(p, device=dev) for p in pcds])
+        want = voxelize(coords, feats, torch.tensor([SCENE_BOUNDS], device=dev),
+                        voxel_size=n)
+    grid = res.info["voxel_grid_depth0"]
+    # the scatter's atomics sum in a run-dependent order: a voxel's mean may
+    # differ in its last f32 bits; the occupancy is exact
+    err = max_err(grid, want)
+    occupied = int(want[..., -1].sum())
+    expect(tuple(grid.shape) == (1, n, n, n, 10), f"dense agent grid {grid.shape}")
+    expect(err <= 1e-5 and torch.equal(grid[..., -1], want[..., -1]) and occupied > 0,
+           f"dense agent: voxel_grid_depth0 differs from voxelize's grid by {err}")
+    expect(res.info["front_overflow"] == 0, "dense agent: front overflow")
+    a = np.asarray(res.action)
+    expect(a.shape == (9,) and bool(np.isfinite(a).all()), "dense agent action")
+    expect(all(counts[k] == v for k, v in DENSE_LAUNCHES.items()),
+           f"dense agent launches {counts}")
+    details["dense_agent_act"] = dict(grid_err=err, occupied_voxels=occupied,
+                                      launches=counts, action=a.tolist())
+    log(f"[dense100] QAttentionBCAgent.act: voxel_grid_depth0 {tuple(grid.shape)} within "
+        f"{err:.3g} of voxelize's grid ({occupied} occupied voxels), front_overflow 0; "
+        f"launches: {counts}")
+    del agent, grid, want
+    torch.cuda.empty_cache()
+    return dict(acts=1, launches=counts)
+
+
+def dense_two_head50(rng, details):
+    """The dense-grid flags on the two-head variant at 50^3: K6 on a decoder
+    grid of C = 192, K8 with trans [B,N,N,N,2]."""
+    cfg = dense_config(50, which_arm="both", variant="one_policy_more_heads",
+                       crop_target_obj_voxel=True, crop_radius=0.3)
+    return checked_act("dense_two_head50", cfg, 2, CROP_BOUNDS, rng, details,
+                       want=DENSE_LAUNCHES)
+
+
+def stats100(rng, details):
+    """``pallas_stats`` alone (with the attention kernel) at 100^3, batch 1:
+    K6 takes the statistics of d0, of the decoder grid and of u."""
+    from voxactb_tpu_torch.config import MethodConfig
+
+    cfg = MethodConfig(voxel_sizes=[100], compute_dtype="bfloat16", pallas_stats=True,
+                       pallas_attention=True, which_arm="right")
+    return checked_act("stats100", cfg, 4, SCENE_BOUNDS, rng, details,
+                       want={"stats_head": 3, "flash_attention": 8, "encoder_stats": 0,
+                             "decoder_head_v3": 0, "decoder_head": 0, "front_fused": 0})
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the VLM crop path (VoxAct-B's once-per-episode perception)
 # ---------------------------------------------------------------------------
 
 VLM_TASK = "open_drawer"
@@ -1263,7 +1652,7 @@ def vlm_episode(rng, details, timings, n_acts=25):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the BC train step
+# phase 7: the BC train step
 # ---------------------------------------------------------------------------
 
 TRAIN_CAMERAS = ["wrist", "wrist2"]
@@ -1505,6 +1894,18 @@ def main() -> int:
     # the VLM slice's phases draw from streams of their own, so that the
     # earlier phases keep their inputs
     sam_attn = check_sam_attention(np.random.default_rng(1), details)
+    # the dense-grid slice's checks and phases draw from a stream of their own
+    dense_rng = np.random.default_rng(3)
+    for n in (50, 100):
+        model = build_encoder(dense_config(n, which_arm="right"), device=DEVICE, seed=0)
+        d0 = check_encoder_stats(model, n, 1, dense_rng, details)
+        check_encoder_stats(model, n, 8, dense_rng, details)
+        check_decoder_v3(model, d0, dense_rng, details)
+        if n == 50:
+            check_decoder_v3(model, d0, dense_rng, details, heads=2)
+        del model, d0
+        torch.cuda.empty_cache()
+    check_stats_head(dense_rng, details)
     log(f"[kernels] checks took {time.perf_counter() - t0:.1f} s")
 
     runs = {}
@@ -1516,16 +1917,26 @@ def main() -> int:
     runs["two_head50"] = two_head50(rng, details)
     log(f"[dual50] took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    runs["dense100"] = dense100(dense_rng, details, timings)
+    runs["dense100_agent"] = dense_agent_act(dense_rng, details)
+    runs["dense_two_head50"] = dense_two_head50(dense_rng, details)
+    runs["stats100"] = stats100(dense_rng, details)
+    log(f"[dense100] took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     runs["vlm_episode"] = vlm_episode(np.random.default_rng(2), details, timings)
     log(f"[vlm_episode] took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     runs["train50"] = train50(rng, details, timings)
     log(f"[train50] took {time.perf_counter() - t0:.1f} s")
 
-    # phase 7: every kernel was launched on the main path that runs it
+    # phase 8: every kernel was launched on the main path that runs it
     act_kernels = ("front_fused", "flash_attention", "decoder_head")
+    dense_kernels = ("encoder_stats", "stats_head", "decoder_head_v3", "flash_attention")
     path_kernels = {"train50": ("flash_attention_train_fwd", "flash_attention_train_bwd"),
-                    "vlm_episode": act_kernels + ("sam_attention",)}
+                    "vlm_episode": act_kernels + ("sam_attention",),
+                    "dense100": dense_kernels, "dense100_agent": dense_kernels,
+                    "dense_two_head50": dense_kernels,
+                    "stats100": ("stats_head", "flash_attention")}
     total = {k: 0 for k in kernels.LAUNCHES}
     for name, run in runs.items():
         for k in path_kernels.get(name, act_kernels):
@@ -1546,6 +1957,13 @@ def main() -> int:
     per_pass = lambda key: sum(n * sam_attn[s][key] for s, n in sam_blocks.items())
     sam_by = {by: sum(n * sam_attn[s]["bound_ms"] for s, n in sam_blocks.items()
                       if sam_attn[s]["bound_by"] == by) for by in ("bytes", "operations")}
+    # the dense-grid kernels at the shapes of one dense100 act at batch 1
+    row_of = lambda key, shape: next(r for r in details[key] if r["shape"] == shape)  # noqa: E731
+    largest_err = lambda key: max(e["max_abs_err"] for r in details[key]  # noqa: E731
+                                  for e in r["errs"].values())
+    dense_rows = (("encoder_stats", "N=100 B=1", "encoder_stats.py:59"),
+                  ("stats_head", "[1,20^3,128] bfloat16", "stats_head.py:115"),
+                  ("decoder_head_v3", "N=100 B=1 T=1", "decoder_head_v3.py:81"))
     kernels_line = {"kernels": [
         dict(name="front_fused", route="cuda",
              source="voxactb_tpu_torch/csrc/front_fused.cu",
@@ -1595,7 +2013,12 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in sam_attn.values()),
              ms=per_pass("ms"), plain_ms=per_pass("plain_ms"), bound_ms=per_pass("bound_ms"),
              bound_by=max(sam_by, key=sam_by.get), library_ms=per_pass("library_ms")),
-    ]}
+    ] + [dict(name=key, route="cuda", source=f"voxactb_tpu_torch/csrc/{key}.cu",
+              replaces=f"voxactb_tpu/ops/pallas/{where}", launches=total[key],
+              max_abs_err=largest_err(key), ms=row_of(key, shape)["ms"],
+              plain_ms=row_of(key, shape)["plain_ms"], bound_ms=row_of(key, shape)["bound_ms"],
+              bound_by=row_of(key, shape)["bound_by"], library_ms=None)
+         for key, shape, where in dense_rows]}
     details["timings"] = timings
     details["runs"] = runs
     details["card"] = card

@@ -12,6 +12,7 @@ observations (CPU, small widths).
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +23,7 @@ import torch
 from voxactb_tpu.agents import qfunction as JQ
 from voxactb_tpu.agents.qattention_agent import QAttentionBCAgent as JaxAgent
 from voxactb_tpu.config import MethodConfig as JaxMethodConfig
+from voxactb_tpu.ops.pallas import stats_head as jax_stats_module
 from voxactb_tpu_torch.agents import qfunction as Q
 from voxactb_tpu_torch.agents.qattention_agent import QAttentionBCAgent
 from voxactb_tpu_torch.config import MethodConfig
@@ -236,11 +238,121 @@ def test_agent_training_and_checkpoints_are_a_later_slice(tmp_path):
         agent.load_weight(str(tmp_path / "QAttentionAgent_layer0.msgpack"))
 
 
-def test_unported_kernel_flags_raise():
-    for flag in ("pallas_stats", "pallas_decoder_v3", "pallas_encoder"):
-        cfg = MethodConfig(**TINY, compute_dtype="bfloat16", **{flag: True})
-        with pytest.raises(NotImplementedError, match=flag):
-            Q.build_encoder(cfg, device="cpu")
-    # pallas_encoder is inert where the fused front takes over, as in JAX
+# the dense-grid act path's kernel flags (pallas_front off: voxelize builds the
+# real grid), alone, together, and together on the two-head variant
+DENSE_CASES = {
+    "encoder": dict(pallas_encoder=True),
+    "stats": dict(pallas_stats=True),
+    "decoder_v3": dict(pallas_decoder_v3=True),
+    "all": dict(pallas_encoder=True, pallas_stats=True, pallas_decoder_v3=True),
+    "all_two_heads": dict(pallas_encoder=True, pallas_stats=True, pallas_decoder_v3=True,
+                          variant="one_policy_more_heads", which_arm="both"),
+}
+
+
+def _argmax_groups(out, nr):
+    """(key, columns) of every integer action the decode takes from ``out``."""
+    rot = [slice(i * nr, (i + 1) * nr) for i in range(3)] + [slice(3 * nr, None)]
+    return [(k, sl) for k in out for sl in (rot if k.startswith("rot_grip") else [slice(None)])]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(DENSE_CASES))
+def test_dense_grid_kernel_flags_match_jax(case, dtype, monkeypatch):
+    """The port's dense-grid act with K5, K6 and K8 (their plain versions on
+    the CPU) against the JAX package's with the same flags, its Pallas kernels
+    in interpret mode. The kernels take the JAX package's gates: K5 only at
+    bf16, K6 and K8 at either dtype.
+
+    - f32: the integer actions are exact; K6 and K8 compute in f32 on both
+      sides, so the Q-field differs by f32 summation order only.
+    - bf16: the Q-field and the logits (two groups) within twice the JAX
+      package's own bf16-vs-f32 distance over the group, the f32 side from
+      the port's f32 path (which the f32 cases hold to the JAX one): if the
+      port is no less accurate at bf16 than the reference, the triangle
+      inequality keeps the two within it. An action may flip only where the
+      JAX output's top-two gap is inside that tolerance.
+
+    The JAX model calls its stats kernel without ``pallas_interpret``; here
+    it runs in interpret mode, as tests/test_pallas_stats.py runs it.
+    """
+    monkeypatch.setattr(jax_stats_module, "stats_head",
+                        functools.partial(jax_stats_module.stats_head, interpret=True))
+    kw = dict(TINY, which_arm="right", compute_dtype=dtype, pallas_interpret=True)
+    kw.update(DENSE_CASES[case])
+    params = random_params(kw, 7)
+    jcfg = JaxMethodConfig(**kw)
+    cfg = MethodConfig(**kw)
+    model, infer = _port_model(kw, params)
+    rng = np.random.default_rng(8)
+    obs = observation_batch(rng, 2, cfg.proprio_width())
+
+    if dtype == "float32":
+        _, jinfer = JQ.make_infer_fn(jcfg)
+        ref = jinfer(params, tuple(map(jnp.asarray, obs[0])),
+                     tuple(map(jnp.asarray, obs[1])), *map(jnp.asarray, obs[2:]))
+        got = infer(model, *obs)
+        for field in ("trans_idx", "rot_grip_idx", "collision_idx"):
+            np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                          np.asarray(getattr(ref, field)), err_msg=field)
+        q = np.asarray(ref.q_trans)
+        np.testing.assert_allclose(got.q_trans.numpy(), q, atol=1e-5 * np.abs(q).max(),
+                                   rtol=0)
+        # the dense path hands out the real grid
+        np.testing.assert_allclose(got.voxel_grid.numpy(), np.asarray(ref.voxel_grid),
+                                   atol=1e-5)
+        assert got.voxel_grid.shape == (2, 10, 10, 10, 10)
+        assert (got.front_overflow.numpy() == 0).all()
+        return
+
+    rgbs, pcds, proprio, lg, lt, bounds = obs
+    jmodel = JQ.build_encoder(jcfg)
+    coords, feats = JQ.flatten_camera_observations(
+        [JQ.normalize_rgb(jnp.asarray(r)) for r in rgbs], [jnp.asarray(p) for p in pcds])
+    ref, _, _ = jax.jit(lambda p, c, f: JQ.apply_with_front(
+        jcfg, jmodel, p, c, f, jnp.asarray(bounds), jnp.asarray(proprio),
+        jnp.asarray(lg), jnp.asarray(lt)))(params, coords, feats)
+    kw32 = dict(kw, compute_dtype="float32")
+    model32, _ = _port_model(kw32, params)
+    args = tuple(torch.tensor(a) for a in (bounds, proprio, lg, lt))
+    with torch.no_grad():
+        tc, tf = Q.flatten_camera_observations(
+            [Q.normalize_rgb(torch.tensor(r)) for r in rgbs],
+            [torch.tensor(p) for p in pcds])
+        got, grid, overflow = Q.apply_with_front(cfg, model, tc, tf, *args)
+        f32, _, _ = Q.apply_with_front(MethodConfig(**kw32), model32, tc, tf, *args)
+    assert grid.shape == (2, 10, 10, 10, 10) and (overflow.numpy() == 0).all()
+    assert set(got) == set(ref)
+    ref = {k: np.asarray(v, np.float32) for k, v in ref.items()}
+    group = lambda k: "trans" if k.startswith("trans") else "logits"  # noqa: E731
+    plain = {}
+    for k in ref:
+        d = np.abs(ref[k] - f32[k].numpy()).max()
+        plain[group(k)] = max(plain.get(group(k), 0.0), d)
+    tols = {k: 2.0 * plain[group(k)] for k in ref}
+    for k in ref:
+        np.testing.assert_allclose(got[k].float().numpy(), ref[k], atol=tols[k], rtol=0,
+                                   err_msg=k)
+    for k, cols in _argmax_groups(ref, cfg.num_rotation_classes):
+        r = ref[k].reshape(2, -1)[:, cols]
+        g = got[k].float().numpy().reshape(2, -1)[:, cols]
+        for bi in range(2):
+            if g[bi].argmax() != r[bi].argmax():
+                top2 = np.sort(r[bi])[-2:]
+                assert top2[1] - top2[0] <= tols[k], (k, bi, top2)
+
+
+def test_pallas_encoder_inert_under_fused_front(monkeypatch):
+    """Where the fused front (K1) is eligible, ``pallas_encoder`` takes no
+    part, as in the JAX package: the act never reaches K5."""
+    import voxactb_tpu_torch.ops.cuda.encoder_stats as K5
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("K5 ran under the fused front")
+
+    monkeypatch.setattr(K5, "encoder_stats", refuse)
     cfg = dataclasses.replace(MethodConfig(**TINY, **KERNELS), pallas_encoder=True)
-    Q.build_encoder(cfg, device="cpu")
+    assert Q.front_eligible(cfg)
+    model, infer = Q.make_infer_fn(cfg, device="cpu")
+    out = infer(model, *observation_batch(np.random.default_rng(9), 2, 4))
+    assert out.voxel_grid.shape == (2, 1, 1, 1, 10)  # the dense grid was never built

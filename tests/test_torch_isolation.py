@@ -62,6 +62,8 @@ def test_import_and_cpu_act_load_no_jax():
         import voxactb_tpu_torch.vlm.pipeline, voxactb_tpu_torch.models.sam_encoder
         import voxactb_tpu_torch.models.sam_decoder, voxactb_tpu_torch.models.owlvit
         import voxactb_tpu_torch.ops.cuda.sam_attention
+        import voxactb_tpu_torch.ops.cuda.encoder_stats, voxactb_tpu_torch.ops.cuda.stats_head
+        import voxactb_tpu_torch.ops.cuda.decoder_head_v3
         from voxactb_tpu_torch.models.clip_text import ClipLanguageEncoder
 
         # the tokenizer reads the port's own copy of the BPE vocab
@@ -84,10 +86,21 @@ def test_import_and_cpu_act_load_no_jax():
                     rng.normal(size=(1, 4)), rng.normal(size=(1, 1024)),
                     rng.normal(size=(1, 77, 512)), [0, 0, 0, 1, 1, 1])
         assert out.continuous_action.shape == (1, 9)
+        # the dense-grid act path (encoder front, stats and inline-upsample
+        # tail kernels' plain versions)
+        import dataclasses
+        dense = dataclasses.replace(cfg, pallas_front=False, pallas_decoder=False,
+                                    pallas_encoder=True, pallas_stats=True,
+                                    pallas_decoder_v3=True)
+        model, infer = make_infer_fn(dense, device="cpu")
+        out = infer(model, (rng.integers(0, 255, (1, 8, 8, 3)),),
+                    (rng.uniform(-0.5, 1.5, (1, 8, 8, 3)),),
+                    rng.normal(size=(1, 4)), rng.normal(size=(1, 1024)),
+                    rng.normal(size=(1, 77, 512)), [0, 0, 0, 1, 1, 1])
+        assert out.voxel_grid.shape == (1, 10, 10, 10, 10)
 
         # the agent's train path: two updates, then an act, on the CPU
         from voxactb_tpu_torch.agents.qattention_agent import QAttentionBCAgent
-        import dataclasses
         cfg = dataclasses.replace(cfg, pallas_attention_train=True, which_arm="dominant",
                                   arm_pred_loss=True)
         agent = QAttentionBCAgent(cfg, ["wrist"], [0, 0, 0, 1, 1, 1], device="cpu")

@@ -34,12 +34,6 @@ from voxactb_tpu_torch.optim import (
     Optimizer, OptState, cosine_hard_restarts_schedule, global_norm)
 
 
-def _unported(flag: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{flag} selects a kernel of a later slice of the port ({slice_name}); "
-        "unset it to run the same function through the act-path kernels")
-
-
 def build_encoder(cfg: MethodConfig, low_dim_size: Optional[int] = None, *,
                   device=None, seed: int = 0) -> PerceiverVoxelLangEncoder:
     """Instantiate the Q-net from a method config, with weights initialised
@@ -50,16 +44,6 @@ def build_encoder(cfg: MethodConfig, low_dim_size: Optional[int] = None, *,
         raise ValueError(
             f"voxel_size {cfg.voxel_size} must be divisible by voxel_patch_stride "
             f"{cfg.voxel_patch_stride}")
-    # flags of kernels not yet ported raise where the JAX package would take them
-    lrelu_bf16 = cfg.activation == "lrelu" and cfg.compute_dtype == "bfloat16"
-    if cfg.pallas_stats:
-        raise _unported("pallas_stats", "the stats_head kernel")
-    if (cfg.pallas_decoder_v3 and cfg.activation == "lrelu"
-            and not (cfg.no_skip_connection or cfg.no_perceiver)
-            and cfg.voxel_patch_size == cfg.voxel_patch_stride == 5):
-        raise _unported("pallas_decoder_v3", "the decoder_head_v3 kernel")
-    if cfg.pallas_encoder and lrelu_bf16 and not front_eligible(cfg):
-        raise _unported("pallas_encoder", "the encoder_stats kernel")
     two_heads = cfg.variant == "one_policy_more_heads"
     gen = torch.Generator().manual_seed(seed)
     model = PerceiverVoxelLangEncoder(
@@ -89,7 +73,10 @@ def build_encoder(cfg: MethodConfig, low_dim_size: Optional[int] = None, *,
         num_proprio=2 if two_heads else 1,
         two_arm_heads=two_heads,
         fused_upsample=cfg.fused_upsample,
+        pallas_stats=cfg.pallas_stats,
+        pallas_encoder=cfg.pallas_encoder,
         pallas_decoder=cfg.pallas_decoder,
+        pallas_decoder_v3=cfg.pallas_decoder_v3,
         pallas_attention=cfg.pallas_attention,
         pallas_attention_train=cfg.pallas_attention_train,
         dtype=torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32,
@@ -133,7 +120,9 @@ def apply_with_front(cfg: MethodConfig, model, coords, feats, bounds, proprio,
                      lang_goal_emb, lang_token_embs):
     """Q-forward dispatch: the fused front kernel where eligible (the dense
     grid is then never built and ``grid`` is a [B,1,1,1,10] placeholder),
-    else the voxelize path. Returns ``(out, grid, overflow)``."""
+    else the voxelize path, which returns the real ``[B,N,N,N,10]`` grid (the
+    path to take when rendering voxel grids) and feeds it to the encoder
+    (``pallas_encoder``'s kernel there). Returns ``(out, grid, overflow)``."""
     b = coords.shape[0]
     if front_eligible(cfg):
         front, overflow = fused_front_inputs(cfg, model, coords, feats, bounds)

@@ -97,12 +97,12 @@ class MethodConfig:
     compute_dtype: str = "float32"  # 'bfloat16' for tensor-core inference
     remat: bool = False             # recompute the forward in the backward
     fused_upsample: bool = True     # phase-decomposed decoder upsample-conv
-    pallas_stats: bool = False      # standalone stats kernel (later slice)
+    pallas_stats: bool = False      # Hopper soft-argmax/max kernel (ops/cuda/stats_head)
     zshift_conv3d: bool = True      # a TPU conv schedule; same math, ignored
     pallas_decoder: bool = False    # Hopper decoder-tail kernel (ops/cuda/decoder_head)
-    pallas_decoder_v3: bool = False  # inline-upsample decoder tail (later slice)
+    pallas_decoder_v3: bool = False  # inline-upsample decoder tail (ops/cuda/decoder_head_v3)
     pallas_decoder_v2c: bool = False  # TPU schedule of the decoder tail; ignored
-    pallas_encoder: bool = False    # dense-grid front kernel (later slice)
+    pallas_encoder: bool = False    # dense-grid front kernel (ops/cuda/encoder_stats)
     pallas_front: bool = False      # Hopper fused front kernel (ops/cuda/front_fused)
     front_scatter_unroll: int = 1   # TPU schedule of the front scatter; ignored
     front_scatter_matmul: bool = False  # TPU schedule of the front scatter; ignored

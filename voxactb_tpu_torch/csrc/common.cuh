@@ -8,10 +8,13 @@
 // merges the partials, so the result differs from the TPU's only by f32
 // summation order.
 //
-// Also the bf16 implicit-GEMM 3D convolution (`conv3d_igemm`) used by the
-// front kernel's k5/s5 patchify and the decoder tail's k3 skip-concat conv:
-// replicate padding is an index clamp, and the products run on the tensor
-// cores through WMMA (16x16x16 bf16 tiles, f32 accumulation).
+// Also the 1x1x1 preprocess conv + stats of a tile of 10-channel voxel rows
+// (`preprocess_tile`, the front kernel's and the dense-grid encoder's), and
+// the bf16 implicit-GEMM 3D convolution (`conv3d_igemm`) used by the front
+// kernel's k5/s5 patchify, the decoder tail's k3 skip-concat conv and the
+// inline-upsample tail's phase conv: replicate padding is an index clamp, and
+// the products run on the tensor cores through WMMA (16x16x16 bf16 tiles, f32
+// accumulation).
 
 #pragma once
 
@@ -37,6 +40,13 @@ constexpr int kStatFields = 5;  // max, sum e, sum e*lin[dim1], *lin[dim0], *lin
 __device__ __forceinline__ bf16 lrelu_rounded(bf16 v) {
   float f = __bfloat162float(v);
   return f >= 0.f ? v : __float2bfloat16_rn(f * kLreluSlopeBf16);
+}
+
+// The same with the f32 slope: decoder_head_v3 takes the lrelu of its
+// synthesised u0 in f32 (u0 * 0.02) and rounds once.
+__device__ __forceinline__ bf16 lrelu_rounded_f32slope(bf16 v) {
+  float f = __bfloat162float(v);
+  return f >= 0.f ? v : __float2bfloat16_rn(f * 0.02f);
 }
 
 struct Stat {
@@ -152,17 +162,84 @@ inline cudaError_t launch_stats_combine(const float* part, int B, int P, float* 
 }
 
 // ---------------------------------------------------------------------------
+// 1x1x1 preprocess conv + soft-argmax partial of one tile of kPreTile voxels.
+//
+// `rows` holds the tile's 10-channel grid rows, already rounded to bf16 (the
+// compute dtype). Thread (half, c) of the kPreTile-thread block walks its
+// half of the tile: d0 = lrelu(bf16(row . W1 + b1)) with f32 products summed
+// over k = 0..9 in order, written coalesced (64 threads per voxel row), and
+// folded into the block's partial for channel c (positions lin[dim1],
+// lin[dim0], lin[dim2]); the block's partial goes to part [B, P, 5, 64].
+// ---------------------------------------------------------------------------
+
+constexpr int kPreC = 64;
+constexpr int kPreTile = 128;
+
+__device__ __forceinline__ void preprocess_tile(
+    float (*rows)[11], float (*sh_stat)[kPreC], const bf16* __restrict__ w1,
+    const float* __restrict__ b1, const float* __restrict__ lin, int N, long long v0,
+    int P, bf16* __restrict__ d0, float* __restrict__ part) {
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const long long n3 = (long long)N * N * N;
+  const int c = tid % kPreC;
+  const int half = tid / kPreC;
+  float w[10];
+#pragma unroll
+  for (int k = 0; k < 10; ++k) w[k] = __bfloat162float(w1[k * kPreC + c]);
+  const float bias = b1[c];
+  Stat st = stat_empty();
+  for (int i = 0; i < kPreTile / 2; ++i) {
+    int r = half * (kPreTile / 2) + i;
+    long long v = v0 + r;
+    if (v >= n3) break;
+    float pre = 0.f;
+#pragma unroll
+    for (int k = 0; k < 10; ++k) pre += rows[r][k] * w[k];
+    bf16 d = lrelu_rounded(__float2bfloat16_rn(pre + bias));
+    d0[((size_t)b * n3 + v) * kPreC + c] = d;
+    int i0 = (int)(v / ((long long)N * N));
+    int i1 = (int)((v / N) % N);
+    int i2 = (int)(v % N);
+    stat_fold(st, __bfloat162float(d), lin[i1], lin[i0], lin[i2]);
+  }
+  if (half == 1) {
+    sh_stat[0][c] = st.m;
+    sh_stat[1][c] = st.s;
+    sh_stat[2][c] = st.wx;
+    sh_stat[3][c] = st.wd;
+    sh_stat[4][c] = st.wz;
+  }
+  __syncthreads();
+  if (half == 0) {
+    Stat o;
+    o.m = sh_stat[0][c];
+    o.s = sh_stat[1][c];
+    o.wx = sh_stat[2][c];
+    o.wd = sh_stat[3][c];
+    o.wz = sh_stat[4][c];
+    stat_merge(st, o);
+    stat_store(part + ((size_t)b * P + blockIdx.x) * kStatFields * kPreC, kPreC, c, st);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Implicit-GEMM 3D convolution, channels-last bf16, Cout = 64.
 //
 //   out[b, o, co] = sum_{tap, ci} in[b, clamp(o * STRIDE + tap - PAD), ci] * w[tap, ci, co]
 //
 // The input is the channel concat of src0 (channels 0..63) and, for CIN = 128,
-// src1 (channels 64..127), both [B, Ni, Ni, Ni, 64]. w is [KS^3, CIN, 64] bf16.
+// src1 (channels 64..127), both [B, Ni, Ni, Ni, 64]. w is [KS^3, CIN, w_ld]
+// bf16; block column y takes its 64 output channels from columns 64y..64y+63.
 // One block computes 64 output voxels x 64 channels: 4 warps, each 16 voxels
 // x 64 channels as four 16x16 f32 accumulators. Per tap the block gathers the
 // 64 clamped input rows (A, 64 x CIN) and the tap's weights (B, CIN x 64) into
 // shared memory and runs CIN / 16 WMMA k-steps. Epilogues: raw f32 (the
-// patchify's pre-activation) or bias + bf16 rounding + leaky relu (bf16 out).
+// patchify's pre-activation); bias + bf16 rounding + leaky relu (bf16 out);
+// or the phase upsample's: column block y is phase (rz, ry, rx) = (y / 25,
+// y / 5 % 5, y % 5) of a x5 upsample, and output cell (b, qz, qy, qx) goes to
+// voxel (5 qz + rz, 5 qy + ry, 5 qx + rx) of the [B, 5 No, 5 No, 5 No, 64]
+// grid as lrelu(bf16(acc + bias)) with the f32 slope.
 // ---------------------------------------------------------------------------
 
 constexpr int kConvBM = 64;
@@ -181,13 +258,13 @@ struct ConvSmem {
       (kBytesA + kBytesB) > kBytesC ? (kBytesA + kBytesB) : kBytesC;
 };
 
-enum ConvEpilogue { kEpiRawF32 = 0, kEpiBiasLreluBf16 = 1 };
+enum ConvEpilogue { kEpiRawF32 = 0, kEpiBiasLreluBf16 = 1, kEpiPhaseUpsampleBf16 = 2 };
 
 template <int CIN, int KS, int STRIDE, int PAD, int EPI>
 __global__ void __launch_bounds__(kConvThreads)
 conv3d_igemm(const bf16* __restrict__ src0, const bf16* __restrict__ src1,
-             const bf16* __restrict__ w, const float* __restrict__ bias, int B,
-             int Ni, int No, float* __restrict__ out_f32,
+             const bf16* __restrict__ w, int w_ld, const float* __restrict__ bias,
+             int B, int Ni, int No, float* __restrict__ out_f32,
              bf16* __restrict__ out_bf16) {
   using namespace nvcuda;
   typedef ConvSmem<CIN> S;
@@ -248,12 +325,12 @@ conv3d_igemm(const bf16* __restrict__ src0, const bf16* __restrict__ src1,
       }
       *reinterpret_cast<uint4*>(As + r * S::kLdA + ch * 8) = val;
     }
-    const bf16* wt = w + (size_t)tap * CIN * kConvCout;
+    const bf16* wt = w + (size_t)tap * CIN * w_ld + (size_t)blockIdx.y * kConvCout;
     for (int j = tid; j < kChunksB; j += kConvThreads) {
       const int r = j / (kConvCout / 8);
       const int ch = j % (kConvCout / 8);
       *reinterpret_cast<uint4*>(Bs + r * S::kLdB + ch * 8) =
-          *reinterpret_cast<const uint4*>(wt + r * kConvCout + ch * 8);
+          *reinterpret_cast<const uint4*>(wt + (size_t)r * w_ld + ch * 8);
     }
     __syncthreads();
 #pragma unroll
@@ -276,13 +353,13 @@ conv3d_igemm(const bf16* __restrict__ src0, const bf16* __restrict__ src1,
                             wmma::mem_row_major);
   __syncthreads();
 
-  if (EPI == kEpiRawF32) {
+  if constexpr (EPI == kEpiRawF32) {
     for (int j = tid; j < kConvBM * kConvCout; j += kConvThreads) {
       const int r = j / kConvCout, co = j % kConvCout;
       long long m = m0 + r;
       if (m < M) out_f32[m * kConvCout + co] = Cs[r * S::kLdC + co];
     }
-  } else {
+  } else if constexpr (EPI == kEpiBiasLreluBf16) {
     for (int j = tid; j < kConvBM * kConvCout / 2; j += kConvThreads) {
       const int r = j / (kConvCout / 2), co = (j % (kConvCout / 2)) * 2;
       long long m = m0 + r;
@@ -296,18 +373,39 @@ conv3d_igemm(const bf16* __restrict__ src0, const bf16* __restrict__ src1,
         *reinterpret_cast<__nv_bfloat162*>(out_bf16 + m * kConvCout + co) = pair;
       }
     }
+  } else {
+    const int ph = blockIdx.y;
+    const int rz = ph / 25, ry = (ph / 5) % 5, rx = ph % 5;
+    const long long n = 5LL * No;
+    for (int j = tid; j < kConvBM * kConvCout / 2; j += kConvThreads) {
+      const int r = j / (kConvCout / 2), co = (j % (kConvCout / 2)) * 2;
+      long long m = m0 + r;
+      if (m < M) {
+        long long b = m / no3;
+        long long q = m - b * no3;
+        long long qz = q / ((long long)No * No), qy = (q / No) % No, qx = q % No;
+        size_t vox = (size_t)(((b * n + 5 * qz + rz) * n + 5 * qy + ry) * n + 5 * qx + rx);
+        __nv_bfloat162 pair;
+        pair.x = lrelu_rounded_f32slope(
+            __float2bfloat16_rn(Cs[r * S::kLdC + co] + bias[co]));
+        pair.y = lrelu_rounded_f32slope(
+            __float2bfloat16_rn(Cs[r * S::kLdC + co + 1] + bias[co + 1]));
+        *reinterpret_cast<__nv_bfloat162*>(out_bf16 + vox * kConvCout + co) = pair;
+      }
+    }
   }
 }
 
+// col_blocks blocks of 64 output channels each; w_ld = 64 * col_blocks.
 template <int CIN, int KS, int STRIDE, int PAD, int EPI>
 inline cudaError_t launch_conv3d_igemm(const bf16* src0, const bf16* src1,
                                        const bf16* w, const float* bias, int B, int Ni,
                                        int No, float* out_f32, bf16* out_bf16,
-                                       cudaStream_t stream) {
+                                       cudaStream_t stream, int col_blocks = 1) {
   long long M = (long long)B * No * No * No;
-  unsigned blocks = (unsigned)((M + kConvBM - 1) / kConvBM);
-  conv3d_igemm<CIN, KS, STRIDE, PAD, EPI><<<blocks, kConvThreads, 0, stream>>>(
-      src0, src1, w, bias, B, Ni, No, out_f32, out_bf16);
+  dim3 grid((unsigned)((M + kConvBM - 1) / kConvBM), (unsigned)col_blocks);
+  conv3d_igemm<CIN, KS, STRIDE, PAD, EPI><<<grid, kConvThreads, 0, stream>>>(
+      src0, src1, w, kConvCout * col_blocks, bias, B, Ni, No, out_f32, out_bf16);
   return cudaGetLastError();
 }
 

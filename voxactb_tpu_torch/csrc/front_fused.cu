@@ -17,10 +17,10 @@
 //                    differ from the plain version in the last f32 bits and
 //                    d0 by one bf16 ulp.
 //   2. ff_voxel    - per 128-voxel tile: build the 10-channel grid row (mean,
-//                    index / N, occupancy), round it to bf16, d0 = lrelu(bf16(
-//                    row . W1 + b1)) with f32 products, write d0 coalesced
-//                    (64 threads per voxel row), and fold each channel into a
-//                    per-block soft-argmax partial.
+//                    index / N, occupancy), round it to bf16, then
+//                    preprocess_tile (common.cuh): d0 = lrelu(bf16(row . W1 +
+//                    b1)) with f32 products, written coalesced, and each
+//                    channel folded into a per-block soft-argmax partial.
 //   3. stats_combine (common.cuh) - merge the partials into kp / gmax.
 //   4. conv3d_igemm<64, 5, 5, 2> (common.cuh) - the patchify over d0 with
 //                    front edge padding 2 (the back padding is never read),
@@ -32,8 +32,8 @@ namespace {
 
 using vx::bf16;
 
-constexpr int kC = 64;
-constexpr int kVoxTile = 128;
+constexpr int kC = vx::kPreC;
+constexpr int kVoxTile = vx::kPreTile;
 
 __global__ void ff_scatter(const float* __restrict__ coords,
                            const float* __restrict__ feats,
@@ -74,17 +74,17 @@ __global__ void ff_scatter(const float* __restrict__ coords,
   atomicAdd(dst + 6, 1.f);
 }
 
-__global__ void __launch_bounds__(kVoxTile)
+__global__ void __launch_bounds__(vx::kPreTile)
 ff_voxel(const float* __restrict__ acc, const bf16* __restrict__ w1,
          const float* __restrict__ b1, const float* __restrict__ lin, int N,
          int P3, bf16* __restrict__ d0, float* __restrict__ part) {
-  __shared__ float rows[kVoxTile][11];
-  __shared__ float sh_stat[vx::kStatFields][kC];
+  __shared__ float rows[vx::kPreTile][11];
+  __shared__ float sh_stat[vx::kStatFields][vx::kPreC];
 
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const long long n3 = (long long)N * N * N;
-  const long long v0 = (long long)blockIdx.x * kVoxTile;
+  const long long v0 = (long long)blockIdx.x * vx::kPreTile;
 
   {  // grid row of voxel v0 + tid, rounded to bf16 (the compute dtype)
     long long v = v0 + tid;
@@ -111,48 +111,7 @@ ff_voxel(const float* __restrict__ acc, const bf16* __restrict__ w1,
     for (int k = 0; k < 10; ++k) rows[tid][k] = __bfloat162float(__float2bfloat16_rn(r[k]));
   }
   __syncthreads();
-
-  // 64 channels x 2 voxel halves: thread (half, c) walks 64 voxels of its half
-  const int c = tid % kC;
-  const int half = tid / kC;
-  float w[10];
-#pragma unroll
-  for (int k = 0; k < 10; ++k) w[k] = __bfloat162float(w1[k * kC + c]);
-  const float bias = b1[c];
-  vx::Stat st = vx::stat_empty();
-  for (int i = 0; i < kVoxTile / 2; ++i) {
-    int r = half * (kVoxTile / 2) + i;
-    long long v = v0 + r;
-    if (v >= n3) break;
-    float pre = 0.f;
-#pragma unroll
-    for (int k = 0; k < 10; ++k) pre += rows[r][k] * w[k];
-    bf16 d = vx::lrelu_rounded(__float2bfloat16_rn(pre + bias));
-    d0[((size_t)b * n3 + v) * kC + c] = d;
-    int i0 = (int)(v / ((long long)N * N));
-    int i1 = (int)((v / N) % N);
-    int i2 = (int)(v % N);
-    vx::stat_fold(st, __bfloat162float(d), lin[i1], lin[i0], lin[i2]);
-  }
-  if (half == 1) {
-    sh_stat[0][c] = st.m;
-    sh_stat[1][c] = st.s;
-    sh_stat[2][c] = st.wx;
-    sh_stat[3][c] = st.wd;
-    sh_stat[4][c] = st.wz;
-  }
-  __syncthreads();
-  if (half == 0) {
-    vx::Stat o;
-    o.m = sh_stat[0][c];
-    o.s = sh_stat[1][c];
-    o.wx = sh_stat[2][c];
-    o.wd = sh_stat[3][c];
-    o.wz = sh_stat[4][c];
-    vx::stat_merge(st, o);
-    vx::stat_store(part + ((size_t)b * P3 + blockIdx.x) * vx::kStatFields * kC, kC,
-                   c, st);
-  }
+  vx::preprocess_tile(rows, sh_stat, w1, b1, lin, N, v0, P3, d0, part);
 }
 
 }  // namespace

@@ -271,13 +271,19 @@ class Conv3DUpsample(nn.Module):
                          activation, generator)
         self.out_bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pre_only: bool = False):
+        """``pre_only=True`` stops after ``conv_in`` and returns ``(h,
+        out_kernel, out_bias)``, the two f32 parameters as they are: the
+        inputs of the inline-upsample decoder tail (``ops/cuda/
+        decoder_head_v3``), which makes u0 itself."""
         from voxactb_tpu_torch.ops.upsample_conv import (
             reference_upsample_conv, upsample_conv)
 
         if self.strides <= 1:
             raise NotImplementedError("Conv3DUpsample with strides <= 1")
         x = self.conv_in(x)
+        if pre_only:
+            return x, self.out_kernel, self.out_bias
         op = upsample_conv if self.fast else reference_upsample_conv
         y = op(x.to(self.dtype), self.out_kernel.to(self.dtype),
                self.out_bias.to(self.dtype), self.strides)

@@ -11,12 +11,18 @@ Shape walk at N=100, patch 5/5: voxel grid [B,100^3,10] --1x1x1--> d0 [..,64]
 cross-attn--> [B,8000,128] --x5 upsample + skip-concat d0 + k3 conv--> u
 [B,100^3,64] --k3--> Q_trans; MLP heads off (soft-argmax || global max) stats.
 
-Three paths take the hand-written kernels (``ops/cuda``), exactly where the
-JAX package takes its Pallas kernels: ``front=`` (from the fused front,
-``pallas_front``), ``pallas_attention`` at bf16, ``pallas_decoder``. Under
-``train=True`` those three are off, as in the JAX package, and
-``pallas_attention_train`` at bf16 takes the trainable attention kernel with
-its in-kernel dropout; every other op differentiates through torch autograd.
+The hand-written kernels (``ops/cuda``) run exactly where the JAX package
+takes its Pallas kernels: ``front=`` (from the fused front, ``pallas_front``);
+``pallas_encoder`` (the dense-grid front, at bf16 with lrelu and no
+``front=``); ``pallas_stats`` (every soft-argmax/max statistic not computed
+by a front or tail kernel); ``pallas_attention`` at bf16; ``pallas_decoder``
+and ``pallas_decoder_v3`` (the decoder tail; v3, which makes u0 from the
+post-``conv_in`` slab itself, takes precedence at patch size and stride 5).
+Under ``train=True`` the inference kernels are off, as in the JAX package
+(``pallas_stats`` raises: the JAX package cannot differentiate through its
+kernel either), and ``pallas_attention_train`` at bf16 takes the trainable
+attention kernel with its in-kernel dropout; every other op differentiates
+through torch autograd.
 """
 
 from __future__ import annotations
@@ -179,7 +185,9 @@ class PerceiverVoxelLangEncoder(nn.Module):
                  no_perceiver: bool = False, no_language: bool = False,
                  arm_pred: bool = False, num_proprio: int = 1,
                  two_arm_heads: bool = False, fused_upsample: bool = True,
-                 pallas_decoder: bool = False, pallas_attention: bool = False,
+                 pallas_stats: bool = False, pallas_encoder: bool = False,
+                 pallas_decoder: bool = False, pallas_decoder_v3: bool = False,
+                 pallas_attention: bool = False,
                  pallas_attention_train: bool = False, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -204,7 +212,10 @@ class PerceiverVoxelLangEncoder(nn.Module):
         self.arm_pred = arm_pred
         self.num_proprio = num_proprio
         self.two_arm_heads = two_arm_heads
+        self.pallas_stats = pallas_stats
+        self.pallas_encoder = pallas_encoder
         self.pallas_decoder = pallas_decoder
+        self.pallas_decoder_v3 = pallas_decoder_v3
         self.dtype = dtype
 
         spatial = voxel_size // voxel_patch_stride
@@ -267,10 +278,23 @@ class PerceiverVoxelLangEncoder(nn.Module):
                                      generator=g)
             self.arm_ff = DenseBlock(final_dim, 2, None, dtype=dtype, generator=g)
 
-    def _tail_eligible(self) -> bool:
-        return (self.pallas_decoder and not self.no_skip_connection
-                and not self.no_perceiver and self.activation == "lrelu"
-                and self.im_channels == self.final_dim)
+    def _tail_kernel(self, train: bool) -> Optional[str]:
+        """The decoder-tail kernel this forward takes: "v3" (K8), "v2" (K3) or
+        None, by the JAX package's ``tail_ok`` gate (no dtype condition)."""
+        tail_ok = (not train and not self.no_skip_connection and not self.no_perceiver
+                   and self.activation == "lrelu" and self.im_channels == self.final_dim)
+        if (self.pallas_decoder_v3 and tail_ok and self.voxel_patch_size == 5
+                and self.voxel_patch_stride == 5):
+            return "v3"
+        return "v2" if self.pallas_decoder and tail_ok else None
+
+    def _stats(self, x: torch.Tensor):
+        """(soft-argmax keypoints, global max): K6 under ``pallas_stats``."""
+        if self.pallas_stats:
+            from voxactb_tpu_torch.ops.cuda.stats_head import stats_head
+
+            return stats_head(x)
+        return softargmax_stats_3d(x)
 
     def num_dropout_seeds(self) -> int:
         """One seed per attention call of a forward."""
@@ -298,6 +322,10 @@ class PerceiverVoxelLangEncoder(nn.Module):
         del lang_goal_emb  # 'seq' fusion conditions on token embeddings only
         if train and front is not None:
             raise ValueError("the fused front is an inference path")
+        if train and self.pallas_stats:
+            raise NotImplementedError(
+                "pallas_stats selects the stats_head kernel, which has no backward "
+                "(nor has the JAX package's); unset pallas_stats to train")
         seeds = [None] * self.num_dropout_seeds()
         if train and any(d > 0.0 for d in self.dropouts):
             if dropout_seeds is None:
@@ -312,9 +340,18 @@ class PerceiverVoxelLangEncoder(nn.Module):
         if front is not None:
             d0, ins, kp0, gmax0 = front
             d0, ins = d0.to(dt), ins.to(dt)
+        elif (self.pallas_encoder and not train and self.activation == "lrelu"
+              and dt == torch.bfloat16):
+            from voxactb_tpu_torch.ops.cuda.encoder_stats import encoder_stats
+
+            # the kernel rounds the grid to bf16 itself
+            d0, kp0, gmax0 = encoder_stats(
+                voxel_grid, self.input_preprocess.kernel_dhwio()[0, 0, 0],
+                self.input_preprocess.bias)
+            ins = self.patchify(d0)
         else:
             d0 = self.input_preprocess(voxel_grid.to(dt))
-            kp0, gmax0 = softargmax_stats_3d(d0)
+            kp0, gmax0 = self._stats(d0)
             ins = self.patchify(d0)
         feats = [kp0, gmax0]
 
@@ -341,30 +378,38 @@ class PerceiverVoxelLangEncoder(nn.Module):
 
         decoded = self.decoder_cross_attn(seq, x, train=train, seed=next(seeds))
         grid = decoded[:, self.lang_max_seq_len:].reshape(b, spatial, spatial, spatial, dim)
-        kp1, gmax1 = softargmax_stats_3d(grid)
+        kp1, gmax1 = self._stats(grid)
         feats.extend([kp1, gmax1])
 
-        u0 = self.up0(grid)
         heads = ["", "_left"] if self.two_arm_heads else [""]
         trans = {}
-        if self._tail_eligible() and not train:
-            from voxactb_tpu_torch.ops.cuda.decoder_head import decoder_head
-
+        tail = self._tail_kernel(train)
+        if tail is not None:
             tds = [getattr(self, f"trans_decoder{s}") for s in heads]
             wt = torch.stack([td.kernel_dhwio() for td in tds])
             bt = torch.cat([td.bias for td in tds])
-            trans_all, kp_u, gmax_u = decoder_head(
-                d0, u0, self.final.kernel_dhwio(), self.final.bias, wt, bt)
+            wf, bf = self.final.kernel_dhwio(), self.final.bias
+            if tail == "v3":
+                from voxactb_tpu_torch.ops.cuda.decoder_head_v3 import decoder_head_v3
+
+                h, up_kernel, up_bias = self.up0(grid, pre_only=True)
+                trans_all, kp_u, gmax_u = decoder_head_v3(d0, h, up_kernel, up_bias,
+                                                          wf, bf, wt, bt)
+            else:
+                from voxactb_tpu_torch.ops.cuda.decoder_head import decoder_head
+
+                trans_all, kp_u, gmax_u = decoder_head(d0, self.up0(grid), wf, bf, wt, bt)
             for i, s in enumerate(heads):
                 trans[s] = trans_all[..., i:i + 1]
         else:
+            u0 = self.up0(grid)
             if self.no_skip_connection:
                 u = self.final(u0)
             elif self.no_perceiver:
                 u = self.final(d0)
             else:
                 u = self.final(torch.cat([d0, u0], -1))
-            kp_u, gmax_u = softargmax_stats_3d(u)
+            kp_u, gmax_u = self._stats(u)
             for s in heads:
                 # the conv rounds to the compute dtype, then the f32 view
                 trans[s] = getattr(self, f"trans_decoder{s}")(u).to(torch.float32)

@@ -3,10 +3,11 @@ image encoder, and their plain versions.
 
 Each wrapper (``front_fused``, ``flash_attention``, ``decoder_head``,
 ``flash_attention_train`` with its forward and backward launches,
-``sam_attention``) takes its
-plain-PyTorch version for CPU tensors only; for CUDA tensors it launches its
-kernel or raises. ``LAUNCHES`` counts kernel launches
-per wrapper, so a run can show that its main path went through the kernels.
+``sam_attention``, and on the dense-grid act path ``encoder_stats``,
+``stats_head`` and ``decoder_head_v3``) takes its plain-PyTorch version for
+CPU tensors only; for CUDA tensors it launches its kernel or raises.
+``LAUNCHES`` counts kernel launches per wrapper, so a run can show that its
+main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"front_fused": 0, "flash_attention": 0,
                             "decoder_head": 0, "flash_attention_train_fwd": 0,
-                            "flash_attention_train_bwd": 0, "sam_attention": 0}
+                            "flash_attention_train_bwd": 0, "sam_attention": 0,
+                            "encoder_stats": 0, "stats_head": 0, "decoder_head_v3": 0}
 
 
 def reset_launch_counts() -> None:

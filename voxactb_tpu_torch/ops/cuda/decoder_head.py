@@ -4,8 +4,10 @@ Replaces ``voxactb_tpu/ops/pallas/decoder_head_v2.py::decoder_head_v2`` and
 the same function under the TPU's other schedules (``decoder_head.py`` v1,
 ``decoder_head_v2c.py``). The kernel (``csrc/decoder_head.cu``) is bounded by
 operations on an H100: at 100^3, B = 1 the u conv is about 442 GFLOP. u is
-rounded to bf16 before the lrelu; trans stays f32 (``acc + bt``), unlike the
-XLA path, which rounds it to the compute dtype.
+rounded to the compute dtype before the lrelu; trans stays f32 (``acc + bt``),
+unlike the XLA path, which rounds it to the compute dtype. The compute dtype
+is d0's, as in ``decoder_head_v2``: the plain version computes at f32 for f32
+operands; the kernel takes bf16 only and refuses f32 operands.
 """
 
 from __future__ import annotations
@@ -23,46 +25,68 @@ _VOX_PER_BLOCK = 512  # csrc/decoder_head.cu kVoxPerBlock
 
 
 def decoder_head_reference(d0, u0, wf, bf, wt, bt):
-    """Plain version. d0, u0 ``[B,N,N,N,C]``; wf ``[3,3,3,2C,C]``; bf ``[C]``;
-    wt ``[T,3,3,3,C,1]``; bt ``[T]`` -> ``(trans [B,N,N,N,T] f32,
-    kp [B,3C] f32, gmax [B,C] f32)``."""
-    bf16 = torch.bfloat16
-    cat = torch.cat([d0.to(bf16), u0.to(bf16)], -1)
-    w = wf.to(bf16).permute(4, 3, 0, 1, 2)
+    """Plain version, in d0's dtype (bf16 or f32). d0, u0 ``[B,N,N,N,C]``; wf
+    ``[3,3,3,2C,C]``; bf ``[C]``; wt ``[T,3,3,3,C,1]``; bt ``[T]`` -> ``(trans
+    [B,N,N,N,T] f32, kp [B,3C] f32, gmax [B,C] f32)``."""
+    dt, f32 = d0.dtype, torch.float32
+    cat = torch.cat([d0, u0.to(dt)], -1)
+    w = wf.to(dt).permute(4, 3, 0, 1, 2)
     pre = conv3d_f32acc(edge_pad(to_ncdhw(cat), 1), w, 1)
-    pre = pre + bf.to(torch.float32)[:, None, None, None]
-    u = lrelu(to_ndhwc(pre).to(bf16))
-    wtk = wt[..., 0].to(bf16).permute(0, 4, 1, 2, 3)  # [T, C, 3, 3, 3]
+    pre = pre + bf.to(f32)[:, None, None, None]
+    u = lrelu(to_ndhwc(pre).to(dt))
+    wtk = wt[..., 0].to(dt).permute(0, 4, 1, 2, 3)  # [T, C, 3, 3, 3]
     trans = conv3d_f32acc(edge_pad(to_ncdhw(u), 1), wtk, 1)
-    trans = to_ndhwc(trans + bt.to(torch.float32)[:, None, None, None])
+    trans = to_ndhwc(trans + bt.to(f32)[:, None, None, None])
     kp, gmax = softargmax_stats_3d(u)
     return trans.contiguous(), kp, gmax
 
 
+def check_tail_operands(name, d0, wf, wt, *activations):
+    """Raise ``ValueError`` for operands a tail kernel (K3, K8) does not
+    take: activations (d0 and ``activations``) other than bf16 — the kernel
+    computes in bf16 and does not round f32 operands silently — C other than
+    64, other than k3 weights, or other than 1-2 trans heads."""
+    dtypes = sorted({str(a.dtype) for a in (d0, *activations)})
+    if dtypes != ["torch.bfloat16"]:
+        raise ValueError(f"the {name} kernel computes in bf16 and takes bf16 "
+                         f"activations; got {', '.join(dtypes)} (the plain version "
+                         f"computes at f32)")
+    c = d0.shape[-1]
+    if (c != _C or d0.dim() != 5 or wf.shape != (3, 3, 3, 2 * c, c)
+            or wt.shape[1:] != (3, 3, 3, c, 1) or wt.shape[0] not in (1, 2)):
+        raise ValueError(
+            f"the {name} kernel takes C=64, k3 weights and 1-2 heads; got d0 "
+            f"{tuple(d0.shape)}, wf {tuple(wf.shape)}, wt {tuple(wt.shape)}")
+
+
+def tail_weights(wf, bf, wt, bt):
+    """The tail's weights in the kernels' layouts: wf ``[27, 2C, C]`` bf16,
+    bf f32, wt ``[27, C, T]`` bf16, bt f32."""
+    c, t_heads = wf.shape[-1], wt.shape[0]
+    return (wf.to(torch.bfloat16).reshape(27, 2 * c, c).contiguous(),
+            bf.to(torch.float32).contiguous(),
+            wt[..., 0].to(torch.bfloat16).permute(1, 2, 3, 4, 0).reshape(
+                27, c, t_heads).contiguous(),
+            bt.to(torch.float32).contiguous())
+
+
 def decoder_head(d0, u0, wf, bf, wt, bt):
     """Same arguments and returns as ``decoder_head_reference``; CPU tensors
-    take the plain version."""
+    take the plain version, CUDA tensors the kernel (bf16 d0 and u0 only)."""
     if not d0.is_cuda:
         return decoder_head_reference(d0, u0, wf, bf, wt, bt)
     from voxactb_tpu_torch.ops.cuda.build import check, library, stream_ptr
 
-    b, n = d0.shape[0], d0.shape[1]
-    c = d0.shape[-1]
+    check_tail_operands("decoder_head", d0, wf, wt, u0)
+    if u0.shape != d0.shape:
+        raise ValueError(f"decoder_head: u0 {tuple(u0.shape)} differs from d0 "
+                         f"{tuple(d0.shape)}")
+    b, n, c = d0.shape[0], d0.shape[1], d0.shape[-1]
     t_heads = wt.shape[0]
-    if (c != _C or u0.shape != d0.shape or wf.shape != (3, 3, 3, 2 * c, c)
-            or wt.shape[1:] != (3, 3, 3, c, 1) or t_heads not in (1, 2)):
-        raise ValueError(
-            f"decoder_head kernel takes C=64, k3 weights and 1-2 heads; got d0 "
-            f"{tuple(d0.shape)}, u0 {tuple(u0.shape)}, wf {tuple(wf.shape)}, "
-            f"wt {tuple(wt.shape)}")
     dev = d0.device
     f32, bf16 = torch.float32, torch.bfloat16
-    d0c = d0.to(bf16).contiguous()
-    u0c = u0.to(bf16).contiguous()
-    wf_bf = wf.to(bf16).reshape(27, 2 * c, c).contiguous()
-    wt_bf = wt[..., 0].to(bf16).permute(1, 2, 3, 4, 0).reshape(27, c, t_heads).contiguous()
-    bf_f = bf.to(f32).contiguous()
-    bt_f = bt.to(f32).contiguous()
+    d0c, u0c = d0.contiguous(), u0.contiguous()
+    wf_bf, bf_f, wt_bf, bt_f = tail_weights(wf, bf, wt, bt)
     lin = torch.linspace(-1.0, 1.0, n, dtype=f32, device=dev)
 
     n3 = n ** 3

@@ -1,0 +1,143 @@
+"""K8: decoder tail with the x5 upsample computed inside.
+
+Replaces ``voxactb_tpu/ops/pallas/decoder_head_v3.py::decoder_head_v3``:
+K3's function (``decoder_head``) with u0 made from the post-``conv_in`` slab
+h ``[B,s,s,s,C]`` (s = N / 5) as
+
+    u0 = lrelu(bf16(phase-conv(edge-pad(h), table) + b_up))
+
+where the phase-weight table is the x5 trilinear upsample composed with the
+learned k5 ``out_kernel`` in f32 and rounded to the compute dtype ONCE (the
+XLA path, ``ops/upsample_conv.compose_upsample_kernel``, rounds after each
+axis, and adds a bf16 bias), h is edge-padded on all three axes, and the
+lrelu of u0 multiplies by the f32 slope. The compute dtype is d0's.
+
+The kernel (``csrc/decoder_head_v3.cu``) is bounded by operations on an H100:
+at 100^3, B = 1 the phase conv is 221 GFLOP and the tail's u conv 442.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from voxactb_tpu_torch.models.blocks import conv3d_f32acc, edge_pad, to_ncdhw, to_ndhwc
+from voxactb_tpu_torch.ops.cuda import LAUNCHES
+from voxactb_tpu_torch.ops.cuda.decoder_head import (
+    _VOX_PER_BLOCK, check_tail_operands, decoder_head_reference, tail_weights)
+from voxactb_tpu_torch.ops.upsample_conv import _phase_tap_matrix
+
+_SCALE = 5
+
+
+def phase_weight_table(up_kernel: torch.Tensor, scale: int = _SCALE) -> torch.Tensor:
+    """``[k,k,k,Cin,Cout]`` learned upsample kernel -> ``[scale, scale, 9 Cin,
+    3 scale Cout]`` table in the kernel's dtype: rows (dz, dy, ci), columns
+    (dx, rx, co), the leading axes (rz, ry). The tap matrix and the kernel in
+    one contraction, as ``decoder_head_v3.py::_phase_weight_table``."""
+    k = up_kernel.shape[0]
+    cin, cout = up_kernel.shape[3], up_kernel.shape[4]
+    t = torch.as_tensor(_phase_tap_matrix(scale, k), dtype=up_kernel.dtype,
+                        device=up_kernel.device)
+    w8 = torch.einsum("aud,bve,cwf,uvwio->defiabco", t, t, t, up_kernel)
+    # [dz, dy, dx, ci, rz, ry, rx, co] -> [rz, ry, dz, dy, ci, dx, rx, co]
+    w = w8.permute(4, 5, 0, 1, 3, 2, 6, 7)
+    return w.reshape(scale, scale, 9 * cin, 3 * scale * cout)
+
+
+def _table_taps(table: torch.Tensor) -> torch.Tensor:
+    """``[5,5,9C,15C]`` -> ``[5,5,3,3,C,3,5,C]`` (rz, ry, dz, dy, ci, dx, rx, co)."""
+    c = table.shape[-1] // (3 * _SCALE)
+    return table.reshape(_SCALE, _SCALE, 3, 3, c, 3, _SCALE, c)
+
+
+def upsample_from_table(h: torch.Tensor, table: torch.Tensor, up_bias: torch.Tensor,
+                        dtype: torch.dtype) -> torch.Tensor:
+    """u0 ``[B,5s,5s,5s,C]`` from h ``[B,s,s,s,C]``: the phase conv of the
+    edge-padded h in ``dtype`` (f32 sums), plus the f32 bias, rounded to
+    ``dtype``, then the lrelu with the f32 slope, rounded once."""
+    b, s, c = h.shape[0], h.shape[1], h.shape[-1]
+    n = _SCALE * s
+    # [(rz, ry, rx, co), ci, dz, dy, dx]: a k3 conv with 125 C output channels
+    w = _table_taps(table).permute(0, 1, 6, 7, 4, 2, 3, 5).reshape(
+        _SCALE ** 3 * c, c, 3, 3, 3)
+    y = conv3d_f32acc(edge_pad(to_ncdhw(h.to(dtype)), 1), w.to(dtype), 1)
+    y = y.reshape(b, _SCALE, _SCALE, _SCALE, c, s, s, s).permute(
+        0, 5, 1, 6, 2, 7, 3, 4).reshape(b, n, n, n, c)
+    u0 = (y + up_bias.to(torch.float32)).to(dtype)
+    return torch.where(u0 >= 0, u0, (u0.to(torch.float32) * 0.02).to(dtype))
+
+
+def decoder_head_v3_reference(d0, h, up_kernel, up_bias, wf, bf, wt, bt):
+    """Plain version, in d0's dtype. d0 ``[B,N,N,N,C]``; h ``[B,N/5,N/5,N/5,C]``;
+    up_kernel ``[5,5,5,C,C]``; up_bias ``[C]``; wf, bf, wt, bt as
+    ``decoder_head`` -> ``(trans [B,N,N,N,T] f32, kp [B,3C] f32, gmax [B,C]
+    f32)``."""
+    dt = d0.dtype
+    table = phase_weight_table(up_kernel.to(torch.float32)).to(dt)
+    u0 = upsample_from_table(h, table, up_bias, dt)
+    return decoder_head_reference(d0, u0, wf, bf, wt, bt)
+
+
+def edge_pad_slab(h: torch.Tensor) -> torch.Tensor:
+    """h ``[B,s,s,s,C]`` edge-padded by one on all three axes, channels last."""
+    return to_ndhwc(edge_pad(to_ncdhw(h), 1)).contiguous()
+
+
+def decoder_head_v3(d0, h, up_kernel, up_bias, wf, bf, wt, bt):
+    """Same arguments and returns as ``decoder_head_v3_reference``; CPU
+    tensors take the plain version, CUDA tensors the kernel (bf16 d0 and h
+    only), with the table composed in f32 from the f32 ``up_kernel``."""
+    if not d0.is_cuda:
+        return decoder_head_v3_reference(d0, h, up_kernel, up_bias, wf, bf, wt, bt)
+    table = phase_weight_table(up_kernel.to(torch.float32))
+    return launch_decoder_head_v3(d0, edge_pad_slab(h), table, up_bias, wf, bf, wt, bt)
+
+
+def launch_decoder_head_v3(d0, hp, table, up_bias, wf, bf, wt, bt):
+    """The kernel on the edge-padded slab ``hp [B,s+2,s+2,s+2,C]`` and the
+    ``[5,5,9C,15C]`` phase table (rounded to bf16 here)."""
+    from voxactb_tpu_torch.ops.cuda.build import check, library, stream_ptr
+
+    check_tail_operands("decoder_head_v3", d0, wf, wt, hp)
+    b, n, c = d0.shape[0], d0.shape[1], d0.shape[-1]
+    s = n // _SCALE
+    if n % _SCALE or hp.shape != (b, s + 2, s + 2, s + 2, c) or table.shape != (
+            _SCALE, _SCALE, 9 * c, 3 * _SCALE * c):
+        raise ValueError(f"decoder_head_v3 kernel takes N % 5 == 0, hp [B,N/5+2,...,C] "
+                         f"and a [5,5,9C,15C] table; got d0 {tuple(d0.shape)}, hp "
+                         f"{tuple(hp.shape)}, table {tuple(table.shape)}")
+    t_heads = wt.shape[0]
+    dev = d0.device
+    f32, bf16 = torch.float32, torch.bfloat16
+    d0c, hpc = d0.contiguous(), hp.contiguous()
+    # [27 (dz, dy, dx), C (ci), 125 C (rz, ry, rx, co)]: the phase GEMM's B
+    ktab = _table_taps(table).permute(2, 3, 5, 4, 0, 1, 6, 7).to(bf16).reshape(
+        27, c, _SCALE ** 3 * c).contiguous()
+    upb = up_bias.to(f32).contiguous()
+    wf_bf, bf_f, wt_bf, bt_f = tail_weights(wf, bf, wt, bt)
+    lin = torch.linspace(-1.0, 1.0, n, dtype=f32, device=dev)
+
+    n3 = n ** 3
+    p = -(-n3 // _VOX_PER_BLOCK)
+    u0 = torch.empty((b, n3, c), dtype=bf16, device=dev)
+    u = torch.empty((b, n3, c), dtype=bf16, device=dev)
+    part = torch.empty((b, p, 5, c), dtype=f32, device=dev)
+    trans = torch.empty((b, n, n, n, t_heads), dtype=f32, device=dev)
+    kp = torch.empty((b, 3 * c), dtype=f32, device=dev)
+    gmax = torch.empty((b, c), dtype=f32, device=dev)
+
+    lib = library("decoder_head_v3")
+    fn = lib.voxactb_decoder_head_v3
+    fn.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 9 + [ci] * 3 + [vp] * 7
+    err = fn(d0c.data_ptr(), hpc.data_ptr(), ktab.data_ptr(),
+             upb.data_ptr(), wf_bf.data_ptr(), bf_f.data_ptr(), wt_bf.data_ptr(),
+             bt_f.data_ptr(), lin.data_ptr(), b, n, t_heads, u0.data_ptr(), u.data_ptr(),
+             part.data_ptr(), trans.data_ptr(), kp.data_ptr(), gmax.data_ptr(),
+             stream_ptr(dev))
+    check(lib, "decoder_head_v3", err)
+    LAUNCHES["decoder_head_v3"] += 1
+    return trans, kp, gmax

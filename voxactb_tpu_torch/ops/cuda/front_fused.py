@@ -14,13 +14,13 @@ import ctypes
 
 import torch
 
-from voxactb_tpu_torch.models.blocks import (
-    conv3d_f32acc, edge_pad, lrelu, softargmax_stats_3d, to_ncdhw, to_ndhwc)
+from voxactb_tpu_torch.models.blocks import conv3d_f32acc, edge_pad, to_ncdhw, to_ndhwc
 from voxactb_tpu_torch.ops.cuda import LAUNCHES
+from voxactb_tpu_torch.ops.cuda.encoder_stats import encoder_stats_reference
 from voxactb_tpu_torch.ops.voxelize import voxelize
 
 _C = 64
-_VOX_TILE = 128  # csrc/front_fused.cu kVoxTile
+_VOX_TILE = 128  # csrc/common.cuh kPreTile
 
 
 def patchify_pre(d0: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
@@ -33,14 +33,12 @@ def patchify_pre(d0: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
 
 def front_fused_reference(coords, feats, coord_bounds, w1, b1, wp, *,
                           voxel_size: int):
-    """Plain version: XLA-path voxelize -> bf16 1x1 conv + lrelu -> stats ->
-    pre-activation patchify, with the rounding points of the kernel."""
+    """Plain version: XLA-path voxelize -> K5's plain version (bf16 1x1 conv +
+    lrelu, stats) -> pre-activation patchify, with the rounding points of the
+    kernel."""
     b = coords.shape[0]
     grid = voxelize(coords, feats, coord_bounds, voxel_size=voxel_size)
-    x = grid.to(torch.bfloat16).to(torch.float32)
-    pre = x @ w1.to(torch.bfloat16).to(torch.float32) + b1.to(torch.float32)
-    d0 = lrelu(pre.to(torch.bfloat16))
-    kp, gmax = softargmax_stats_3d(d0)
+    d0, kp, gmax = encoder_stats_reference(grid, w1, b1)
     patch = patchify_pre(d0, wp)
     overflow = torch.zeros((b,), dtype=torch.int32, device=coords.device)
     return d0, patch, kp, gmax, overflow
