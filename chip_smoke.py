@@ -11,8 +11,9 @@ Phases:
                at the main paths' shapes (front at 50^3 and 100^3, inference
                attention at its cross/self/decoder shapes, decoder tail at 50^3
                and 100^3 and with two heads at 50^3, trainable attention
-               forward and backward at the train step's three shapes and a
-               ragged one: keep mask bit-equal, planted faults must fail; SAM
+               forward and backward at the train step's three shapes, a
+               ragged one and keys with a common component: the saved keep
+               bits bit-equal, planted faults must fail; SAM
                attention at ViT-H's global and windowed shapes and a ragged
                case that planted faults must fail; the dense-grid encoder
                front at 50^3 and 100^3, batch 1 and 8, the stats kernel at the
@@ -589,32 +590,13 @@ def check_decoder_v3(model, d0, rng, details, heads=1):
     torch.cuda.empty_cache()
 
 
-def kernel_keep_mask(seed, bh, tq, tk, dropout):
-    """K4's dropout mask read back through the forward kernel itself: with
-    q = 0 every probability is 1/Tk, so with a one-hot slice of 64 keys as v
-    an output is non-zero exactly where the kernel kept that key."""
-    import torch
-    from voxactb_tpu_torch.ops.cuda.flash_attention_train import (
-        flash_attention_train_forward)
-
-    dev = torch.device(DEVICE)
-    q = torch.zeros(bh, tq, 64, dtype=torch.bfloat16, device=dev)
-    k = torch.zeros(bh, tk, 64, dtype=torch.bfloat16, device=dev)
-    keep = torch.empty(bh, tq, tk, dtype=torch.bool, device=dev)
-    eye = torch.eye(64, dtype=torch.bfloat16, device=dev)
-    for c0 in range(0, tk, 64):
-        w = min(64, tk - c0)
-        v = torch.zeros(bh, tk, 64, dtype=torch.bfloat16, device=dev)
-        v[:, c0:c0 + w] = eye[:w]
-        out, _ = flash_attention_train_forward(q, k, v, seed, dropout)
-        keep[:, :, c0:c0 + w] = out[:, :, :w] != 0
-    return keep
-
-
 # K4 at the train step's shapes (50^3 crop, batch 8): (BH, Tq, Tk, the
-# dropout of that attention in the step)
+# dropout of that attention in the step); `ragged` is off every tile size,
+# `common_k` the self shape at BH 8 with keys sharing a large component
 TRAIN_ATTENTION_SHAPES = {"cross": (8, 2048, 1077, 0.1), "self": (64, 2048, 2048, 0.1),
-                          "decoder": (8, 1077, 2048, 0.0), "ragged": (2, 333, 1077, 0.1)}
+                          "decoder": (8, 1077, 2048, 0.0), "ragged": (2, 333, 1077, 0.1),
+                          "common_k": (8, 2048, 2048, 0.1)}
+TRAIN_STEP_ATTENTIONS = {"cross": 1, "self": 6, "decoder": 1}  # launches per step
 
 
 def check_attention_train(rng, details):
@@ -625,32 +607,42 @@ def check_attention_train(rng, details):
 
     dev = torch.device(DEVICE)
     rows = {}
+    # common_k draws from a stream of its own, so that the later phases keep
+    # their inputs
+    streams = {"common_k": np.random.default_rng(4)}
     for name, (bh, tq, tk, step_dropout) in TRAIN_ATTENTION_SHAPES.items():
-        g = torch.Generator(device="cpu").manual_seed(int(rng.integers(1 << 30)))
+        src = streams.get(name, rng)
+        g = torch.Generator(device="cpu").manual_seed(int(src.integers(1 << 30)))
         if name == "ragged":
             q, k, v = tail_inputs(g, tq, tk, dev)
         else:
             q = (torch.randn(bh, tq, 64, generator=g) * 0.125).to(dev, torch.bfloat16)
-            k = torch.randn(bh, tk, 64, generator=g).to(dev, torch.bfloat16)
+            k = torch.randn(bh, tk, 64, generator=g)
+            if name == "common_k":
+                # a common component that cancels in dS k (the rows of dS sum
+                # to zero): an error in the row term does not
+                k = torch.randn(bh, 1, 64, generator=g) + 0.1 * k
+            k = k.to(dev, torch.bfloat16)
             v = torch.randn(bh, tk, 64, generator=g).to(dev, torch.bfloat16)
         d_out = torch.randn(bh, tq, 64, generator=g).to(dev, torch.bfloat16)
-        seed = torch.tensor(int(rng.integers(1 << 32)), dtype=torch.int64, device=dev)
+        seed = torch.tensor(int(src.integers(1 << 32)), dtype=torch.int64, device=dev)
         row = dict(shape=f"{name} BH={bh} Tq={tq} Tk={tk}", step_dropout=step_dropout)
 
-        # the mask, bit for bit
-        want = K4.keep_mask(seed, bh, tq, tk, 0.1)
-        got = kernel_keep_mask(seed, bh, tq, tk, 0.1)
+        # the saved mask, bit for bit
+        want = K4.keep_bits(seed, bh, tq, tk, 0.1)
+        _, _, got = K4.flash_attention_train_forward(q, k, v, seed, 0.1)
         torch.cuda.synchronize()
-        row["mask_elements_differing"] = int((want != got).sum())
-        row["mask_drop_rate"] = float(1.0 - got.float().mean())
-        expect(row["mask_elements_differing"] == 0,
-               f"attention_train {name}: keep mask differs in "
-               f"{row['mask_elements_differing']} elements")
-        del want, got
+        row["mask_words_differing"] = int((want != got).sum())
+        keep = K4.unpack_keep_bits(got, tk)
+        row["mask_drop_rate"] = float(1.0 - keep.float().mean())
+        expect(row["mask_words_differing"] == 0,
+               f"attention_train {name}: keep bits differ in "
+               f"{row['mask_words_differing']} words")
+        del want, got, keep
 
         for dropout in (0.0, 0.1):
-            out, lse = K4.flash_attention_train_forward(q, k, v, seed, dropout)
-            dq, dk, dv = K4.flash_attention_train_backward(q, k, v, lse, d_out, seed,
+            out, lse, bits = K4.flash_attention_train_forward(q, k, v, seed, dropout)
+            dq, dk, dv = K4.flash_attention_train_backward(q, k, v, lse, d_out, bits,
                                                            dropout)
             rout, rlse = K4.plain_forward(q, k, v, seed, dropout)
             rdq, rdk, rdv = K4.plain_backward(q, k, v, rlse, d_out, seed, dropout)
@@ -672,25 +664,27 @@ def check_attention_train(rng, details):
                        f"{errs[key]['max_abs_err']} > {tol}")
             row[f"dropout_{dropout}"] = errs
             if dropout > 0.0:
-                # planted fault: the backward draws its mask from another seed
-                wrong = K4.flash_attention_train_backward(q, k, v, lse, d_out, seed + 1,
+                # planted fault: the backward reads another seed's mask
+                other = K4.keep_bits(seed + 1, bh, tq, tk, dropout)
+                wrong = K4.flash_attention_train_backward(q, k, v, lse, d_out, other,
                                                           dropout)
                 caught = [key for key, a in zip(("dq", "dk", "dv"), wrong)
                           if max_err(a, pairs[key][1]) > errs[key]["tol"]]
-                row["planted_other_seed_caught_by"] = caught
+                row["planted_other_seed_bits_caught_by"] = caught
                 expect(len(caught) == 3, f"attention_train {name}: a backward with "
-                                         f"another seed's mask passed in {caught}")
+                                         f"another seed's bits passed in {caught}")
+                del other, wrong
             if name == "ragged" and dropout == 0.0:
                 # planted fault: the keys zero-filled up to the next tile take part
-                z = k.new_zeros(bh, -tk % 64, 64)
-                wrong, _ = K4.flash_attention_train_forward(
+                z = k.new_zeros(bh, -tk % 128, 64)
+                wrong, _, _ = K4.flash_attention_train_forward(
                     q, torch.cat([k, z], 1), torch.cat([v, z], 1), seed, 0.0)
                 e = max_err(wrong, rout)
                 row["planted_unmasked_err"] = e
                 expect(e > errs["out"]["tol"],
                        f"attention_train ragged: an unmasked key tail erred by {e} only")
-            del rout, rlse, rdq, rdk, rdv
-        log(f"[kernels] flash_attention_train {name} BH={bh} Tq={tq} Tk={tk}: mask "
+            del out, lse, bits, dq, dk, dv, rout, rlse, rdq, rdk, rdv
+        log(f"[kernels] flash_attention_train {name} BH={bh} Tq={tq} Tk={tk}: keep bits "
             f"bit-equal (drop rate {row['mask_drop_rate']:.4f}); " + "; ".join(
                 f"dropout {d}: " + ", ".join(
                     f"{key} err {v_['max_abs_err']:.3g} (tol {v_['tol']:.3g})"
@@ -698,46 +692,64 @@ def check_attention_train(rng, details):
 
         # no atomics: a second launch gives the same bits
         d = step_dropout
-        out, lse = K4.flash_attention_train_forward(q, k, v, seed, d)
-        first = (out, lse) + K4.flash_attention_train_backward(q, k, v, lse, d_out, seed, d)
-        out2, lse2 = K4.flash_attention_train_forward(q, k, v, seed, d)
-        again = (out2, lse2) + K4.flash_attention_train_backward(q, k, v, lse2, d_out,
-                                                                 seed, d)
-        expect(all(torch.equal(a, b_) for a, b_ in zip(first, again)),
+        first = K4.flash_attention_train_forward(q, k, v, seed, d)
+        first += K4.flash_attention_train_backward(q, k, v, first[1], d_out, first[2], d)
+        again = K4.flash_attention_train_forward(q, k, v, seed, d)
+        again += K4.flash_attention_train_backward(q, k, v, again[1], d_out, again[2], d)
+        expect(all((a is None and b_ is None) or torch.equal(a, b_)
+                   for a, b_ in zip(first, again)),
                f"attention_train {name}: two launches on the same inputs differ")
-        del first, again, out2, lse2
+        del first, again
 
-        # times at the dropout this attention has in the train step
-        row["fwd_ms"] = time_ms(lambda: K4.flash_attention_train_forward(q, k, v, seed, d),
-                                reps=5)
-        row["bwd_ms"] = time_ms(lambda: K4.flash_attention_train_backward(
-            q, k, v, lse, d_out, seed, d), reps=5)
+        # times at dropout 0 and 0.1 (the hash and the bits' share), the step's
+        # dropout giving the row's ms
+        for drop in (0.0, 0.1):
+            _, lse, bits = K4.flash_attention_train_forward(q, k, v, seed, drop)
+            row[f"fwd_ms_dropout_{drop}"] = time_ms(
+                lambda: K4.flash_attention_train_forward(q, k, v, seed, drop), reps=5)
+            row[f"bwd_ms_dropout_{drop}"] = time_ms(
+                lambda: K4.flash_attention_train_backward(q, k, v, lse, d_out, bits, drop),
+                reps=5)
+        _, lse, bits = K4.flash_attention_train_forward(q, k, v, seed, d)
+        row["fwd_ms"], row["bwd_ms"] = row[f"fwd_ms_dropout_{d}"], row[f"bwd_ms_dropout_{d}"]
         row["plain_fwd_ms"] = time_ms(lambda: K4.plain_forward(q, k, v, seed, d),
                                       reps=3, warmup=1)
         row["plain_bwd_ms"] = time_ms(lambda: K4.plain_backward(
             q, k, v, lse, d_out, seed, d), reps=3, warmup=1)
-        # the library call, as [1, BH, T, 64] so that it may take its fused kernel
+        # the library call, as [1, BH, T, 64] so that it may take its fused
+        # kernel, at dropout 0 and at the step's dropout (its own mask)
         ql, kl, vl = (t.detach()[None].clone().requires_grad_() for t in (q, k, v))
-        with torch.no_grad():
-            row["sdpa_fwd_ms"] = time_ms(
-                lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=1.0), reps=5)
-        lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=1.0)
-        row["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
-            lib_out, (ql, kl, vl), d_out[None], retain_graph=True), reps=5)
-        del lib_out, ql, kl, vl
+        for drop in sorted({0.0, d}):
+            sfx = "" if drop == 0.0 else f"_dropout_{drop}"
+            with torch.no_grad():
+                row[f"sdpa_fwd_ms{sfx}"] = time_ms(lambda: F.scaled_dot_product_attention(
+                    ql, kl, vl, dropout_p=drop, scale=1.0), reps=5)
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl, dropout_p=drop, scale=1.0)
+            row[f"sdpa_bwd_ms{sfx}"] = time_ms(lambda: torch.autograd.grad(
+                lib_out, (ql, kl, vl), d_out[None], retain_graph=True), reps=5)
+            del lib_out
+        sfx = "" if d == 0.0 else f"_dropout_{d}"
+        row["library_fwd_ms"] = row[f"sdpa_fwd_ms{sfx}"]
+        row["library_bwd_ms"] = row[f"sdpa_bwd_ms{sfx}"]
+        del ql, kl, vl, lse, bits
         flops = 4.0 * bh * tq * tk * 64
         qkv_bytes = 2.0 * (bh * tq * 64 + 2 * bh * tk * 64)
+        bits_bytes = 4.0 * bh * tq * (-(-tk // 32)) if d > 0.0 else 0.0
         row["fwd_bound_ms"], row["fwd_bound_by"] = bound_ms(
-            qkv_bytes + 2.0 * bh * tq * 64 + 4.0 * bh * tq, flops)
+            qkv_bytes + 2.0 * bh * tq * 64 + 4.0 * bh * tq + bits_bytes, flops)
         row["bwd_bound_ms"], row["bwd_bound_by"] = bound_ms(
-            2.0 * qkv_bytes + 2.0 * 2 * bh * tq * 64 + 4.0 * bh * tq, 2.5 * flops)
+            2.0 * qkv_bytes + 2.0 * 2 * bh * tq * 64 + 4.0 * bh * tq + bits_bytes,
+            2.5 * flops)
         rows[name] = row
         log(f"[kernels] flash_attention_train {name} at dropout {d}: forward "
-            f"{row['fwd_ms']:.4f} ms (plain {row['plain_fwd_ms']:.4f}, sdpa "
-            f"{row['sdpa_fwd_ms']:.4f}, bound {row['fwd_bound_ms']:.4f} "
-            f"{row['fwd_bound_by']}); backward {row['bwd_ms']:.4f} ms (plain "
-            f"{row['plain_bwd_ms']:.4f}, sdpa {row['sdpa_bwd_ms']:.4f}, bound "
-            f"{row['bwd_bound_ms']:.4f} {row['bwd_bound_by']})")
+            f"{row['fwd_ms']:.4f} ms (at dropout 0 {row['fwd_ms_dropout_0.0']:.4f}, 0.1 "
+            f"{row['fwd_ms_dropout_0.1']:.4f}; plain {row['plain_fwd_ms']:.4f}, sdpa "
+            f"{row['sdpa_fwd_ms']:.4f} at dropout 0, {row['library_fwd_ms']:.4f} at {d}; "
+            f"bound {row['fwd_bound_ms']:.4f} {row['fwd_bound_by']}); backward "
+            f"{row['bwd_ms']:.4f} ms (at dropout 0 {row['bwd_ms_dropout_0.0']:.4f}, 0.1 "
+            f"{row['bwd_ms_dropout_0.1']:.4f}; plain {row['plain_bwd_ms']:.4f}, sdpa "
+            f"{row['sdpa_bwd_ms']:.4f} at dropout 0, {row['library_bwd_ms']:.4f} at {d}; "
+            f"bound {row['bwd_bound_ms']:.4f} {row['bwd_bound_by']})")
         torch.cuda.empty_cache()
     details["flash_attention_train"] = rows
     return rows
@@ -1949,8 +1961,8 @@ def main() -> int:
     per_act = lambda key: (a100["cross"][key] + 6 * a100["self"][key]
                            + a100["decoder"][key])
     # batch 8 at 50^3: one cross, six self, one decoder attention per train step
-    per_step = lambda key: (train_attn["cross"][key] + 6 * train_attn["self"][key]
-                            + train_attn["decoder"][key])
+    per_step = lambda key: sum(n * train_attn[s][key]  # noqa: E731
+                               for s, n in TRAIN_STEP_ATTENTIONS.items())
     # one VLM pass of ViT-H: its global and its windowed launches
     sam_blocks = {"global": len(VLM_TOWERS["sam"]["global_attn_indexes"])}
     sam_blocks["windowed"] = VLM_TOWERS["sam"]["depth"] - sam_blocks["global"]
@@ -1996,7 +2008,7 @@ def main() -> int:
                  for d in (0.0, 0.1)),
              ms=per_step("fwd_ms"), plain_ms=per_step("plain_fwd_ms"),
              bound_ms=per_step("fwd_bound_ms"), bound_by="operations",
-             library_ms=per_step("sdpa_fwd_ms")),
+             library_ms=per_step("library_fwd_ms")),
         dict(name="flash_attention_train_bwd", route="cuda",
              source="voxactb_tpu_torch/csrc/flash_attention_train.cu",
              replaces="voxactb_tpu/ops/pallas/flash_attention.py:164",
@@ -2005,7 +2017,7 @@ def main() -> int:
                  for d in (0.0, 0.1) for g in ("dq", "dk", "dv")),
              ms=per_step("bwd_ms"), plain_ms=per_step("plain_bwd_ms"),
              bound_ms=per_step("bwd_bound_ms"), bound_by="operations",
-             library_ms=per_step("sdpa_bwd_ms")),
+             library_ms=per_step("library_bwd_ms")),
         dict(name="sam_attention", route="cuda",
              source="voxactb_tpu_torch/csrc/sam_attention.cu",
              replaces="voxactb_tpu/ops/pallas/sam_attention.py:67",

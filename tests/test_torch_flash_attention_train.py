@@ -189,3 +189,92 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
     q = torch.zeros(1, 8, 64)
     with pytest.raises(ValueError, match="bf16"):
         K4._check_operands(q, q, q)
+
+
+@pytest.mark.parametrize("bh,tq,tk,q_block,dropout,seed", [
+    (2, 45, 131, 32, 0.1, 99), (3, 20, 1077, 512, 0.5, 7),
+    (1, 96, 33, 64, 0.25, 4294967295), (2, 8, 31, 8, 0.1, 0)])
+def test_keep_bits_unpack_to_the_keep_mask(bh, tq, tk, q_block, dropout, seed):
+    """The forward kernel's saved mask layout: word w of a row holds columns
+    32 w .. 32 w + 31, bit j for column 32 w + j, bits past Tk zero."""
+    s = torch.tensor(seed)
+    bits = K4.keep_bits(s, bh, tq, tk, dropout, q_block)
+    assert bits.dtype == torch.int32 and bits.shape == (bh, tq, -(-tk // 32))
+    keep = K4.keep_mask(s, bh, tq, tk, dropout, q_block)
+    assert torch.equal(K4.unpack_keep_bits(bits, tk), keep)
+    words = bits.to(torch.int64) & 0xFFFFFFFF
+    col = 33 if tk > 33 else tk - 1
+    assert torch.equal((words[..., col // 32] >> (col % 32)) & 1, keep[..., col].to(torch.int64))
+    if tk % 32:
+        assert int((words[..., -1] >> (tk % 32)).abs().sum()) == 0
+
+
+@pytest.mark.parametrize("bh,tq,tk,dropout", [(2, 24, 40, 0.25), (3, 45, 131, 0.1)])
+def test_plain_backward_from_the_bits_equals_it_from_the_seed(bh, tq, tk, dropout):
+    rng = np.random.default_rng(tq)
+    q, k, v = (_bf(_mk(rng, bh, t, 16)) for t in (tq, tk, tk))
+    d_out = _bf(_mk(rng, bh, tq, 16))
+    seed = torch.tensor(4321)
+    _, lse = K4.plain_forward(q, k, v, seed, dropout)
+    bits = K4.keep_bits(seed, bh, tq, tk, dropout)
+    from_seed = K4.plain_backward(q, k, v, lse, d_out, seed, dropout)
+    from_bits = K4.plain_backward(q, k, v, lse, d_out, None, dropout, bits=bits)
+    for a, b in zip(from_bits, from_seed):
+        assert torch.equal(a, b)
+    # another seed's bits give other gradients
+    other = K4.plain_backward(q, k, v, lse, d_out, None, dropout,
+                              bits=K4.keep_bits(seed + 1, bh, tq, tk, dropout))
+    assert not torch.equal(other[0], from_seed[0])
+
+
+def test_kernel_wrappers_on_cpu_tensors_save_and_read_the_bits():
+    rng = np.random.default_rng(8)
+    q, k, v = (_bf(_mk(rng, 2, t, 64)) for t in (16, 40, 40))
+    d_out = _bf(_mk(rng, 2, 16, 64))
+    seed = torch.tensor(77)
+    out, lse, bits = K4.flash_attention_train_forward(q, k, v, seed, 0.1)
+    assert torch.equal(bits, K4.keep_bits(seed, 2, 16, 40, 0.1))
+    grads = K4.flash_attention_train_backward(q, k, v, lse, d_out, bits, 0.1)
+    for a, b in zip(grads, K4.plain_backward(q, k, v, lse, d_out, seed, 0.1)):
+        assert torch.equal(a, b)
+    assert K4.flash_attention_train_forward(q, k, v, seed, 0.0)[2] is None
+    with pytest.raises(ValueError, match="keep bits"):
+        K4.flash_attention_train_backward(q, k, v, lse, d_out, None, 0.1)
+    with pytest.raises(ValueError, match="keep bits"):
+        K4.flash_attention_train_backward(q, k, v, lse, d_out, bits, 0.0)
+
+
+def _grads_with_rowsum_delta(q, k, v):
+    """dq, dk of the plain backward (loss sum(out^2), no dropout) with the
+    row term taken as rowsum(dO * O) from the bf16 output instead of the
+    resident sum(P * dP)."""
+    qb, kb, vb = (_bf(t) for t in (q, k, v))
+    out, lse = K4.plain_forward(qb, kb, vb, torch.tensor(0), 0.0)
+    d_out = (2.0 * out.float()).to(torch.bfloat16)
+    qf, kf, vf, dof = (t.float() for t in (qb, kb, vb, d_out))
+    p = torch.exp(qf @ kf.transpose(-1, -2) - lse[..., None])
+    dp = dof @ vf.transpose(-1, -2)
+    r = (dof * out.float()).sum(-1, keepdim=True)
+    ds = (p * (dp - r)).to(torch.bfloat16).float()
+    return [(ds @ kf).to(torch.bfloat16).float().numpy(),
+            (ds.transpose(-1, -2) @ qf).to(torch.bfloat16).float().numpy()]
+
+
+def test_row_term_pass_holds_where_the_rowsum_shortcut_does_not():
+    """Keys with a large common component (k = c + 0.1 noise): the rows of dS
+    sum to zero, so c cancels in dq = dS k, but an error e in a row term does
+    not (it adds -e c). The resident sum(P * dP) holds to the Pallas kernel;
+    rowsum(dO * O) carries the bf16 rounding of O (values with a mean, so that
+    it is visible) and misses by 29x the tolerance."""
+    bh, tq, tk, hd = 2, 64, 256, 64
+    rng = np.random.default_rng(11)
+    q = (0.125 * rng.normal(size=(bh, tq, hd))).astype(np.float32)
+    c = rng.normal(size=(bh, 1, hd))
+    k = (c + 0.1 * rng.normal(size=(bh, tk, hd))).astype(np.float32)
+    v = (1.0 + rng.normal(size=(bh, tk, hd))).astype(np.float32)
+    _, ref_g = _jax_out_and_grads(q, k, v, 0, 0.0)
+    _, g = _torch_out_and_grads(q, k, v, 0, 0.0)
+    _assert_grads(g, ref_g, 1e-2)
+    shortcut = _grads_with_rowsum_delta(q, k, v)
+    scale = max(np.abs(ref_g[0]).max(), 1.0)
+    assert np.abs(shortcut[0] - ref_g[0]).max() / scale > 1e-2

@@ -3,14 +3,18 @@
 Replaces ``voxactb_tpu/ops/pallas/flash_attention.py::flash_attention_train``
 (TPU kernels ``_train_fwd_kernel`` / ``_train_bwd_kernel``). The kernels
 (``csrc/flash_attention_train.cu``: one forward, and a dQ and a dK/dV kernel
-for the backward) are bounded by operations on an H100. A
-``torch.autograd.Function`` joins forward and backward; saved for the backward
-are q, k, v, the seed and the row log-sum-exp, never the probabilities.
+for the backward, on wgmma with TMA-fed tiles) are bounded by operations on an
+H100. A ``torch.autograd.Function`` joins forward and backward; saved for the
+backward are q, k, v, the seed, the row log-sum-exp and, with dropout, the
+keep mask as bits (``keep_bits``: the forward hashes, the backward only reads),
+never the probabilities.
 
 Beside the kernels stands the plain version, ``flash_attention_train_reference``,
 an ``autograd.Function`` too, whose backward is written out with the same mask
 and the same rounding points as the TPU kernel. CPU tensors take it; on a CUDA
-tensor the wrappers launch the kernels or raise.
+tensor the wrappers launch the kernels or raise. ``keep_bits`` packs the mask
+as the forward kernel saves it (the plain side of that output), and
+``plain_backward`` reads the mask from such bits where given.
 
 The dropout mask is a pure function of ``(seed, head, row, column)``:
 ``keep_mask`` reproduces the TPU kernel's ``_hash_keep`` bit for bit wherever
@@ -78,11 +82,36 @@ def keep_mask(seed: torch.Tensor, bh: int, tq: int, tk: int, dropout: float,
     return x >= dropout_threshold(dropout)
 
 
-def _keep_scale(seed, q, k, dropout: float, q_block: int):
-    """f32 ``keep / (1 - dropout)``, or None without dropout."""
+def keep_bits(seed: torch.Tensor, bh: int, tq: int, tk: int, dropout: float,
+              q_block: int = Q_BLOCK) -> torch.Tensor:
+    """``keep_mask`` packed as the forward kernel saves it: ``[bh, tq,
+    ceil(tk / 32)]`` int32 holding uint32 words, bit j of word w for column
+    ``32 w + j``, bits past ``tk`` zero."""
+    keep = keep_mask(seed, bh, tq, tk, dropout, q_block)
+    words = -(-tk // 32)
+    keep = torch.nn.functional.pad(keep, (0, 32 * words - tk))
+    weight = torch.ones(32, dtype=torch.int64, device=keep.device) << torch.arange(
+        32, dtype=torch.int64, device=keep.device)
+    packed = (keep.reshape(bh, tq, words, 32).to(torch.int64) * weight).sum(-1)
+    return (packed - ((packed >> 31) << 32)).to(torch.int32)
+
+
+def unpack_keep_bits(bits: torch.Tensor, tk: int) -> torch.Tensor:
+    """``[bh, tq, tk]`` bool from ``keep_bits``' words."""
+    shift = torch.arange(32, dtype=torch.int32, device=bits.device)
+    keep = (bits[..., None] >> shift) & 1
+    return keep.reshape(*bits.shape[:-1], -1)[..., :tk].to(torch.bool)
+
+
+def _keep_scale(seed, q, k, dropout: float, q_block: int, bits=None):
+    """f32 ``keep / (1 - dropout)``, or None without dropout; the mask from
+    ``bits`` where given, else hashed from ``seed``."""
     if dropout <= 0.0:
         return None
-    keep = keep_mask(seed, q.shape[0], q.shape[1], k.shape[1], dropout, q_block)
+    if bits is not None:
+        keep = unpack_keep_bits(bits, k.shape[1])
+    else:
+        keep = keep_mask(seed, q.shape[0], q.shape[1], k.shape[1], dropout, q_block)
     return keep.to(torch.float32) * (1.0 / (1.0 - dropout))
 
 
@@ -107,14 +136,16 @@ def plain_forward(q, k, v, seed, dropout: float, q_block: int = Q_BLOCK):
     return out, lse
 
 
-def plain_backward(q, k, v, lse, d_out, seed, dropout: float, q_block: int = Q_BLOCK):
+def plain_backward(q, k, v, lse, d_out, seed, dropout: float, q_block: int = Q_BLOCK,
+                   *, bits=None):
     """``(dq, dk, dv)`` of the plain version, written out as the TPU backward
     kernel: P recomputed from lse, the row term ``sum(P * dP)`` taken from the
-    resident P and dP, dS and A rounded to bf16 before their products."""
+    resident P and dP, dS and A rounded to bf16 before their products. The
+    mask comes from ``bits`` (``keep_bits``) where given, else from ``seed``."""
     qf, kf, vf, dof = _f32(q), _f32(k), _f32(v), _f32(d_out)
     p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) - lse[..., None])
     da = torch.matmul(dof, vf.transpose(-1, -2))
-    ks = _keep_scale(seed, q, k, dropout, q_block)
+    ks = _keep_scale(seed, q, k, dropout, q_block, bits)
     a, dp = (p, da) if ks is None else (p * ks, da * ks)
     r = (p * dp).sum(-1, keepdim=True)
     ds = _f32(p * (dp - r))
@@ -170,6 +201,30 @@ def _check_operands(q, k, v):
     return bh, tq, tk
 
 
+def _tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous and 16-byte aligned, as a TMA tensor map needs it."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _entry(name: str, argtypes):
+    """The library's C entry point ``voxactb_flash_attention_train_<name>``
+    with its argument types set (once per loaded library)."""
+    from voxactb_tpu_torch.ops.cuda.build import library
+
+    lib = library("flash_attention_train")
+    fn = getattr(lib, f"voxactb_flash_attention_train_{name}")
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    return lib, fn
+
+
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_FWD_ARGS = [_VP] * 7 + [_CI, _CI, _CI, ctypes.c_uint32, ctypes.c_float, _CI, _CI, _VP]
+_BWD_ARGS = [_VP] * 10 + [_CI, _CI, _CI, ctypes.c_float, _VP]
+
+
 def _mask_args(tq: int, tk: int, dropout: float):
     tq_pad, tk_pad = padded_extents(tq, tk)
     return (ctypes.c_uint32(dropout_threshold(dropout) if dropout > 0.0 else 0),
@@ -177,51 +232,59 @@ def _mask_args(tq: int, tk: int, dropout: float):
 
 
 def flash_attention_train_forward(q, k, v, seed: torch.Tensor, dropout: float):
-    """Launch the forward kernel: ``(out bf16 [BH, Tq, 64], lse f32 [BH, Tq])``.
-    CPU tensors take ``plain_forward``."""
+    """Launch the forward kernel: ``(out bf16 [BH, Tq, 64], lse f32 [BH, Tq],
+    keep bits [BH, Tq, ceil(Tk / 32)] int32 or None without dropout)``. CPU
+    tensors take ``plain_forward`` and ``keep_bits``."""
     if not q.is_cuda:
-        return plain_forward(q, k, v, seed, dropout)
-    from voxactb_tpu_torch.ops.cuda.build import check, library, stream_ptr
+        out, lse = plain_forward(q, k, v, seed, dropout)
+        bits = (keep_bits(seed, q.shape[0], q.shape[1], k.shape[1], dropout)
+                if dropout > 0.0 else None)
+        return out, lse, bits
+    from voxactb_tpu_torch.ops.cuda.build import check, stream_ptr
 
     bh, tq, tk = _check_operands(q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _tma_operand(q), _tma_operand(k), _tma_operand(v)
     out = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
-    lib = library("flash_attention_train")
-    fn = lib.voxactb_flash_attention_train_fwd
-    fn.restype = ctypes.c_int
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 6 + [ci, ci, ci, ctypes.c_uint32, ctypes.c_float, ci, ci, vp]
+    bits = (torch.empty((bh, tq, -(-tk // 32)), dtype=torch.int32, device=q.device)
+            if dropout > 0.0 else None)
+    lib, fn = _entry("fwd", _FWD_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), seed.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), bh, tq, tk, *_mask_args(tq, tk, dropout),
-             stream_ptr(q.device))
+             lse.data_ptr(), None if bits is None else bits.data_ptr(), bh, tq, tk,
+             *_mask_args(tq, tk, dropout), stream_ptr(q.device))
     check(lib, "flash_attention_train", err)
     LAUNCHES["flash_attention_train_fwd"] += 1
-    return out, lse
+    return out, lse, bits
 
 
-def flash_attention_train_backward(q, k, v, lse, d_out, seed: torch.Tensor,
-                                   dropout: float):
-    """Launch the backward kernels: ``(dq, dk, dv)`` in bf16. CPU tensors take
-    ``plain_backward``."""
+def flash_attention_train_backward(q, k, v, lse, d_out, bits, dropout: float):
+    """Launch the backward kernels: ``(dq, dk, dv)`` in bf16, with the keep
+    mask read from the forward's ``bits`` (None without dropout). CPU tensors
+    take ``plain_backward``."""
+    if (bits is None) != (dropout <= 0.0):
+        raise ValueError("flash_attention_train backward takes keep bits exactly when "
+                         f"dropout > 0 (dropout {dropout}, bits "
+                         f"{'absent' if bits is None else 'given'})")
     if not q.is_cuda:
-        return plain_backward(q, k, v, lse, d_out, seed, dropout)
-    from voxactb_tpu_torch.ops.cuda.build import check, library, stream_ptr
+        return plain_backward(q, k, v, lse, d_out, None, dropout, bits=bits)
+    from voxactb_tpu_torch.ops.cuda.build import check, stream_ptr
 
     bh, tq, tk = _check_operands(q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    d_out = d_out.to(torch.bfloat16).contiguous()
+    if bits is not None and (bits.shape != (bh, tq, -(-tk // 32))
+                             or bits.dtype != torch.int32):
+        raise ValueError(f"keep bits of shape {tuple(bits.shape)} and {bits.dtype} do "
+                         f"not fit q {tuple(q.shape)}, k {tuple(k.shape)}")
+    q, k, v = _tma_operand(q), _tma_operand(k), _tma_operand(v)
+    d_out = _tma_operand(d_out.to(torch.bfloat16))
+    lse = lse.contiguous()
+    bits = None if bits is None else bits.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
-    lib = library("flash_attention_train")
-    fn = lib.voxactb_flash_attention_train_bwd
-    fn.restype = ctypes.c_int
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 10 + [ci, ci, ci, ctypes.c_uint32, ctypes.c_float, ci, ci, vp]
+    lib, fn = _entry("bwd", _BWD_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(), lse.data_ptr(),
-             seed.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-             bh, tq, tk, *_mask_args(tq, tk, dropout),
-             stream_ptr(q.device))
+             None if bits is None else bits.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), delta.data_ptr(), bh, tq, tk,
+             ctypes.c_float(1.0 / (1.0 - dropout)), stream_ptr(q.device))
     check(lib, "flash_attention_train", err)
     LAUNCHES["flash_attention_train_bwd"] += 1
     return dq, dk, dv
@@ -230,15 +293,15 @@ def flash_attention_train_backward(q, k, v, lse, d_out, seed: torch.Tensor,
 class _KernelTrainAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, seed, dropout):
-        out, lse = flash_attention_train_forward(q, k, v, seed, dropout)
-        ctx.save_for_backward(q, k, v, seed, lse)
+        out, lse, bits = flash_attention_train_forward(q, k, v, seed, dropout)
+        ctx.save_for_backward(q, k, v, seed, lse, bits)
         ctx.dropout = dropout
         return out
 
     @staticmethod
     def backward(ctx, d_out):
-        q, k, v, seed, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_train_backward(q, k, v, lse, d_out, seed,
+        q, k, v, _, lse, bits = ctx.saved_tensors
+        dq, dk, dv = flash_attention_train_backward(q, k, v, lse, d_out, bits,
                                                     ctx.dropout)
         return dq, dk, dv, None, None
 
