@@ -9,21 +9,25 @@ Phases:
                one nvcc per source in parallel; print the card and build time.
   2. kernels - hold each kernel against its plain PyTorch version on the card
                at the main paths' shapes (front at 50^3 and 100^3, inference
-               attention at its cross/self/decoder shapes, decoder tail at 50^3
+               attention at its cross/self/decoder shapes in every schedule,
+               with a ragged tail and a key-split case whose planted faults
+               must fail, decoder tail at 50^3
                and 100^3 and with two heads at 50^3, trainable attention
                forward and backward at the train step's three shapes, a
                ragged one and keys with a common component: the saved keep
                bits bit-equal, planted faults must fail; SAM
-               attention at ViT-H's global and windowed shapes and a ragged
-               case that planted faults must fail; the dense-grid encoder
+               attention at ViT-H's global and windowed shapes, a ragged
+               case that planted faults must fail, head dim 64 and an odd
+               grid width; the dense-grid encoder
                front at 50^3 and 100^3, batch 1 and 8, the stats kernel at the
                dense paths' five shapes and the inline-upsample tail at 50^3
                and 100^3 and with two heads, each within 2^-7 of its largest
                output, two launches bit-equal, planted faults (swapped 'xy'
                positions, a zero-padded slab) failing; the inline-upsample
-               tail against cuDNN ``up0`` + the decoder tail); time kernel,
-               plain version and, where one PyTorch call computes the same
-               function, that call.
+               tail against cuDNN ``up0`` + the decoder tail); time kernel
+               (wrapper call; for the attention kernels also device time from
+               the profiler), plain version and, where one PyTorch call
+               computes the same function, that call.
   3. act100  - full-width ``make_infer_fn`` at 100^3, batch 1 and 8, seeded
                weights: kernels on against the same weights with the kernel
                flags off (Q-field and head logits each within twice the plain
@@ -209,27 +213,45 @@ def check_front(model, n, batch, rng, details):
 
 
 def unmasked_attention(attention):
-    """K2 without its key mask: the keys zero-filled up to the next 64-key
-    tile take part as logit 0 and value 0, which is what the kernel computes
-    if it skips the mask. A planted fault, run through the real kernel."""
+    """K2 without its key mask: the keys zero-filled up to the next key tile
+    take part as logit 0 and value 0, which is what the kernel computes if it
+    skips the mask. A planted fault, run through the real kernel."""
     import torch
+    from voxactb_tpu_torch.ops.cuda.flash_attention import KEY_TILE
 
     def fn(q, k, v, **kw):
-        z = k.new_zeros(k.shape[0], -k.shape[1] % 64, k.shape[2])
+        z = k.new_zeros(k.shape[0], -k.shape[1] % KEY_TILE, k.shape[2])
         return attention(q, torch.cat([k, z], 1), torch.cat([v, z], 1), **kw)
     return fn
 
 
 def read_past_attention(attention):
-    """K2 reading past Tk into the next head's keys and values instead of
-    masking (the last head reads zeros). A planted fault, run through the
-    real kernel."""
+    """K2 reading past Tk (up to the next key tile) into the next head's keys
+    and values instead of masking (the last head reads zeros). A planted
+    fault, run through the real kernel."""
     import torch
+    from voxactb_tpu_torch.ops.cuda.flash_attention import KEY_TILE
 
     def fn(q, k, v, **kw):
-        pad = -k.shape[1] % 64
+        pad = -k.shape[1] % KEY_TILE
         nxt = lambda t: torch.cat([t[1:, :pad], t.new_zeros(1, pad, t.shape[2])], 0)
         return attention(q, torch.cat([k, nxt(k)], 1), torch.cat([v, nxt(v)], 1), **kw)
+    return fn
+
+
+def per_split_attention(attention, splits):
+    """K2 with each CTA normalising P by its own split's max and sum: the
+    kernel launched on each key slice of a ``splits``-way schedule alone, the
+    outputs summed. A planted fault, run through the real kernel."""
+    import torch
+    from voxactb_tpu_torch.ops.cuda.flash_attention import KEY_TILE
+
+    def fn(q, k, v):
+        n = -(-k.shape[1] // KEY_TILE)
+        cuts = [KEY_TILE * (i * n // splits) for i in range(splits + 1)]
+        total = sum(attention(q, k[:, a:b], v[:, a:b]).float()
+                    for a, b in zip(cuts, cuts[1:]))
+        return total.to(v.dtype)
     return fn
 
 
@@ -248,21 +270,75 @@ def tail_inputs(g, tq, tk, dev):
     return tuple(t.to(dev, torch.bfloat16) for t in (q, k, v))
 
 
-def check_attention(b, s3, rng, details):
+def split_inputs(g, bh, tq, tk, splits, dev):
+    """Keys cut as a ``splits``-way schedule cuts them: the values of each
+    split near +1 or -1 in turn, and the row max in the last split (its
+    logits near +8, the others' near 0). A kernel that normalised each split
+    by its own max and sum would add the splits' averages of opposite sign."""
+    import torch
+    from voxactb_tpu_torch.ops.cuda.flash_attention import KEY_TILE
+
+    n = -(-tk // KEY_TILE)
+    cuts = [i * n // splits for i in range(splits + 1)]  # the kernel's key tiles per split
+    split_of = torch.tensor([i for i in range(splits) for _ in range(cuts[i], cuts[i + 1])]
+                            ).repeat_interleave(KEY_TILE)[:tk]
+    sign = (1.0 - 2.0 * (split_of % 2)).reshape(1, tk, 1)
+    last = (split_of == splits - 1).float().reshape(1, tk, 1)
+    q = 0.25 + 0.05 * torch.randn(bh, tq, 64, generator=g)
+    k = 0.5 * last + 0.2 * torch.randn(bh, tk, 64, generator=g)
+    v = sign + 0.5 * torch.randn(bh, tk, 64, generator=g)
+    return tuple(t.to(dev, torch.bfloat16) for t in (q, k, v))
+
+
+def device_ms(fn, name: str, reps: int = 10, tries: int = 3) -> float:
+    """Device time per call of the kernels whose name holds ``name``, from
+    the profiler. A window in which the profiler recorded none of them (it
+    happens now and then over many short windows) is taken again; if every
+    try comes back empty the run fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.device_time_total for e in prof.key_averages()
+                       if e.device_time_total > 0 and name in e.key)
+        if total_us > 0:
+            return total_us / reps / 1e3
+    raise AssertionError(f"the profiler recorded no {name} kernel in {tries} windows")
+
+
+def check_attention(b, s3, rng, details, split_rng=None):
+    """K2 against its plain version at every schedule of the act's cross,
+    self and decoder shapes and of a ragged tail that planted faults must
+    fail; two launches bit-equal. With ``split_rng``, also the ``split``
+    case (the cross shape, inputs from that stream) that a kernel
+    normalising each key split alone must fail."""
     import torch
     import torch.nn.functional as F
+    from voxactb_tpu_torch.ops.cuda.build import sm_count
     from voxactb_tpu_torch.ops.cuda.flash_attention import (
-        flash_attention, flash_attention_reference)
+        all_schedules, choose_schedule, flash_attention, flash_attention_reference)
 
     dev = torch.device(DEVICE)
     tk_in = 77 + s3
     shapes = {"cross": (b, 2048, tk_in), "self": (8 * b, 2048, 2048),
               "decoder": (b, tk_in, 2048), "tail": (2, 2048, tk_in)}
+    if split_rng is not None:
+        shapes["split"] = (b, 2048, tk_in)
     rows = {}
     for name, (bh, tq, tk) in shapes.items():
-        g = torch.Generator(device="cpu").manual_seed(int(rng.integers(1 << 30)))
+        chosen = choose_schedule(bh, tq, tk, sm_count(dev))
+        src = split_rng if name == "split" else rng
+        g = torch.Generator(device="cpu").manual_seed(int(src.integers(1 << 30)))
         if name == "tail":
             q, k, v = tail_inputs(g, tq, tk, dev)
+        elif name == "split":
+            q, k, v = split_inputs(g, bh, tq, tk, chosen[1], dev)
         else:
             q = (torch.randn(bh, tq, 64, generator=g) * 0.125).to(dev, torch.bfloat16)
             k = torch.randn(bh, tk, 64, generator=g).to(dev, torch.bfloat16)
@@ -274,12 +350,18 @@ def check_attention(b, s3, rng, details):
         # least one and at most two ulps of it
         tol = 2.0 ** -7 * float(ref.float().abs().max())
         errs = {}
-        for rpb in (0, 64, 16):  # the schedule the wrapper picks, then both
-            got = flash_attention(q, k, v, rows_per_block=rpb)
+        for sched in [0] + all_schedules(tk):  # the wrapper's choice, then every one
+            got = flash_attention(q, k, v, schedule=sched)
+            again = flash_attention(q, k, v, schedule=sched)
             torch.cuda.synchronize()
-            errs[rpb] = max_err(got, ref)
-            expect(errs[rpb] <= tol, f"attention {name} rows_per_block={rpb} err "
-                                     f"{errs[rpb]} > {tol}")
+            key = "chosen" if sched == 0 else f"{sched[0]}x{sched[1]}"
+            errs[key] = max_err(got, ref)
+            expect(errs[key] <= tol, f"attention {name} schedule {key} err "
+                                     f"{errs[key]} > {tol}")
+            # no atomics: a second launch gives the same bits
+            expect(torch.equal(got, again), f"attention {name} schedule {key}: two "
+                                            "launches differ")
+        del got, again
         err = max(errs.values())
         planted = {}
         if name == "tail":
@@ -289,9 +371,19 @@ def check_attention(b, s3, rng, details):
                 planted[fault] = max_err(wrap(flash_attention)(q, k, v)[:1], ref[:1])
                 expect(planted[fault] > tol, f"attention tail: planted fault {fault} "
                                              f"err {planted[fault]} within {tol}")
+        if name == "split":
+            fault = f"per_split_{chosen[1]}"
+            planted[fault] = max_err(per_split_attention(flash_attention, chosen[1])(q, k, v),
+                                     ref)
+            expect(planted[fault] > tol, f"attention split: planted fault {fault} err "
+                                         f"{planted[fault]} within {tol}")
         ms = time_ms(lambda: flash_attention(q, k, v))
-        ms64 = time_ms(lambda: flash_attention(q, k, v, rows_per_block=64))
-        ms16 = time_ms(lambda: flash_attention(q, k, v, rows_per_block=16))
+        dev_ms = device_ms(lambda: flash_attention(q, k, v), "attention_fwd")
+        # device time of every schedule: the evidence for choose_schedule's rule
+        schedule_ms = {f"{r}x{sp}": device_ms(lambda: flash_attention(q, k, v,
+                                                                      schedule=(r, sp)),
+                                              "attention_fwd", reps=5)
+                       for r, sp in all_schedules(tk)}
         plain = time_ms(lambda: flash_attention_reference(q, k, v), reps=5)
         # the library call, as [1, BH, T, 64] so that it may take its fused kernel
         lib = time_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
@@ -300,15 +392,18 @@ def check_attention(b, s3, rng, details):
         flops = 4.0 * bh * tq * tk * 64
         bms, by = bound_ms(nbytes, flops)
         rows[name] = dict(shape=f"{name} BH={bh} Tq={tq} Tk={tk}", max_abs_err=err,
-                          tol=tol, ref_max=float(ref.float().abs().max()),
-                          planted_fault_err=planted, ms=ms, ms_rows64=ms64,
-                          ms_rows16=ms16, plain_ms=plain, library_ms=lib,
-                          bound_ms=bms, bound_by=by)
+                          errs=errs, tol=tol, ref_max=float(ref.float().abs().max()),
+                          planted_fault_err=planted, schedule=list(chosen), ms=ms,
+                          device_ms=dev_ms, schedule_device_ms=schedule_ms, plain_ms=plain,
+                          library_ms=lib, bound_ms=bms, bound_by=by)
+        fastest = min(schedule_ms, key=schedule_ms.get)
         log(f"[kernels] flash_attention {name} BH={bh} Tq={tq} Tk={tk}: err {err:.3g} "
-            f"(tol {tol:.3g})" + "".join(f", planted {f} err {e:.3g}"
-                                         for f, e in planted.items())
-            + f"; {ms:.4f} ms (64-row blocks {ms64:.4f}, 16-row {ms16:.4f}), "
-            f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.4f} ms ({by})")
+            f"(tol {tol:.3g}) at all {len(errs) - 1} schedules, two launches bit-equal"
+            + "".join(f", planted {f} err {e:.3g}" for f, e in planted.items())
+            + f"; schedule {chosen[0]}x{chosen[1]} {ms:.4f} ms (device {dev_ms:.4f}; "
+            f"fastest on the device {fastest} {schedule_ms[fastest]:.4f}), plain {plain:.4f} ms, "
+            f"sdpa {lib:.4f} ms, bound {bms:.4f} ms ({by})")
+        del q, k, v, ref
     details.setdefault("flash_attention", []).append(dict(grid=f"s^3={s3} B={b}", **rows))
     return rows
 
@@ -758,13 +853,17 @@ def check_attention_train(rng, details):
 # K7 at the SAM ViT-H encoder's shapes at 1024^2, head dim 80: (BH, kh, kw) of
 # a global block (16 heads over the 64 x 64 token grid), of a windowed one
 # (25 windows of 14 x 14 tokens x 16 heads), and of the ragged case, two heads
-# of one window (T = 196 = 3 * 64 + 4)
+# of one window (T = 196 = 3 * 64 + 4); then a global block at head dim 64
+# (SAM ViT-B / ViT-L) and a grid of odd width (the kernel's bias lookup for
+# odd kw)
 SAM_ATTENTION_SHAPES = {"global": (16, 64, 64), "windowed": (400, 14, 14),
-                        "ragged": (2, 14, 14)}
+                        "ragged": (2, 14, 14), "global_hd64": (16, 64, 64),
+                        "odd_grid": (2, 9, 7)}
 SAM_HD = 80
+SAM_CASE_HD = {"global_hd64": 64}
 
 
-def sam_attention_inputs(g, name, bh, kh, kw, dev):
+def sam_attention_inputs(g, name, bh, kh, kw, dev, hd=SAM_HD):
     """q (pre-scaled, bf16), k, v and the f32 rel terms. The ragged case's
     real logits sit near -10 with a rel_h term of spread 2 and a small rel_w
     term, and its values are near +1 in head 0 and -1 in head 1: keys past T
@@ -775,15 +874,15 @@ def sam_attention_inputs(g, name, bh, kh, kw, dev):
     t = kh * kw
     if name == "ragged":
         sign = torch.tensor([1.0, -1.0]).reshape(2, 1, 1)
-        q = sign * 0.25 + 0.05 * torch.randn(bh, t, SAM_HD, generator=g)
-        k = -sign * 0.5 + 0.2 * torch.randn(bh, t, SAM_HD, generator=g)
-        v = sign + 0.5 * torch.randn(bh, t, SAM_HD, generator=g)
+        q = sign * 0.25 + 0.05 * torch.randn(bh, t, hd, generator=g)
+        k = -sign * 0.5 + 0.2 * torch.randn(bh, t, hd, generator=g)
+        v = sign + 0.5 * torch.randn(bh, t, hd, generator=g)
         rel_h = 2.0 * torch.randn(bh, t, kh, generator=g)
         rel_w = 0.25 * torch.randn(bh, t, kw, generator=g)
     else:
-        q = torch.randn(bh, t, SAM_HD, generator=g) * SAM_HD ** -0.5
-        k = torch.randn(bh, t, SAM_HD, generator=g)
-        v = torch.randn(bh, t, SAM_HD, generator=g)
+        q = torch.randn(bh, t, hd, generator=g) * hd ** -0.5
+        k = torch.randn(bh, t, hd, generator=g)
+        v = torch.randn(bh, t, hd, generator=g)
         rel_h = 0.5 * torch.randn(bh, t, kh, generator=g)
         rel_w = 0.5 * torch.randn(bh, t, kw, generator=g)
     bf = torch.bfloat16
@@ -791,16 +890,15 @@ def sam_attention_inputs(g, name, bh, kh, kw, dev):
 
 
 def sam_unmasked_tail(q, k, v, rel_h, rel_w, kh, kw):
-    """K7 with the keys past T in the last 64-key tile taking part: the grid
+    """K7 with the keys past T in the last key tile taking part: the grid
     grows by enough rows of zero keys and values (and zero rel_h columns) to
     cover that tile, so each such key enters its row with logit rel_w. A
     planted fault, run through the real kernel; returns the first T rows."""
-    import torch
     import torch.nn.functional as F
-    from voxactb_tpu_torch.ops.cuda.sam_attention import global_rel_attention
+    from voxactb_tpu_torch.ops.cuda.sam_attention import KEY_TILE, global_rel_attention
 
     t = kh * kw
-    kh2 = kh + -(-(-t % 64) // kw)
+    kh2 = kh + -(-(-t % KEY_TILE) // kw)
     pad = kh2 * kw - t
     rows = lambda x: F.pad(x, (0, 0, 0, pad))
     out = global_rel_attention(rows(q), rows(k), rows(v), F.pad(rel_h, (0, kh2 - kh, 0, pad)),
@@ -808,9 +906,22 @@ def sam_unmasked_tail(q, k, v, rel_h, rel_w, kh, kw):
     return out[:, :t]
 
 
+def sam_dropped_columns(q, k, v, rel_h, rel_w, kh, kw):
+    """K7 without head-dim columns 64-79 in q k^T (q and k zeroed there), what
+    the kernel computes if it skips the narrow box. A planted fault, run
+    through the real kernel."""
+    from voxactb_tpu_torch.ops.cuda.sam_attention import global_rel_attention
+
+    q2, k2 = q.clone(), k.clone()
+    q2[..., 64:] = 0
+    k2[..., 64:] = 0
+    return global_rel_attention(q2, k2, v, rel_h, rel_w, kh=kh, kw=kw)
+
+
 def check_sam_attention(rng, details):
-    """K7 against its plain version on the card at the encoder's two shapes and
-    a ragged case that planted faults must fail; two launches bit-equal."""
+    """K7 against its plain version on the card at the encoder's two shapes, a
+    ragged case that planted faults must fail, a global block at head dim 64
+    and a grid of odd width; two launches bit-equal."""
     import torch
     import torch.nn.functional as F
     from voxactb_tpu_torch.ops.cuda.sam_attention import global_rel_attention
@@ -819,8 +930,9 @@ def check_sam_attention(rng, details):
     dev = torch.device(DEVICE)
     rows = {}
     for name, (bh, kh, kw) in SAM_ATTENTION_SHAPES.items():
+        hd = SAM_CASE_HD.get(name, SAM_HD)
         g = torch.Generator(device="cpu").manual_seed(int(rng.integers(1 << 30)))
-        q, k, v, rel_h, rel_w = sam_attention_inputs(g, name, bh, kh, kw, dev)
+        q, k, v, rel_h, rel_w = sam_attention_inputs(g, name, bh, kh, kw, dev, hd)
         t = kh * kw
         got = global_rel_attention(q, k, v, rel_h, rel_w, kh=kh, kw=kw)
         ref = global_rel_attention_plain(q, k, v, rel_h, rel_w, kh=kh, kw=kw)
@@ -834,17 +946,24 @@ def check_sam_attention(rng, details):
         err = max_err(got, ref)
         expect(err <= tol, f"sam_attention {name}: err {err} > {tol}")
         expect(torch.equal(got, again), f"sam_attention {name}: two launches differ")
-        planted = {}
+        wrong = {}
         if name == "ragged":
-            wrong = {"rel_h_w_swapped": global_rel_attention(q, k, v, rel_w, rel_h,
-                                                             kh=kw, kw=kh),
-                     "unmasked_tail": sam_unmasked_tail(q, k, v, rel_h, rel_w, kh, kw)}
-            for fault, out in wrong.items():
-                planted[fault] = max_err(out, ref)
-                expect(planted[fault] > tol, f"sam_attention ragged: planted fault {fault} "
-                                             f"err {planted[fault]} within {tol}")
+            wrong = {"rel_h_w_swapped": lambda: global_rel_attention(q, k, v, rel_w, rel_h,
+                                                                     kh=kw, kw=kh),
+                     "unmasked_tail": lambda: sam_unmasked_tail(q, k, v, rel_h, rel_w, kh,
+                                                                kw)}
+        if hd == 80 and name in ("global", "ragged"):
+            wrong["dropped_columns"] = lambda: sam_dropped_columns(q, k, v, rel_h, rel_w,
+                                                                   kh, kw)
+        planted = {}
+        for fault, run in wrong.items():
+            planted[fault] = max_err(run(), ref)
+            expect(planted[fault] > tol, f"sam_attention {name}: planted fault {fault} "
+                                         f"err {planted[fault]} within {tol}")
         del got, again
         ms = time_ms(lambda: global_rel_attention(q, k, v, rel_h, rel_w, kh=kh, kw=kw))
+        dev_ms = device_ms(lambda: global_rel_attention(q, k, v, rel_h, rel_w, kh=kh, kw=kw),
+                           "attention_fwd")
         plain = time_ms(lambda: global_rel_attention_plain(q, k, v, rel_h, rel_w, kh=kh,
                                                            kw=kw), reps=5)
         # the library call on [1, BH, T, hd] with the whole [BH, T, T] bias built
@@ -854,18 +973,18 @@ def check_sam_attention(rng, details):
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             q[None], k[None], v[None], attn_mask=bias[None], scale=1.0))
         del bias
-        nbytes = 2.0 * 4 * bh * t * SAM_HD + 4.0 * bh * t * (kh + kw)
-        flops = 4.0 * bh * t * t * SAM_HD
+        nbytes = 2.0 * 4 * bh * t * hd + 4.0 * bh * t * (kh + kw)
+        flops = 4.0 * bh * t * t * hd
         bms, by = bound_ms(nbytes, flops)
-        rows[name] = dict(shape=f"{name} BH={bh} T={t} kh={kh} kw={kw} hd={SAM_HD}",
+        rows[name] = dict(shape=f"{name} BH={bh} T={t} kh={kh} kw={kw} hd={hd}",
                           max_abs_err=err, tol=tol, ref_max=ref_max,
-                          planted_fault_err=planted, ms=ms, plain_ms=plain,
+                          planted_fault_err=planted, ms=ms, device_ms=dev_ms, plain_ms=plain,
                           library_ms=lib, bound_ms=bms, bound_by=by)
-        log(f"[kernels] sam_attention {name} BH={bh} T={t} kh={kh} kw={kw}: err {err:.3g} "
-            f"(tol {tol:.3g}), two launches bit-equal" + "".join(
+        log(f"[kernels] sam_attention {name} BH={bh} T={t} kh={kh} kw={kw} hd={hd}: err "
+            f"{err:.3g} (tol {tol:.3g}), two launches bit-equal" + "".join(
                 f", planted {f} err {e:.3g}" for f, e in planted.items())
-            + f"; {ms:.4f} ms, plain {plain:.4f} ms, sdpa with the bias {lib:.4f} ms, "
-            f"bound {bms:.4f} ms ({by})")
+            + f"; {ms:.4f} ms (device {dev_ms:.4f}), plain {plain:.4f} ms, sdpa with the "
+            f"bias {lib:.4f} ms, bound {bms:.4f} ms ({by})")
         del q, k, v, rel_h, rel_w, ref
         torch.cuda.empty_cache()
     details["sam_attention"] = rows
@@ -1891,6 +2010,7 @@ def main() -> int:
 
     # phase 2 (weights of the act path's own seeded models)
     rng = np.random.default_rng(0)
+    split_rng = np.random.default_rng(5)  # K2's split case: a stream of its own
     t0 = time.perf_counter()
     attn = {}
     for n in (50, 100):
@@ -1899,7 +2019,7 @@ def main() -> int:
         check_decoder(model, d0, rng, details)
         if n == 50:
             check_decoder(model, d0, rng, details, heads=2)
-        attn[n] = check_attention(1, (n // 5) ** 3, rng, details)
+        attn[n] = check_attention(1, (n // 5) ** 3, rng, details, split_rng)
         del model, d0
         torch.cuda.empty_cache()
     train_attn = check_attention_train(rng, details)
@@ -1988,9 +2108,9 @@ def main() -> int:
              source="voxactb_tpu_torch/csrc/flash_attention.cu",
              replaces="voxactb_tpu/ops/pallas/flash_attention.py:61",
              launches=total["flash_attention"], max_abs_err=max(
-                 r[s]["max_abs_err"] for r in details["flash_attention"]
-                 for s in ("cross", "self", "decoder", "tail")),
-             ms=per_act("ms"), plain_ms=per_act("plain_ms"),
+                 case["max_abs_err"] for r in details["flash_attention"]
+                 for case in r.values() if isinstance(case, dict)),
+             ms=per_act("ms"), device_ms=per_act("device_ms"), plain_ms=per_act("plain_ms"),
              bound_ms=per_act("bound_ms"), bound_by="operations",
              library_ms=per_act("library_ms")),
         dict(name="decoder_head", route="cuda",
@@ -2023,7 +2143,8 @@ def main() -> int:
              replaces="voxactb_tpu/ops/pallas/sam_attention.py:67",
              launches=total["sam_attention"],
              max_abs_err=max(r["max_abs_err"] for r in sam_attn.values()),
-             ms=per_pass("ms"), plain_ms=per_pass("plain_ms"), bound_ms=per_pass("bound_ms"),
+             ms=per_pass("ms"), device_ms=per_pass("device_ms"), plain_ms=per_pass("plain_ms"),
+             bound_ms=per_pass("bound_ms"),
              bound_by=max(sam_by, key=sam_by.get), library_ms=per_pass("library_ms")),
     ] + [dict(name=key, route="cuda", source=f"voxactb_tpu_torch/csrc/{key}.cu",
               replaces=f"voxactb_tpu/ops/pallas/{where}", launches=total[key],

@@ -102,6 +102,21 @@ def test_planted_faults_move_the_output():
         assert (wrong.float() - ref.float()).abs().max() > 10 * tol
 
 
+def test_dropped_columns_fault_moves_the_output():
+    """The on-card check's fault for head dim 80, on the plain version: q k^T
+    without the columns 64-79 (the kernel's second, 16-column box) must move
+    the ragged case's output by more than the 2^-7 tolerance."""
+    import chip_smoke
+
+    g = torch.Generator().manual_seed(0)
+    q, k, v, rel_h, rel_w = chip_smoke.sam_attention_inputs(g, "ragged", 2, 14, 14, "cpu")
+    assert q.shape[-1] == 80
+    ref = global_rel_attention_plain(q, k, v, rel_h, rel_w, kh=14, kw=14)
+    tol = 2.0 ** -7 * float(ref.float().abs().max())
+    wrong = chip_smoke.sam_dropped_columns(q, k, v, rel_h, rel_w, 14, 14)
+    assert (wrong.float() - ref.float()).abs().max() > 4 * tol
+
+
 def test_cpu_wrapper_takes_plain_version():
     tensors = _torch(*_inputs(0, 2, 4, 4, 16))
     before = dict(LAUNCHES)

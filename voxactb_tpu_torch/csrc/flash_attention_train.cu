@@ -92,21 +92,8 @@ using vx::bf16;
 using namespace vx::hopper;
 
 constexpr int kMaxDevices = 64;
-constexpr int kStages = 3;
 constexpr int kFwdBn = 128;  // keys per forward tile
 constexpr int kBwdBn = 64;   // keys (dQ) or queries (dK/dV) per backward tile
-constexpr int kProducerRegs = 24;
-constexpr float kLog2e = 1.4426950408889634f;
-
-template <int NC>
-struct Roles {
-  static constexpr int kThreads = (NC + 1) * 128;
-  static constexpr int kMinBlocks = NC == 1 ? 2 : 1;
-  // the register file split between NC consumer warpgroups and the producer
-  static constexpr int kConsumerRegs = NC == 1 ? 232 : 240;
-};
-
-__device__ __forceinline__ uint32_t align1024(uint32_t a) { return (a + 1023) & ~1023u; }
 
 // shared-memory plan: operand tiles resident for the whole block (NC 64-row
 // tiles each), then the ring's stages, then the barriers (operands-full,
@@ -153,41 +140,6 @@ __device__ __forceinline__ bool keep_after_mix(uint32_t x, uint32_t thr) {
   x ^= x >> 13;
   x *= 0xC2B2AE35u;
   return (x ^ (x >> 16)) >= thr;
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// -inf into the logits of columns >= Tk (c0: this thread's first column)
-template <int N>
-__device__ __forceinline__ void mask_columns(float (&acc)[N], int c0, int Tk) {
-#pragma unroll
-  for (int j = 0; j < N / 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-      if (c0 + 8 * j + e >= Tk) acc[4 * j + e] = acc[4 * j + 2 + e] = -INFINITY;
-}
-
-// this thread's part of a 64 x 64 accumulator tile (rows `row` and `row + 8`
-// of the fragment layout), rounded to bf16; rows >= rows_valid are not
-// written
-__device__ __forceinline__ void store_tile_bf16(const float (&acc)[32], bf16* dst, int row,
-                                                int rows_valid, int qd) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (row + 8 * h >= rows_valid) continue;
-    bf16* p = dst + (size_t)(row + 8 * h) * kHd + 2 * qd;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<uint32_t*>(p + 8 * j) =
-          pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -385,7 +337,7 @@ train_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
       fence_regs(out);
       fence_regs(a);
     }
-    store_tile_bf16(out, o + (size_t)bh * Tq * kHd, row, Tq, qd);
+    store_rows_bf16(out, o + (size_t)bh * Tq * kHd, row, Tq, qd, kHd);
   }
 }
 
@@ -527,7 +479,7 @@ train_bwd_dq(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
       fence_regs(a);
       if (lane == 0) mbar_arrive(base + P.bar(1 + kStages + st));
     }
-    store_tile_bf16(dqacc, dq + (size_t)bh * Tq * kHd, row, Tq, qd);
+    store_rows_bf16(dqacc, dq + (size_t)bh * Tq * kHd, row, Tq, qd, kHd);
   }
 }
 
@@ -665,8 +617,8 @@ train_bwd_dkv(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
       fence_regs(a_p);
       if (lane == 0) mbar_arrive(base + P.bar(1 + kStages + st));
     }
-    store_tile_bf16(dkacc, dk + (size_t)bh * Tk * kHd, key, Tk, qd);
-    store_tile_bf16(dvacc, dv + (size_t)bh * Tk * kHd, key, Tk, qd);
+    store_rows_bf16(dkacc, dk + (size_t)bh * Tk * kHd, key, Tk, qd, kHd);
+    store_rows_bf16(dvacc, dv + (size_t)bh * Tk * kHd, key, Tk, qd, kHd);
   }
 }
 

@@ -1,10 +1,13 @@
 // Hopper (sm_90a) building blocks written as raw PTX: TMA tile loads through
 // 3-D tensor maps, mbarrier rings, warpgroup matrix multiply (wgmma) with
 // shared-memory descriptors for 128-byte-swizzled tiles, register
-// rebalancing. Used by flash_attention_train.cu; the attention kernels of the
-// act path and of SAM are meant to take their main loops from here next.
+// rebalancing, thread-block clusters and their distributed shared memory.
+// Used by the trainable attention (flash_attention_train.cu) and by the
+// inference forward loop of attention_fwd.cuh, which the act path's attention
+// (flash_attention.cu) and SAM's rel-pos attention (sam_attention.cu)
+// instantiate.
 //
-// Tile layout. Every operand tile holds rows of 64 bf16 (128 bytes), loaded
+// Tile layout. An operand tile holds rows of 64 bf16 (128 bytes), loaded
 // by TMA with CU_TENSOR_MAP_SWIZZLE_128B into a 1024-byte-aligned buffer:
 // row r sits at r * 128 bytes with its 16-byte chunks permuted by r % 8. A
 // descriptor over such a tile serves both operand majors of wgmma:
@@ -14,8 +17,11 @@
 //    the output columns): the value, key, query or dO tile as the B operand of
 //    P v, dS k, dS^T q and A^T dO. One k16 step is 16 rows, 2048 bytes.
 // In both, 8-row groups lie 1024 bytes apart (the stride byte offset).
+// A head dim of 80 adds a narrow tile of the columns 64-79 (32-byte rows,
+// CU_TENSOR_MAP_SWIZZLE_32B, 8-row groups 256 bytes apart): one k16 step
+// K-major, or an n16 B operand MN-major whose k16 step is 512 bytes.
 //
-// Host side: tensor maps over [BH, T, 64] bf16 tensors, encoded with the
+// Host side: tensor maps over [BH, T, hd] bf16 tensors, encoded with the
 // driver's cuTensorMapEncodeTiled reached through cudaGetDriverEntryPoint,
 // so the library needs no -lcuda. Rows past T are filled with zeros by the
 // TMA unit, and a tile never crosses into the next head.
@@ -25,6 +31,7 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace vx {
@@ -33,6 +40,20 @@ namespace hopper {
 constexpr int kHd = 64;              // head dim: one 128-byte row per tile row
 constexpr int kRowBytes = kHd * 2;
 constexpr int kTile64Bytes = 64 * kRowBytes;  // a 64-row tile
+constexpr int kStages = 3;        // TMA ring depth
+constexpr int kProducerRegs = 24;  // registers the producer warpgroup keeps
+constexpr float kLog2e = 1.4426950408889634f;
+
+// NC consumer warpgroups of 64 rows, then one producer warpgroup
+template <int NC>
+struct Roles {
+  static constexpr int kThreads = (NC + 1) * 128;
+  static constexpr int kMinBlocks = NC == 1 ? 2 : 1;
+  // the register file split between NC consumer warpgroups and the producer
+  static constexpr int kConsumerRegs = NC == 1 ? 232 : 240;
+};
+
+__host__ __device__ constexpr uint32_t align1024(uint32_t a) { return (a + 1023) & ~1023u; }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -93,14 +114,32 @@ struct Ring {
 
 // -- TMA -----------------------------------------------------------------------
 
-// rows [row, row + box rows) of head `bh` of a [BH, T, 64] map into `dst`
+// rows [row, row + box rows) of head `bh` of a [BH, T, hd] map, from column
+// `col` on, into `dst`
 __device__ __forceinline__ void tma_load_rows(uint32_t dst, const CUtensorMap* map,
-                                              uint32_t bar, int row, int bh) {
+                                              uint32_t bar, int row, int bh, int col = 0) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(bh)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(bh)
       : "memory");
+}
+
+// 4 bytes from global to shared memory without a register round trip,
+// zero-filled where `valid` is false (then `src` is not read). The copies a
+// thread issued before a commit form a group; the data may be read once
+// cp_async_wait_group<N>() (at most N groups still in flight) has returned.
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // -- wgmma -----------------------------------------------------------------------
@@ -111,9 +150,15 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
+// descriptor of a 32-byte-swizzled tile of 32-byte rows (256-byte aligned)
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(256 >> 4) << 32) | ((uint64_t)3 << 62);
+}
 // descriptor increments (in 16-byte units) of one k16 step
 constexpr uint64_t kDescKStepKMajor = 32 >> 4;
 constexpr uint64_t kDescKStepMnMajor = (16 * kRowBytes) >> 4;
+constexpr uint64_t kDescKStepMnMajor32 = (16 * 32) >> 4;
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -204,6 +249,22 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[64 x 16] += A[64 x 16] B[16 x 16]: A in registers, B MN-major in shared
+// memory (the narrow 32-byte-swizzled tile)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      : VX_F4(d, 0), VX_F4(d, 4)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 #undef VX_F16
 #undef VX_F4
 
@@ -248,6 +309,42 @@ __device__ __forceinline__ void gemm_rs(float (&acc)[32], const uint32_t (&a)[N 
   for (int kk = 0; kk < N / 16; ++kk) wgmma_rs_n64(acc, a[kk], db + kk * kDescKStepMnMajor);
 }
 
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// -inf into the logits of columns >= Tk (c0: this thread's first column)
+template <int N>
+__device__ __forceinline__ void mask_columns(float (&acc)[N], int c0, int Tk) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (c0 + 8 * j + e >= Tk) acc[4 * j + e] = acc[4 * j + 2 + e] = -INFINITY;
+}
+
+// this thread's part of a 64 x (2 N) accumulator tile (rows `row` and
+// `row + 8` of the fragment layout), rounded to bf16 into rows of stride `ld`
+// values; rows >= rows_valid are not written
+template <int N>
+__device__ __forceinline__ void store_rows_bf16(const float (&acc)[N], __nv_bfloat16* dst,
+                                                int row, int rows_valid, int qd, int ld) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row + 8 * h >= rows_valid) continue;
+    __nv_bfloat16* p = dst + (size_t)(row + 8 * h) * ld + 2 * qd;
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j)
+      *reinterpret_cast<uint32_t*>(p + 8 * j) =
+          pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+}
+
 // 2^x on the special-function unit (relative error below 2^-22; results
 // below 2^-126 flush to zero, 2^-inf is 0)
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -284,6 +381,44 @@ struct PingPong {
     if (on && !(wg == 1 && last_turn)) arrive(2 - wg);
   }
 };
+
+// -- clusters ----------------------------------------------------------------------
+
+// split-phase barrier of every thread of the cluster; the release/acquire pair
+// orders shared-memory writes before it with reads of them (by any CTA of the
+// cluster) after it
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+// the address of this CTA's shared `addr` in the CTA of rank `rank`
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float2 ld_cluster_f32x2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ float4 ld_cluster_f32x4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
 
 template <int R>
 __device__ __forceinline__ void setmaxnreg_dec() {
@@ -322,20 +457,22 @@ inline cudaError_t encode_fn(EncodeTiledFn* out) {
   return cudaSuccess;
 }
 
-// A map over a contiguous [BH, T, 64] bf16 tensor (16-byte aligned) whose
-// box is `box_rows` rows of one head, 128-byte swizzled, zero past T.
-inline cudaError_t rows_map(CUtensorMap* map, const void* ptr, int BH, int T, int box_rows) {
+// A map over a contiguous [BH, T, hd] bf16 tensor (16-byte aligned) whose
+// box is `box_rows` rows of one head by `box_cols` columns: 64 (128-byte
+// swizzled) or 16 (32-byte swizzled); zero past T.
+inline cudaError_t rows_map(CUtensorMap* map, const void* ptr, int BH, int T, int box_rows,
+                            int hd = kHd, int box_cols = kHd) {
   EncodeTiledFn fn;
   cudaError_t err = encode_fn(&fn);
   if (err != cudaSuccess) return err;
-  cuuint64_t dims[3] = {(cuuint64_t)kHd, (cuuint64_t)T, (cuuint64_t)BH};
-  cuuint64_t strides[2] = {(cuuint64_t)kRowBytes, (cuuint64_t)T * kRowBytes};
-  cuuint32_t box[3] = {(cuuint32_t)kHd, (cuuint32_t)box_rows, 1};
+  cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)T, (cuuint64_t)BH};
+  cuuint64_t strides[2] = {(cuuint64_t)hd * 2, (cuuint64_t)T * hd * 2};
+  cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   cuuint32_t elem[3] = {1, 1, 1};
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
                   strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                  box_cols == kHd ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

@@ -104,6 +104,43 @@ def check(lib: ctypes.CDLL, name: str, err: int) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The handle of the current CUDA stream of ``device`` (a torch.device),
+    as ``torch.cuda.current_stream(device).cuda_stream`` gives it. The raw
+    accessor, where the build has it, skips making a Stream object, a
+    noticeable share of a launch's host time."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    return raw(torch.cuda.current_device() if device.index is None else device.index)
+
+
+def entry(name: str, symbol: str, argtypes) -> tuple:
+    """The library ``name``'s C entry point ``symbol`` with its argument types
+    set (once per loaded library): ``(library, function)``."""
+    lib = library(name)
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    return lib, fn
+
+
+def tma_operand(t):
+    """Contiguous and 16-byte aligned, as a TMA tensor map needs it."""
+    if not t.is_contiguous():
+        t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+_SMS: Dict[object, int] = {}
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA device (cached by the device as given)."""
+    if device not in _SMS:
+        import torch
+
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device]

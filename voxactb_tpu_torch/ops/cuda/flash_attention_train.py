@@ -201,23 +201,12 @@ def _check_operands(q, k, v):
     return bh, tq, tk
 
 
-def _tma_operand(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous and 16-byte aligned, as a TMA tensor map needs it."""
-    t = t.contiguous()
-    return t.clone() if t.data_ptr() % 16 else t
-
-
 def _entry(name: str, argtypes):
     """The library's C entry point ``voxactb_flash_attention_train_<name>``
     with its argument types set (once per loaded library)."""
-    from voxactb_tpu_torch.ops.cuda.build import library
+    from voxactb_tpu_torch.ops.cuda.build import entry
 
-    lib = library("flash_attention_train")
-    fn = getattr(lib, f"voxactb_flash_attention_train_{name}")
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-    return lib, fn
+    return entry("flash_attention_train", f"voxactb_flash_attention_train_{name}", argtypes)
 
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
@@ -240,10 +229,10 @@ def flash_attention_train_forward(q, k, v, seed: torch.Tensor, dropout: float):
         bits = (keep_bits(seed, q.shape[0], q.shape[1], k.shape[1], dropout)
                 if dropout > 0.0 else None)
         return out, lse, bits
-    from voxactb_tpu_torch.ops.cuda.build import check, stream_ptr
+    from voxactb_tpu_torch.ops.cuda.build import check, stream_ptr, tma_operand
 
     bh, tq, tk = _check_operands(q, k, v)
-    q, k, v = _tma_operand(q), _tma_operand(k), _tma_operand(v)
+    q, k, v = tma_operand(q), tma_operand(k), tma_operand(v)
     out = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
     bits = (torch.empty((bh, tq, -(-tk // 32)), dtype=torch.int32, device=q.device)
@@ -267,15 +256,15 @@ def flash_attention_train_backward(q, k, v, lse, d_out, bits, dropout: float):
                          f"{'absent' if bits is None else 'given'})")
     if not q.is_cuda:
         return plain_backward(q, k, v, lse, d_out, None, dropout, bits=bits)
-    from voxactb_tpu_torch.ops.cuda.build import check, stream_ptr
+    from voxactb_tpu_torch.ops.cuda.build import check, stream_ptr, tma_operand
 
     bh, tq, tk = _check_operands(q, k, v)
     if bits is not None and (bits.shape != (bh, tq, -(-tk // 32))
                              or bits.dtype != torch.int32):
         raise ValueError(f"keep bits of shape {tuple(bits.shape)} and {bits.dtype} do "
                          f"not fit q {tuple(q.shape)}, k {tuple(k.shape)}")
-    q, k, v = _tma_operand(q), _tma_operand(k), _tma_operand(v)
-    d_out = _tma_operand(d_out.to(torch.bfloat16))
+    q, k, v = tma_operand(q), tma_operand(k), tma_operand(v)
+    d_out = tma_operand(d_out.to(torch.bfloat16))
     lse = lse.contiguous()
     bits = None if bits is None else bits.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

@@ -1,13 +1,13 @@
 """K7: SAM attention with a decomposed relative-position bias.
 
 Replaces ``voxactb_tpu/ops/pallas/sam_attention.py::global_rel_attention``
-(``csrc/sam_attention.cu``). On an H100 a global block of ViT-H (BH 16,
-T 4096, head dim 80) is bounded by operations and a windowed one (BH 400,
-T 196) by bytes. The kernel adds the f32 rel terms to the f32 logits and
-normalises P over the whole row before its bf16 cast, as the plain version
-(``ops/sam_attention.global_rel_attention_plain``) does; its online row sum
-adds in another f32 order, so a P entry on a bf16 rounding boundary can round
-the other way.
+(``csrc/sam_attention.cu`` on ``csrc/attention_fwd.cuh``). On an H100 a
+global block of ViT-H (BH 16, T 4096, head dim 80) is bounded by operations
+and a windowed one (BH 400, T 196) by bytes. The kernel adds the f32 rel terms
+to the f32 logits and normalises P over the whole row before its bf16 cast,
+as the plain version (``ops/sam_attention.global_rel_attention_plain``) does;
+its online row sum adds in another f32 order, so a P entry on a bf16 rounding
+boundary can round the other way.
 """
 
 from __future__ import annotations
@@ -20,7 +20,10 @@ from voxactb_tpu_torch.ops.cuda import LAUNCHES
 from voxactb_tpu_torch.ops.sam_attention import global_rel_attention_plain
 
 HEAD_DIMS = (64, 80)
+KEY_TILE = 128  # keys per tile of the kernel
 MAX_GRID = 64
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_ARGS = [_VP] * 6 + [_CI] * 5 + [_VP]
 
 
 def global_rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -32,7 +35,7 @@ def global_rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors take the plain version."""
     if not q.is_cuda:
         return global_rel_attention_plain(q, k, v, rel_h_term, rel_w_term, kh=kh, kw=kw)
-    from voxactb_tpu_torch.ops.cuda.build import check, library, stream_ptr
+    from voxactb_tpu_torch.ops.cuda.build import check, entry, stream_ptr, tma_operand
 
     bh, t, hd = q.shape
     if (hd not in HEAD_DIMS or t != kh * kw or not 1 <= kh <= MAX_GRID
@@ -48,15 +51,11 @@ def global_rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
         raise ValueError(f"sam_attention kernel takes bf16 q, k, v; got {q.dtype}, "
                          f"{k.dtype}, {v.dtype}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    rel_h = rel_h_term.to(torch.float32).contiguous()
-    rel_w = rel_w_term.to(torch.float32).contiguous()
+    q, k, v = tma_operand(q), tma_operand(k), tma_operand(v)
+    rel_h, rel_w = (r if r.dtype == torch.float32 and r.is_contiguous()
+                    else r.to(torch.float32).contiguous() for r in (rel_h_term, rel_w_term))
     out = torch.empty_like(q)
-    lib = library("sam_attention")
-    fn = lib.voxactb_sam_attention
-    fn.restype = ctypes.c_int
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+    lib, fn = entry("sam_attention", "voxactb_sam_attention", _ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
              out.data_ptr(), bh, t, kh, kw, hd, stream_ptr(q.device))
     check(lib, "sam_attention", err)
