@@ -410,10 +410,16 @@ def check_attention(b, s3, rng, details, split_rng=None):
 
 def check_decoder(model, d0, rng, details, heads=1):
     """K3 against its plain version; ``heads=2`` is the two-head launch
-    (trans [B,N,N,N,2]) with a second, seeded trans head."""
+    (trans [B,N,N,N,2]) with a second, seeded trans head. Also the u grid its
+    conv wrote against the plain conv, two launches bit-equal, the planted
+    ``zero_padded_halo`` fault (d0 and u0 zero-padded by one voxel, the trans
+    interior cropped) failing the trans check, the device time of each of its
+    three launches and cuDNN's conv of the same replicate-padded concat."""
     import torch
+    import torch.nn.functional as F
+    from voxactb_tpu_torch.models.blocks import edge_pad, to_ncdhw
     from voxactb_tpu_torch.ops.cuda.decoder_head import (
-        decoder_head, decoder_head_reference)
+        decoder_head, decoder_head_reference, launch_decoder_head, tail_conv_reference)
 
     b, n = d0.shape[0], d0.shape[1]
     g = torch.Generator(device="cpu").manual_seed(int(rng.integers(1 << 30)))
@@ -442,21 +448,78 @@ def check_decoder(model, d0, rng, details, heads=1):
     expect(e_g <= 2.0 ** -7 * float(rgmax.abs().max()), f"decoder gmax err {e_g}")
     argmax_same = bool((trans.reshape(b, -1, heads).argmax(1)
                         == rtrans.reshape(b, -1, heads).argmax(1)).all())
+    tag = f"N={n} B={b} T={heads}"
+    # the u grid the conv wrote: kernel and plain conv round the same f32 sum
+    # once, in another order, so u sits within an ulp of its own size
+    with torch.inference_mode():
+        first = launch_decoder_head(*args)
+        again = launch_decoder_head(*args)
+        u_ref = tail_conv_reference(d0, u0, wf, bf)
+        pad = lambda x: F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))  # noqa: E731
+        wrong = launch_decoder_head(pad(d0), pad(u0), wf, bf, wt, bt)[0][:, 1:-1, 1:-1, 1:-1]
+        torch.cuda.synchronize()
+    e_u = max_err(first[3], u_ref)
+    tol_u = 2.0 ** -7 * float(u_ref.float().abs().max())
+    expect(e_u <= tol_u, f"decoder_head {tag}: u err {e_u} > {tol_u}")
+    expect(all(torch.equal(x, y) for x, y in zip(first, again)),
+           f"decoder_head {tag}: two launches on the same inputs differ")
+    planted = max_err(wrong, rtrans)
+    expect(planted > tol_t, f"decoder_head {tag}: a zero-padded halo erred by {planted} only")
+    del first, again, wrong
     ms = time_ms(lambda: decoder_head(*args))
     plain = time_ms(lambda: decoder_head_reference(*args), reps=5)
+    dev_ms = {k: device_ms(lambda: decoder_head(*args), k)
+              for k in ("tail_conv", "dec_trans_stats", "stats_combine")}
+    # the yardstick: cuDNN's bf16 conv of the replicate-padded concat,
+    # channels last, padded beforehand
+    xc = edge_pad(to_ncdhw(torch.cat([d0, u0], -1)), 1).contiguous(
+        memory_format=torch.channels_last_3d)
+    wc = wf.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    with torch.inference_mode():
+        conv_lib = time_ms(lambda: F.conv3d(xc, wc))
+        conv_plain = time_ms(lambda: tail_conv_reference(d0, u0, wf, bf), reps=5)
+    del xc, wc
     n3 = n ** 3
     nbytes = 2.0 * b * n3 * 64 * 2 + b * n3 * 4 * heads + b * 64 * 4 * 4 \
         + (27 * 128 * 64 + 27 * 64 * heads) * 2 + (64 + heads) * 4
     flops = 2.0 * b * n3 * 27 * 128 * 64 + 2.0 * b * n3 * 27 * 64 * heads
     bms, by = bound_ms(nbytes, flops)
-    row = dict(shape=f"N={n} B={b} T={heads}", max_abs_err=e_t, tol=tol_t, kp_err=e_kp,
-               gmax_err=e_g, argmax_same=argmax_same, ms=ms, plain_ms=plain,
-               bound_ms=bms, bound_by=by, library_ms=None)
+    # the conv alone: d0 and u0 read, u written, its weights and bias
+    conv_bms, conv_by = bound_ms(3.0 * b * n3 * 64 * 2 + 27 * 128 * 64 * 2 + 64 * 4,
+                                 2.0 * b * n3 * 27 * 128 * 64)
+    row = dict(shape=tag, max_abs_err=e_t, tol=tol_t, kp_err=e_kp,
+               gmax_err=e_g, argmax_same=argmax_same, u_err=e_u, u_tol=tol_u,
+               planted_zero_pad_halo_trans_err=planted, ms=ms, plain_ms=plain,
+               bound_ms=bms, bound_by=by, library_ms=None,
+               conv_device_ms=dev_ms["tail_conv"],
+               trans_stats_device_ms=dev_ms["dec_trans_stats"],
+               combine_device_ms=dev_ms["stats_combine"], conv_plain_ms=conv_plain,
+               conv_library_ms=conv_lib, conv_bound_ms=conv_bms, conv_bound_by=conv_by,
+               conv_tflops=2.0 * b * n3 * 27 * 128 * 64 / dev_ms["tail_conv"] / 1e9)
     details.setdefault("decoder_head" if heads == 1 else "decoder_head_two_heads",
                        []).append(row)
-    log(f"[kernels] decoder_head N={n} T={heads}: trans err {e_t:.3g} (tol {tol_t:.3g}), "
-        f"kp err {e_kp:.3g}, gmax err {e_g:.3g}, argmax same {argmax_same}; "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by})")
+    log(f"[kernels] decoder_head {tag}: trans err {e_t:.3g} (tol {tol_t:.3g}), "
+        f"kp err {e_kp:.3g}, gmax err {e_g:.3g}, u err {e_u:.3g} (tol {tol_u:.3g}), "
+        f"argmax same {argmax_same}; two launches bit-equal; planted zero-padded halo "
+        f"trans err {planted:.3g}; {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms "
+        f"({by}); device: conv {dev_ms['tail_conv']:.4f} ms ({row['conv_tflops']:.1f} "
+        f"TFLOP/s, bound {conv_bms:.4f}, cuDNN {conv_lib:.4f}, plain {conv_plain:.4f}), "
+        f"trans/stats {dev_ms['dec_trans_stats']:.4f}, combine {dev_ms['stats_combine']:.4f}")
+
+
+# K3 on a ragged grid: partial output bricks on all three axes, two samples
+# (inputs from a stream of their own, so the other phases keep theirs)
+DECODER_RAGGED = (2, 37)
+
+
+def check_decoder_ragged(model, details):
+    import torch
+
+    b, n = DECODER_RAGGED
+    rng = np.random.default_rng(8)
+    x = torch.tensor(rng.normal(size=(b, n, n, n, 64)).astype(np.float32), device=DEVICE)
+    check_decoder(model, torch.where(x >= 0, x, 0.02 * x).to(torch.bfloat16), rng, details)
 
 
 def dense_grid(rng, n, batch):
@@ -1386,7 +1449,8 @@ def dense_config(n, **kw):
 
 # one dense-grid act's launches
 DENSE_LAUNCHES = {"encoder_stats": 1, "stats_head": 1, "decoder_head_v3": 1,
-                  "flash_attention": 8, "front_fused": 0, "decoder_head": 0}
+                  "flash_attention": 8, "front_fused": 0, "decoder_head": 0,
+                  "decoder_tail_conv": 1}
 
 
 def swapped_phase_axes(phase_weight_table):
@@ -2019,6 +2083,7 @@ def main() -> int:
         check_decoder(model, d0, rng, details)
         if n == 50:
             check_decoder(model, d0, rng, details, heads=2)
+            check_decoder_ragged(model, details)
         attn[n] = check_attention(1, (n // 5) ** 3, rng, details, split_rng)
         del model, d0
         torch.cuda.empty_cache()
@@ -2062,8 +2127,9 @@ def main() -> int:
     log(f"[train50] took {time.perf_counter() - t0:.1f} s")
 
     # phase 8: every kernel was launched on the main path that runs it
-    act_kernels = ("front_fused", "flash_attention", "decoder_head")
-    dense_kernels = ("encoder_stats", "stats_head", "decoder_head_v3", "flash_attention")
+    act_kernels = ("front_fused", "flash_attention", "decoder_head", "decoder_tail_conv")
+    dense_kernels = ("encoder_stats", "stats_head", "decoder_head_v3", "flash_attention",
+                     "decoder_tail_conv")
     path_kernels = {"train50": ("flash_attention_train_fwd", "flash_attention_train_bwd"),
                     "vlm_episode": act_kernels + ("sam_attention",),
                     "dense100": dense_kernels, "dense100_agent": dense_kernels,
@@ -2076,7 +2142,8 @@ def main() -> int:
             total[k] += v
             expect(v > 0, f"kernel {k} was not launched on the main path {name}")
     f100 = details["front_fused"][-1]
-    d100 = details["decoder_head"][-1]
+    row_of = lambda key, shape: next(r for r in details[key] if r["shape"] == shape)  # noqa: E731
+    d100 = row_of("decoder_head", "N=100 B=1 T=1")
     a100 = attn[100]  # B = 1: one cross, six self, one decoder attention per act
     per_act = lambda key: (a100["cross"][key] + 6 * a100["self"][key]
                            + a100["decoder"][key])
@@ -2090,7 +2157,6 @@ def main() -> int:
     sam_by = {by: sum(n * sam_attn[s]["bound_ms"] for s, n in sam_blocks.items()
                       if sam_attn[s]["bound_by"] == by) for by in ("bytes", "operations")}
     # the dense-grid kernels at the shapes of one dense100 act at batch 1
-    row_of = lambda key, shape: next(r for r in details[key] if r["shape"] == shape)  # noqa: E731
     largest_err = lambda key: max(e["max_abs_err"] for r in details[key]  # noqa: E731
                                   for e in r["errs"].values())
     dense_rows = (("encoder_stats", "N=100 B=1", "encoder_stats.py:59"),
@@ -2120,6 +2186,16 @@ def main() -> int:
                  r["max_abs_err"] for r in details["decoder_head"]),
              ms=d100["ms"], plain_ms=d100["plain_ms"], bound_ms=d100["bound_ms"],
              bound_by=d100["bound_by"], library_ms=None),
+        # the tail's u conv inside K3 and K8, device time at 100^3 batch 1
+        dict(name="decoder_tail_conv", route="cuda",
+             source="voxactb_tpu_torch/csrc/tail_conv.cuh",
+             replaces="voxactb_tpu/ops/pallas/decoder_head_v2.py:40",
+             launches=total["decoder_tail_conv"], max_abs_err=max(
+                 r["u_err"] for key in ("decoder_head", "decoder_head_two_heads")
+                 for r in details[key]),
+             ms=d100["conv_device_ms"], plain_ms=d100["conv_plain_ms"],
+             bound_ms=d100["conv_bound_ms"], bound_by=d100["conv_bound_by"],
+             library_ms=d100["conv_library_ms"]),
         dict(name="flash_attention_train_fwd", route="cuda",
              source="voxactb_tpu_torch/csrc/flash_attention_train.cu",
              replaces="voxactb_tpu/ops/pallas/flash_attention.py:140",

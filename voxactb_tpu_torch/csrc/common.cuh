@@ -11,8 +11,9 @@
 // Also the 1x1x1 preprocess conv + stats of a tile of 10-channel voxel rows
 // (`preprocess_tile`, the front kernel's and the dense-grid encoder's), and
 // the bf16 implicit-GEMM 3D convolution (`conv3d_igemm`) used by the front
-// kernel's k5/s5 patchify, the decoder tail's k3 skip-concat conv and the
-// inline-upsample tail's phase conv: replicate padding is an index clamp, and
+// kernel's k5/s5 patchify and the inline-upsample tail's phase conv (the
+// decoder tail's k3 conv has its own, tail_conv.cuh): padding is an index
+// clamp, and
 // the products run on the tensor cores through WMMA (16x16x16 bf16 tiles, f32
 // accumulation).
 
@@ -235,9 +236,9 @@ __device__ __forceinline__ void preprocess_tile(
 // x 64 channels as four 16x16 f32 accumulators. Per tap the block gathers the
 // 64 clamped input rows (A, 64 x CIN) and the tap's weights (B, CIN x 64) into
 // shared memory and runs CIN / 16 WMMA k-steps. Epilogues: raw f32 (the
-// patchify's pre-activation); bias + bf16 rounding + leaky relu (bf16 out);
-// or the phase upsample's: column block y is phase (rz, ry, rx) = (y / 25,
-// y / 5 % 5, y % 5) of a x5 upsample, and output cell (b, qz, qy, qx) goes to
+// patchify's pre-activation), or the phase upsample's: column block y is
+// phase (rz, ry, rx) = (y / 25, y / 5 % 5, y % 5) of a x5 upsample, and
+// output cell (b, qz, qy, qx) goes to
 // voxel (5 qz + rz, 5 qy + ry, 5 qx + rx) of the [B, 5 No, 5 No, 5 No, 64]
 // grid as lrelu(bf16(acc + bias)) with the f32 slope.
 // ---------------------------------------------------------------------------
@@ -258,7 +259,7 @@ struct ConvSmem {
       (kBytesA + kBytesB) > kBytesC ? (kBytesA + kBytesB) : kBytesC;
 };
 
-enum ConvEpilogue { kEpiRawF32 = 0, kEpiBiasLreluBf16 = 1, kEpiPhaseUpsampleBf16 = 2 };
+enum ConvEpilogue { kEpiRawF32 = 0, kEpiPhaseUpsampleBf16 = 2 };
 
 template <int CIN, int KS, int STRIDE, int PAD, int EPI>
 __global__ void __launch_bounds__(kConvThreads)
@@ -358,20 +359,6 @@ conv3d_igemm(const bf16* __restrict__ src0, const bf16* __restrict__ src1,
       const int r = j / kConvCout, co = j % kConvCout;
       long long m = m0 + r;
       if (m < M) out_f32[m * kConvCout + co] = Cs[r * S::kLdC + co];
-    }
-  } else if constexpr (EPI == kEpiBiasLreluBf16) {
-    for (int j = tid; j < kConvBM * kConvCout / 2; j += kConvThreads) {
-      const int r = j / (kConvCout / 2), co = (j % (kConvCout / 2)) * 2;
-      long long m = m0 + r;
-      if (m < M) {
-        bf16 v0 = lrelu_rounded(__float2bfloat16_rn(Cs[r * S::kLdC + co] + bias[co]));
-        bf16 v1 = lrelu_rounded(
-            __float2bfloat16_rn(Cs[r * S::kLdC + co + 1] + bias[co + 1]));
-        __nv_bfloat162 pair;
-        pair.x = v0;
-        pair.y = v1;
-        *reinterpret_cast<__nv_bfloat162*>(out_bf16 + m * kConvCout + co) = pair;
-      }
     }
   } else {
     const int ph = blockIdx.y;

@@ -10,8 +10,8 @@
 // 442 GFLOP (1e6 voxels x 27 taps x 128 -> 64 channels) against 256 MB of
 // d0/u0 reads; the trans conv adds 3.5 GFLOP.
 //
-// Design (simple first): the three steps of decoder_tail.cuh, on the given
-// u0.
+// Design: the three steps of decoder_tail.cuh, on the given u0; the u conv
+// is tail_conv.cuh's wgmma kernel over staged halo bricks.
 
 #include "decoder_tail.cuh"
 

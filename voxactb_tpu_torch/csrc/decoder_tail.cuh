@@ -3,8 +3,8 @@
 // over u. decoder_head.cu (K3) runs it on d0 and a given u0;
 // decoder_head_v3.cu (K8) on d0 and the u0 it synthesises first.
 //
-//   1. conv3d_igemm<128, 3, 1, 1> (common.cuh) - u = lrelu(bf16(conv(cat[d0,
-//      u0]) + bf)) on the tensor cores, replicate padding as an index clamp
+//   1. tail_conv (tail_conv.cuh) - u = lrelu(bf16(conv(cat[d0, u0]) + bf))
+//      on wgmma over staged halo bricks, replicate padding as an index clamp
 //      in all three axes (the TPU ring clamps plane -1 to 0 and N to N-1);
 //      u is written to a bf16 scratch grid.
 //   2. dec_trans_stats - one warp per voxel, two channels per lane: trans =
@@ -16,6 +16,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "tail_conv.cuh"
 
 namespace vx {
 namespace tail {
@@ -124,10 +125,9 @@ inline int run_decoder_tail(const void* d0, const void* u0, const void* wf,
                             float* trans, float* kp, float* gmax, cudaStream_t stream) {
   const long long n3 = (long long)N * N * N;
   const int P = (int)((n3 + kVoxPerBlock - 1) / kVoxPerBlock);
-  VX_CHECK((launch_conv3d_igemm<128, 3, 1, 1, kEpiBiasLreluBf16>(
+  VX_CHECK(tailconv::launch_tail_conv(
       static_cast<const bf16*>(d0), static_cast<const bf16*>(u0),
-      static_cast<const bf16*>(wf), bf, B, N, N, nullptr, static_cast<bf16*>(u),
-      stream)));
+      static_cast<const bf16*>(wf), bf, B, N, static_cast<bf16*>(u), stream));
   int err;
   if (T == 1) {
     err = run_trans_stats<1>(static_cast<const bf16*>(u), static_cast<const bf16*>(wt),

@@ -3,7 +3,8 @@
 Replaces ``voxactb_tpu/ops/pallas/decoder_head_v2.py::decoder_head_v2`` and
 the same function under the TPU's other schedules (``decoder_head.py`` v1,
 ``decoder_head_v2c.py``). The kernel (``csrc/decoder_head.cu``) is bounded by
-operations on an H100: at 100^3, B = 1 the u conv is about 442 GFLOP. u is
+operations on an H100: at 100^3, B = 1 the u conv is about 442 GFLOP, which
+``csrc/tail_conv.cuh`` computes brick by brick (``brick_grid``). u is
 rounded to the compute dtype before the lrelu; trans stays f32 (``acc + bt``),
 unlike the XLA path, which rounds it to the compute dtype. The compute dtype
 is d0's, as in ``decoder_head_v2``: the plain version computes at f32 for f32
@@ -24,21 +25,54 @@ _C = 64
 _VOX_PER_BLOCK = 512  # csrc/decoder_head.cu kVoxPerBlock
 
 
-def decoder_head_reference(d0, u0, wf, bf, wt, bt):
-    """Plain version, in d0's dtype (bf16 or f32). d0, u0 ``[B,N,N,N,C]``; wf
-    ``[3,3,3,2C,C]``; bf ``[C]``; wt ``[T,3,3,3,C,1]``; bt ``[T]`` -> ``(trans
-    [B,N,N,N,T] f32, kp [B,3C] f32, gmax [B,C] f32)``."""
+_BRICK = (4, 8, 8)  # csrc/tail_conv.cuh kBz, kBy, kBx: output voxels (z, y, x)
+
+
+def brick_grid(b, n):
+    """The u conv's launch geometry on a ``[B,N,N,N]`` grid: the
+    ``(samples, z, y, x)`` counts of its output bricks, partial bricks at the
+    far edges included. Brick ``i`` (numbered x fastest, then y, z, sample)
+    covers voxels ``z0:z0+4, y0:y0+8, x0:x0+8`` of its sample, cut at N."""
+    return (b,) + tuple(-(-n // e) for e in _BRICK)
+
+
+def brick_origin(i, grid):
+    """``(sample, z0, y0, x0)`` of brick ``i`` of ``brick_grid``'s ``grid``."""
+    _, nbz, nby, nbx = grid
+    x, i = i % nbx, i // nbx
+    y, i = i % nby, i // nby
+    z, b = i % nbz, i // nbz
+    return b, z * _BRICK[0], y * _BRICK[1], x * _BRICK[2]
+
+
+def tail_conv_reference(d0, u0, wf, bf):
+    """Plain version of the tail's u conv, in d0's dtype: ``u =
+    lrelu(dtype(conv3d_k3_replicate(cat[d0, u0]) + bf))`` ``[B,N,N,N,C]``."""
     dt, f32 = d0.dtype, torch.float32
     cat = torch.cat([d0, u0.to(dt)], -1)
     w = wf.to(dt).permute(4, 3, 0, 1, 2)
     pre = conv3d_f32acc(edge_pad(to_ncdhw(cat), 1), w, 1)
     pre = pre + bf.to(f32)[:, None, None, None]
-    u = lrelu(to_ndhwc(pre).to(dt))
-    wtk = wt[..., 0].to(dt).permute(0, 4, 1, 2, 3)  # [T, C, 3, 3, 3]
+    return lrelu(to_ndhwc(pre).to(dt))
+
+
+def tail_from_u(u, wt, bt):
+    """Plain version of the tail's trans head(s) and stats over u
+    ``[B,N,N,N,C]``: ``(trans [B,N,N,N,T] f32, kp [B,3C] f32, gmax [B,C]
+    f32)``."""
+    f32 = torch.float32
+    wtk = wt[..., 0].to(u.dtype).permute(0, 4, 1, 2, 3)  # [T, C, 3, 3, 3]
     trans = conv3d_f32acc(edge_pad(to_ncdhw(u), 1), wtk, 1)
     trans = to_ndhwc(trans + bt.to(f32)[:, None, None, None])
     kp, gmax = softargmax_stats_3d(u)
     return trans.contiguous(), kp, gmax
+
+
+def decoder_head_reference(d0, u0, wf, bf, wt, bt):
+    """Plain version, in d0's dtype (bf16 or f32). d0, u0 ``[B,N,N,N,C]``; wf
+    ``[3,3,3,2C,C]``; bf ``[C]``; wt ``[T,3,3,3,C,1]``; bt ``[T]`` -> ``(trans
+    [B,N,N,N,T] f32, kp [B,3C] f32, gmax [B,C] f32)``."""
+    return tail_from_u(tail_conv_reference(d0, u0, wf, bf), wt, bt)
 
 
 def check_tail_operands(name, d0, wf, wt, *activations):
@@ -75,7 +109,13 @@ def decoder_head(d0, u0, wf, bf, wt, bt):
     take the plain version, CUDA tensors the kernel (bf16 d0 and u0 only)."""
     if not d0.is_cuda:
         return decoder_head_reference(d0, u0, wf, bf, wt, bt)
-    from voxactb_tpu_torch.ops.cuda.build import check, library, stream_ptr
+    return launch_decoder_head(d0, u0, wf, bf, wt, bt)[:3]
+
+
+def launch_decoder_head(d0, u0, wf, bf, wt, bt):
+    """The kernel on CUDA tensors: ``(trans, kp, gmax, u)``, with the u grid
+    ``[B,N,N,N,C]`` bf16 that its conv wrote."""
+    from voxactb_tpu_torch.ops.cuda.build import check, library, stream_ptr, tma_operand
 
     check_tail_operands("decoder_head", d0, wf, wt, u0)
     if u0.shape != d0.shape:
@@ -87,6 +127,7 @@ def decoder_head(d0, u0, wf, bf, wt, bt):
     f32, bf16 = torch.float32, torch.bfloat16
     d0c, u0c = d0.contiguous(), u0.contiguous()
     wf_bf, bf_f, wt_bf, bt_f = tail_weights(wf, bf, wt, bt)
+    wf_bf = tma_operand(wf_bf)
     lin = torch.linspace(-1.0, 1.0, n, dtype=f32, device=dev)
 
     n3 = n ** 3
@@ -108,4 +149,5 @@ def decoder_head(d0, u0, wf, bf, wt, bt):
              gmax.data_ptr(), stream_ptr(dev))
     check(lib, "decoder_head", err)
     LAUNCHES["decoder_head"] += 1
-    return trans, kp, gmax
+    LAUNCHES["decoder_tail_conv"] += 1
+    return trans, kp, gmax, u.reshape(b, n, n, n, c)

@@ -98,7 +98,7 @@ def decoder_head_v3(d0, h, up_kernel, up_bias, wf, bf, wt, bt):
 def launch_decoder_head_v3(d0, hp, table, up_bias, wf, bf, wt, bt):
     """The kernel on the edge-padded slab ``hp [B,s+2,s+2,s+2,C]`` and the
     ``[5,5,9C,15C]`` phase table (rounded to bf16 here)."""
-    from voxactb_tpu_torch.ops.cuda.build import check, library, stream_ptr
+    from voxactb_tpu_torch.ops.cuda.build import check, library, stream_ptr, tma_operand
 
     check_tail_operands("decoder_head_v3", d0, wf, wt, hp)
     b, n, c = d0.shape[0], d0.shape[1], d0.shape[-1]
@@ -117,6 +117,7 @@ def launch_decoder_head_v3(d0, hp, table, up_bias, wf, bf, wt, bt):
         27, c, _SCALE ** 3 * c).contiguous()
     upb = up_bias.to(f32).contiguous()
     wf_bf, bf_f, wt_bf, bt_f = tail_weights(wf, bf, wt, bt)
+    wf_bf = tma_operand(wf_bf)
     lin = torch.linspace(-1.0, 1.0, n, dtype=f32, device=dev)
 
     n3 = n ** 3
@@ -140,4 +141,5 @@ def launch_decoder_head_v3(d0, hp, table, up_bias, wf, bf, wt, bt):
              stream_ptr(dev))
     check(lib, "decoder_head_v3", err)
     LAUNCHES["decoder_head_v3"] += 1
+    LAUNCHES["decoder_tail_conv"] += 1
     return trans, kp, gmax
