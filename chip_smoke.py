@@ -24,10 +24,14 @@ Phases:
                and 100^3 and with two heads, each within 2^-7 of its largest
                output, two launches bit-equal, planted faults (swapped 'xy'
                positions, a zero-padded slab) failing; the inline-upsample
-               tail against cuDNN ``up0`` + the decoder tail); time kernel
-               (wrapper call; for the attention kernels also device time from
-               the profiler), plain version and, where one PyTorch call
-               computes the same function, that call.
+               tail against cuDNN ``up0`` + the decoder tail; the decoder
+               tail's trans/stats launch alone, a zero-ringed u failing; the
+               phase GEMM's u0 within 2^-7); time kernel
+               (wrapper call; for the attention kernels and each launch of
+               the decoder tails also device time from the profiler), plain
+               version and, where one PyTorch call computes the same function,
+               that call (cuDNN's convs for the tail's conv and trans heads,
+               the phase GEMM and K1's patchify).
   3. act100  - full-width ``make_infer_fn`` at 100^3, batch 1 and 8, seeded
                weights: kernels on against the same weights with the kernel
                flags off (Q-field and head logits each within twice the plain
@@ -154,6 +158,8 @@ def expect(cond: bool, what: str):
 
 def check_front(model, n, batch, rng, details):
     import torch
+    import torch.nn.functional as F
+    from voxactb_tpu_torch.models.blocks import edge_pad, to_ncdhw
     from voxactb_tpu_torch.agents.qfunction import normalize_rgb
     from voxactb_tpu_torch.ops.cuda.front_fused import front_fused, front_fused_reference
     from voxactb_tpu_torch.ops.voxelize import flatten_camera_observations
@@ -194,6 +200,13 @@ def check_front(model, n, batch, rng, details):
     with torch.inference_mode():
         ms = time_ms(lambda: front_fused(*args, voxel_size=n))
         plain = time_ms(lambda: front_fused_reference(*args, voxel_size=n), reps=5)
+        # the patchify's yardstick: cuDNN's bf16 k5/s5 conv of d0 edge-padded
+        # by 2 beforehand, channels last
+        xp = edge_pad(to_ncdhw(d0), 2).contiguous(memory_format=torch.channels_last_3d)
+        wpc = wp.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        patch_lib = time_ms(lambda: F.conv3d(xp, wpc, stride=5))
+    del xp, wpc
     p = coords.shape[1]
     s = n // 5
     nbytes = batch * p * 6 * 4 + batch * n ** 3 * 64 * 2 + batch * s ** 3 * 64 * 4 \
@@ -203,12 +216,13 @@ def check_front(model, n, batch, rng, details):
     row = dict(shape=f"N={n} B={batch} P={p}", max_abs_err=max_err(d0, rd0),
                d0_frac_differing=frac_d0, patch_err=e_patch, kp_err=e_kp,
                gmax_err=e_g, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-               library_ms=None)
+               library_ms=None, patchify_library_ms=patch_lib)
     details.setdefault("front_fused", []).append(row)
     log(f"[kernels] front_fused N={n}: d0 err {row['max_abs_err']:.3g} "
         f"(<=1 bf16 ulp; {frac_d0:.2e} of elements differ), patch err {e_patch:.3g} "
         f"(tol {tol_patch:.3g}), kp err {e_kp:.3g} (tol 1e-3), gmax err {e_g:.3g}; "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by})")
+        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by}); patchify's cuDNN "
+        f"k5/s5 conv {patch_lib:.4f} ms")
     return d0
 
 
@@ -414,12 +428,18 @@ def check_decoder(model, d0, rng, details, heads=1):
     conv wrote against the plain conv, two launches bit-equal, the planted
     ``zero_padded_halo`` fault (d0 and u0 zero-padded by one voxel, the trans
     interior cropped) failing the trans check, the device time of each of its
-    three launches and cuDNN's conv of the same replicate-padded concat."""
+    three launches and cuDNN's conv of the same replicate-padded concat. The
+    trans/stats launch alone on the kernel's u against ``tail_from_u`` on the
+    same u, with its planted ``zero_ringed_u`` fault (u zero-padded by one
+    voxel, trans cropped: the zero-filled halo instead of the clamped one)
+    failing the trans check, and cuDNN's bf16 conv of the replicate-padded u
+    to T channels as its yardstick."""
     import torch
     import torch.nn.functional as F
     from voxactb_tpu_torch.models.blocks import edge_pad, to_ncdhw
     from voxactb_tpu_torch.ops.cuda.decoder_head import (
-        decoder_head, decoder_head_reference, launch_decoder_head, tail_conv_reference)
+        decoder_head, decoder_head_reference, launch_decoder_head, launch_tail_from_u,
+        tail_conv_reference, tail_from_u)
 
     b, n = d0.shape[0], d0.shape[1]
     g = torch.Generator(device="cpu").manual_seed(int(rng.integers(1 << 30)))
@@ -465,11 +485,38 @@ def check_decoder(model, d0, rng, details, heads=1):
            f"decoder_head {tag}: two launches on the same inputs differ")
     planted = max_err(wrong, rtrans)
     expect(planted > tol_t, f"decoder_head {tag}: a zero-padded halo erred by {planted} only")
-    del first, again, wrong
+    # the trans/stats launch alone, on the u the conv wrote: the same function
+    # as tail_from_u, summed in another order
+    u_k = first[3]
+    with torch.inference_mode():
+        ts = launch_tail_from_u(u_k, wt, bt)
+        ts_ref = tail_from_u(u_k, wt, bt)
+        ring = launch_tail_from_u(F.pad(u_k, (0, 0, 1, 1, 1, 1, 1, 1)), wt, bt)[0]
+        torch.cuda.synchronize()
+    tol_ts = 1e-2 * float(ts_ref[0].abs().max())
+    e_ts = max_err(ts[0], ts_ref[0])
+    e_ts_kp, e_ts_g = max_err(ts[1], ts_ref[1]), max_err(ts[2], ts_ref[2])
+    expect(e_ts <= tol_ts, f"decoder_head {tag}: trans/stats trans err {e_ts} > {tol_ts}")
+    expect(e_ts_kp <= 1e-3, f"decoder_head {tag}: trans/stats kp err {e_ts_kp} > 1e-3")
+    expect(e_ts_g <= 2.0 ** -7 * float(ts_ref[2].abs().max()),
+           f"decoder_head {tag}: trans/stats gmax err {e_ts_g}")
+    planted_ring = max_err(ring[:, 1:-1, 1:-1, 1:-1], ts_ref[0])
+    expect(planted_ring > tol_ts,
+           f"decoder_head {tag}: a zero-ringed u erred by {planted_ring} only")
+    del first, again, wrong, ts, ring
     ms = time_ms(lambda: decoder_head(*args))
     plain = time_ms(lambda: decoder_head_reference(*args), reps=5)
     dev_ms = {k: device_ms(lambda: decoder_head(*args), k)
-              for k in ("tail_conv", "dec_trans_stats", "stats_combine")}
+              for k in ("tail_conv", "tail_trans_stats", "stats_combine")}
+    with torch.inference_mode():
+        ts_plain = time_ms(lambda: tail_from_u(u_k, wt, bt), reps=5)
+        # the trans half's yardstick: cuDNN's bf16 conv of the replicate-padded
+        # u to T channels, channels last, padded beforehand
+        uc = edge_pad(to_ncdhw(u_k), 1).contiguous(memory_format=torch.channels_last_3d)
+        wtc = wt[..., 0].to(torch.bfloat16).permute(0, 4, 1, 2, 3).contiguous(
+            memory_format=torch.channels_last_3d)
+        ts_lib = time_ms(lambda: F.conv3d(uc, wtc))
+    del uc, wtc, u_k, ts_ref
     # the yardstick: cuDNN's bf16 conv of the replicate-padded concat,
     # channels last, padded beforehand
     xc = edge_pad(to_ncdhw(torch.cat([d0, u0], -1)), 1).contiguous(
@@ -488,15 +535,26 @@ def check_decoder(model, d0, rng, details, heads=1):
     # the conv alone: d0 and u0 read, u written, its weights and bias
     conv_bms, conv_by = bound_ms(3.0 * b * n3 * 64 * 2 + 27 * 128 * 64 * 2 + 64 * 4,
                                  2.0 * b * n3 * 27 * 128 * 64)
+    # trans/stats and its combine: u read, trans and kp / gmax written, the
+    # heads' weights; the heads' products on bf16 operands and the fold's ~10
+    # f32 operations per element of u
+    ts_bms, ts_by = bound_ms(b * n3 * 64 * 2 + b * n3 * heads * 4 + b * 64 * 4 * 4
+                             + 27 * 64 * heads * 2 + heads * 4,
+                             2.0 * b * n3 * 27 * 64 * heads, f32_ops=10.0 * b * n3 * 64)
     row = dict(shape=tag, max_abs_err=e_t, tol=tol_t, kp_err=e_kp,
                gmax_err=e_g, argmax_same=argmax_same, u_err=e_u, u_tol=tol_u,
                planted_zero_pad_halo_trans_err=planted, ms=ms, plain_ms=plain,
                bound_ms=bms, bound_by=by, library_ms=None,
                conv_device_ms=dev_ms["tail_conv"],
-               trans_stats_device_ms=dev_ms["dec_trans_stats"],
-               combine_device_ms=dev_ms["stats_combine"], conv_plain_ms=conv_plain,
+               combine_device_ms=dev_ms["stats_combine"], trans_stats_err=e_ts,
+               trans_stats_tol=tol_ts, trans_stats_kp_err=e_ts_kp,
+               trans_stats_gmax_err=e_ts_g, planted_zero_ringed_u_trans_err=planted_ring,
+               trans_stats_plain_ms=ts_plain, trans_stats_library_ms=ts_lib,
+               trans_stats_bound_ms=ts_bms, trans_stats_bound_by=ts_by,
+               conv_plain_ms=conv_plain,
                conv_library_ms=conv_lib, conv_bound_ms=conv_bms, conv_bound_by=conv_by,
-               conv_tflops=2.0 * b * n3 * 27 * 128 * 64 / dev_ms["tail_conv"] / 1e9)
+               conv_tflops=2.0 * b * n3 * 27 * 128 * 64 / dev_ms["tail_conv"] / 1e9,
+               trans_stats_device_ms=dev_ms["tail_trans_stats"])
     details.setdefault("decoder_head" if heads == 1 else "decoder_head_two_heads",
                        []).append(row)
     log(f"[kernels] decoder_head {tag}: trans err {e_t:.3g} (tol {tol_t:.3g}), "
@@ -505,7 +563,10 @@ def check_decoder(model, d0, rng, details, heads=1):
         f"trans err {planted:.3g}; {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms "
         f"({by}); device: conv {dev_ms['tail_conv']:.4f} ms ({row['conv_tflops']:.1f} "
         f"TFLOP/s, bound {conv_bms:.4f}, cuDNN {conv_lib:.4f}, plain {conv_plain:.4f}), "
-        f"trans/stats {dev_ms['dec_trans_stats']:.4f}, combine {dev_ms['stats_combine']:.4f}")
+        f"trans/stats {dev_ms['tail_trans_stats']:.4f} (bound {ts_bms:.4f}, cuDNN T-channel conv "
+        f"{ts_lib:.4f}, plain {ts_plain:.4f}; alone: trans err {e_ts:.3g} (tol {tol_ts:.3g}), "
+        f"kp err {e_ts_kp:.3g}, gmax err {e_ts_g:.3g}, planted zero-ringed u trans err "
+        f"{planted_ring:.3g}), combine {dev_ms['stats_combine']:.4f}")
 
 
 # K3 on a ragged grid: partial output bricks on all three axes, two samples
@@ -667,15 +728,19 @@ def check_decoder_v3(model, d0, rng, details, heads=1):
     """K8 against its plain version: h from the model's own ``up0.conv_in`` on
     a seeded decoder grid, its ``out_kernel``, seeded biases; ``heads=2``
     adds a seeded second trans head. A zero-padded h (the kernel's edge
-    padding skipped) must fail. At T = 1 also the A/B of the two decoder
-    tails on the model's own weights: K8 (conv_in, then the tail that makes
-    u0 itself) against K3 after the whole cuDNN ``up0``."""
+    padding skipped) must fail. The u0 grid its phase GEMM wrote within 2^-7
+    of ``upsample_from_table``'s largest |u0|, and bit-equal over two
+    launches; the device time of each of its four launches, the phase GEMM's
+    beside cuDNN's bf16 conv of the same edge-padded slab to 125 x 64
+    channels. At T = 1 also the A/B of the two decoder tails on the model's
+    own weights: K8 (conv_in, then the tail that makes u0 itself) against K3
+    after the whole cuDNN ``up0``."""
     import torch
     import torch.nn.functional as F
     from voxactb_tpu_torch.ops.cuda.decoder_head import decoder_head
     from voxactb_tpu_torch.ops.cuda.decoder_head_v3 import (
-        decoder_head_v3, decoder_head_v3_reference, launch_decoder_head_v3,
-        phase_weight_table)
+        _table_taps, decoder_head_v3, decoder_head_v3_reference, edge_pad_slab,
+        launch_decoder_head_v3, phase_weight_table, upsample_from_table)
 
     dev = torch.device(DEVICE)
     b, n = d0.shape[0], d0.shape[1]
@@ -701,7 +766,12 @@ def check_decoder_v3(model, d0, rng, details, heads=1):
         ref = decoder_head_v3_reference(*args)
         table = phase_weight_table(up_kernel.float())
         zero_padded = F.pad(h, (0, 0, 1, 1, 1, 1, 1, 1))
-        wrong, _, _ = launch_decoder_head_v3(d0, zero_padded, table, up_bias, wf, bf, wt, bt)
+        wrong = launch_decoder_head_v3(d0, zero_padded, table, up_bias, wf, bf, wt, bt)[0]
+        hp = edge_pad_slab(h)
+        first = launch_decoder_head_v3(d0, hp, table, up_bias, wf, bf, wt, bt)
+        second = launch_decoder_head_v3(d0, hp, table, up_bias, wf, bf, wt, bt)
+        table_bf = table.to(torch.bfloat16)
+        u0_ref = upsample_from_table(h, table_bf, up_bias, torch.bfloat16)
         torch.cuda.synchronize()
     expect(tuple(got[0].shape) == (b, n, n, n, heads), f"decoder_head_v3 trans shape "
                                                        f"{tuple(got[0].shape)}")
@@ -711,19 +781,46 @@ def check_decoder_v3(model, d0, rng, details, heads=1):
     planted = max_err(wrong, ref[0])
     expect(planted > errs["trans"]["tol"],
            f"decoder_head_v3 {tag}: a zero-padded h erred by {planted} only")
-    del got, again, wrong, table, zero_padded
+    # u0: kernel and plain phase conv round the same f32 sum once, in another
+    # order, so u0 sits within an ulp of its own size
+    e_u0 = max_err(first[3], u0_ref)
+    tol_u0 = 2.0 ** -7 * float(u0_ref.float().abs().max())
+    expect(e_u0 <= tol_u0, f"decoder_head_v3 {tag}: u0 err {e_u0} > {tol_u0}")
+    expect(all(torch.equal(x, y) for x, y in zip(first, second)),
+           f"decoder_head_v3 {tag}: two launches (u0 included) differ")
+    del got, again, wrong, zero_padded, first, second
     with torch.inference_mode():
         ms = time_ms(lambda: decoder_head_v3(*args))
         plain = time_ms(lambda: decoder_head_v3_reference(*args), reps=3, warmup=1)
+        dev_ms = {k: device_ms(lambda: decoder_head_v3(*args), k)
+                  for k in ("phase_gemm", "tail_conv", "tail_trans_stats", "stats_combine")}
+        pg_plain = time_ms(lambda: upsample_from_table(h, table_bf, up_bias, torch.bfloat16),
+                           reps=5)
+        # the phase GEMM's yardstick: cuDNN's bf16 k3 conv of the edge-padded
+        # slab to the 125 x 64 (phase, channel) outputs, channels last
+        xc = hp.permute(0, 4, 1, 2, 3)
+        wc = _table_taps(table_bf).permute(0, 1, 6, 7, 4, 2, 3, 5).reshape(
+            125 * 64, 64, 3, 3, 3).contiguous(memory_format=torch.channels_last_3d)
+        pg_lib = time_ms(lambda: F.conv3d(xc, wc))
+    del table, table_bf, u0_ref, xc, wc
     n3, s3 = b * n ** 3, b * s ** 3
     nbytes = d0.numel() * 2 + h.numel() * 2 + up_kernel.numel() * 4 + wf.numel() * 4 \
         + wt.numel() * 4 + (64 + 64 + heads) * 4 + n3 * heads * 4 + b * 4 * 4 * 64
     flops = 2.0 * s3 * 27 * 64 * 125 * 64 + 2.0 * n3 * 27 * 128 * 64 \
         + 2.0 * n3 * 27 * 64 * heads
     bms, by = bound_ms(nbytes, flops)
+    # the phase GEMM alone: hp and the table read, u0 written, the bias
+    pg_flops = 2.0 * s3 * 27 * 64 * 125 * 64
+    pg_bms, pg_by = bound_ms(hp.numel() * 2 + 27 * 125 * 64 * 64 * 2 + n3 * 64 * 2 + 64 * 4,
+                             pg_flops)
     row = dict(shape=tag, max_abs_err=errs["trans"]["max_abs_err"], errs=errs,
                argmax_same=argmax_same, planted_zero_pad_trans_err=planted, ms=ms,
-               plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None)
+               plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+               u0_err=e_u0, u0_tol=tol_u0,
+               device_ms=dev_ms, phase_gemm_plain_ms=pg_plain,
+               phase_gemm_library_ms=pg_lib, phase_gemm_bound_ms=pg_bms,
+               phase_gemm_bound_by=pg_by,
+               phase_gemm_tflops=pg_flops / dev_ms["phase_gemm"] / 1e9)
     if heads == 1:
         def v3_tail():
             h_, k_, b_ = model.up0(grid, pre_only=True)
@@ -740,11 +837,16 @@ def check_decoder_v3(model, d0, rng, details, heads=1):
     details.setdefault("decoder_head_v3", []).append(row)
     log(f"[kernels] decoder_head_v3 {tag}: " + ", ".join(
         f"{k} err {v['max_abs_err']:.3g} (tol {v['tol']:.3g})" for k, v in errs.items())
-        + f", argmax same {argmax_same}; two launches bit-equal; planted zero-padded h trans "
-        f"err {planted:.3g}; {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by})"
+        + f", argmax same {argmax_same}, u0 err {e_u0:.3g} (tol {tol_u0:.3g}); two launches "
+        f"bit-equal (u0 too); planted zero-padded h trans err {planted:.3g}; {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}); device: phase GEMM "
+        f"{dev_ms['phase_gemm']:.4f} ms ({row['phase_gemm_tflops']:.1f} TFLOP/s, bound "
+        f"{pg_bms:.4f}, cuDNN {pg_lib:.4f}, plain {pg_plain:.4f}), conv "
+        f"{dev_ms['tail_conv']:.4f}, trans/stats {dev_ms['tail_trans_stats']:.4f}, combine "
+        f"{dev_ms['stats_combine']:.4f}"
         + ("" if heads != 1 else f"; A/B conv_in + K8 {row['ab_v3_tail_ms']:.4f} ms vs "
            f"cuDNN up0 + K3 {row['ab_k3_cudnn_up0_tail_ms']:.4f} ms (runs {ab})"))
-    del args, ref, grid, h
+    del args, ref, grid, h, hp
     torch.cuda.empty_cache()
 
 
@@ -1395,7 +1497,8 @@ def two_head50(rng, details):
     cfg = act_config(50, which_arm="both", variant="one_policy_more_heads",
                      crop_target_obj_voxel=True, crop_radius=0.3)
     return checked_act("two_head50", cfg, 2, CROP_BOUNDS, rng, details,
-                       want={"decoder_head": 1, "front_fused": 1, "flash_attention": 8})
+                       want={"decoder_head": 1, "front_fused": 1, "flash_attention": 8,
+                             "decoder_tail_trans_stats": 1})
 
 
 def checked_act(tag, cfg, seed, bounds, rng, details, want):
@@ -1450,7 +1553,8 @@ def dense_config(n, **kw):
 # one dense-grid act's launches
 DENSE_LAUNCHES = {"encoder_stats": 1, "stats_head": 1, "decoder_head_v3": 1,
                   "flash_attention": 8, "front_fused": 0, "decoder_head": 0,
-                  "decoder_tail_conv": 1}
+                  "decoder_tail_conv": 1, "decoder_tail_trans_stats": 1,
+                  "decoder_phase_gemm": 1}
 
 
 def swapped_phase_axes(phase_weight_table):
@@ -1556,7 +1660,8 @@ def stats100(rng, details):
                        pallas_attention=True, which_arm="right")
     return checked_act("stats100", cfg, 4, SCENE_BOUNDS, rng, details,
                        want={"stats_head": 3, "flash_attention": 8, "encoder_stats": 0,
-                             "decoder_head_v3": 0, "decoder_head": 0, "front_fused": 0})
+                             "decoder_head_v3": 0, "decoder_head": 0, "front_fused": 0,
+                             "decoder_phase_gemm": 0, "decoder_tail_trans_stats": 0})
 
 
 # ---------------------------------------------------------------------------
@@ -2127,9 +2232,10 @@ def main() -> int:
     log(f"[train50] took {time.perf_counter() - t0:.1f} s")
 
     # phase 8: every kernel was launched on the main path that runs it
-    act_kernels = ("front_fused", "flash_attention", "decoder_head", "decoder_tail_conv")
+    act_kernels = ("front_fused", "flash_attention", "decoder_head", "decoder_tail_conv",
+                   "decoder_tail_trans_stats")
     dense_kernels = ("encoder_stats", "stats_head", "decoder_head_v3", "flash_attention",
-                     "decoder_tail_conv")
+                     "decoder_tail_conv", "decoder_tail_trans_stats", "decoder_phase_gemm")
     path_kernels = {"train50": ("flash_attention_train_fwd", "flash_attention_train_bwd"),
                     "vlm_episode": act_kernels + ("sam_attention",),
                     "dense100": dense_kernels, "dense100_agent": dense_kernels,
@@ -2144,6 +2250,7 @@ def main() -> int:
     f100 = details["front_fused"][-1]
     row_of = lambda key, shape: next(r for r in details[key] if r["shape"] == shape)  # noqa: E731
     d100 = row_of("decoder_head", "N=100 B=1 T=1")
+    v100 = row_of("decoder_head_v3", "N=100 B=1 T=1")
     a100 = attn[100]  # B = 1: one cross, six self, one decoder attention per act
     per_act = lambda key: (a100["cross"][key] + 6 * a100["self"][key]
                            + a100["decoder"][key])
@@ -2196,6 +2303,26 @@ def main() -> int:
              ms=d100["conv_device_ms"], plain_ms=d100["conv_plain_ms"],
              bound_ms=d100["conv_bound_ms"], bound_by=d100["conv_bound_by"],
              library_ms=d100["conv_library_ms"]),
+        # the tail's trans/stats pass inside K3 and K8 (its combine apart),
+        # device time at 100^3 batch 1
+        dict(name="decoder_tail_trans_stats", route="cuda",
+             source="voxactb_tpu_torch/csrc/decoder_tail.cuh",
+             replaces="voxactb_tpu/ops/pallas/decoder_head_v2.py:40",
+             launches=total["decoder_tail_trans_stats"], max_abs_err=max(
+                 r["trans_stats_err"] for key in ("decoder_head", "decoder_head_two_heads")
+                 for r in details[key]),
+             ms=d100["trans_stats_device_ms"], plain_ms=d100["trans_stats_plain_ms"],
+             bound_ms=d100["trans_stats_bound_ms"], bound_by=d100["trans_stats_bound_by"],
+             library_ms=d100["trans_stats_library_ms"]),
+        # K8's phase GEMM, device time at 100^3 batch 1
+        dict(name="decoder_phase_gemm", route="cuda",
+             source="voxactb_tpu_torch/csrc/phase_gemm.cuh",
+             replaces="voxactb_tpu/ops/pallas/decoder_head_v3.py:81",
+             launches=total["decoder_phase_gemm"],
+             max_abs_err=max(r["u0_err"] for r in details["decoder_head_v3"]),
+             ms=v100["device_ms"]["phase_gemm"], plain_ms=v100["phase_gemm_plain_ms"],
+             bound_ms=v100["phase_gemm_bound_ms"], bound_by=v100["phase_gemm_bound_by"],
+             library_ms=v100["phase_gemm_library_ms"]),
         dict(name="flash_attention_train_fwd", route="cuda",
              source="voxactb_tpu_torch/csrc/flash_attention_train.cu",
              replaces="voxactb_tpu/ops/pallas/flash_attention.py:140",

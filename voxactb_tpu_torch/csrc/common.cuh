@@ -10,12 +10,11 @@
 //
 // Also the 1x1x1 preprocess conv + stats of a tile of 10-channel voxel rows
 // (`preprocess_tile`, the front kernel's and the dense-grid encoder's), and
-// the bf16 implicit-GEMM 3D convolution (`conv3d_igemm`) used by the front
-// kernel's k5/s5 patchify and the inline-upsample tail's phase conv (the
-// decoder tail's k3 conv has its own, tail_conv.cuh): padding is an index
-// clamp, and
-// the products run on the tensor cores through WMMA (16x16x16 bf16 tiles, f32
-// accumulation).
+// the bf16 implicit-GEMM 3D convolution (`conv3d_igemm`) of the front
+// kernel's k5/s5 patchify, its only user (the decoder tail's k3 conv and K8's
+// phase GEMM have their own, tail_conv.cuh and phase_gemm.cuh): padding is an
+// index clamp, and the products run on the tensor cores through WMMA
+// (16x16x16 bf16 tiles, f32 accumulation).
 
 #pragma once
 
@@ -41,13 +40,6 @@ constexpr int kStatFields = 5;  // max, sum e, sum e*lin[dim1], *lin[dim0], *lin
 __device__ __forceinline__ bf16 lrelu_rounded(bf16 v) {
   float f = __bfloat162float(v);
   return f >= 0.f ? v : __float2bfloat16_rn(f * kLreluSlopeBf16);
-}
-
-// The same with the f32 slope: decoder_head_v3 takes the lrelu of its
-// synthesised u0 in f32 (u0 * 0.02) and rounds once.
-__device__ __forceinline__ bf16 lrelu_rounded_f32slope(bf16 v) {
-  float f = __bfloat162float(v);
-  return f >= 0.f ? v : __float2bfloat16_rn(f * 0.02f);
 }
 
 struct Stat {
@@ -230,17 +222,12 @@ __device__ __forceinline__ void preprocess_tile(
 //   out[b, o, co] = sum_{tap, ci} in[b, clamp(o * STRIDE + tap - PAD), ci] * w[tap, ci, co]
 //
 // The input is the channel concat of src0 (channels 0..63) and, for CIN = 128,
-// src1 (channels 64..127), both [B, Ni, Ni, Ni, 64]. w is [KS^3, CIN, w_ld]
-// bf16; block column y takes its 64 output channels from columns 64y..64y+63.
-// One block computes 64 output voxels x 64 channels: 4 warps, each 16 voxels
-// x 64 channels as four 16x16 f32 accumulators. Per tap the block gathers the
-// 64 clamped input rows (A, 64 x CIN) and the tap's weights (B, CIN x 64) into
-// shared memory and runs CIN / 16 WMMA k-steps. Epilogues: raw f32 (the
-// patchify's pre-activation), or the phase upsample's: column block y is
-// phase (rz, ry, rx) = (y / 25, y / 5 % 5, y % 5) of a x5 upsample, and
-// output cell (b, qz, qy, qx) goes to
-// voxel (5 qz + rz, 5 qy + ry, 5 qx + rx) of the [B, 5 No, 5 No, 5 No, 64]
-// grid as lrelu(bf16(acc + bias)) with the f32 slope.
+// src1 (channels 64..127), both [B, Ni, Ni, Ni, 64]. w is [KS^3, CIN, 64]
+// bf16. One block computes 64 output voxels x 64 channels: 4 warps, each 16
+// voxels x 64 channels as four 16x16 f32 accumulators. Per tap the block
+// gathers the 64 clamped input rows (A, 64 x CIN) and the tap's weights (B,
+// CIN x 64) into shared memory and runs CIN / 16 WMMA k-steps; out is the raw
+// f32 sum (the patchify's pre-activation).
 // ---------------------------------------------------------------------------
 
 constexpr int kConvBM = 64;
@@ -259,14 +246,10 @@ struct ConvSmem {
       (kBytesA + kBytesB) > kBytesC ? (kBytesA + kBytesB) : kBytesC;
 };
 
-enum ConvEpilogue { kEpiRawF32 = 0, kEpiPhaseUpsampleBf16 = 2 };
-
-template <int CIN, int KS, int STRIDE, int PAD, int EPI>
+template <int CIN, int KS, int STRIDE, int PAD>
 __global__ void __launch_bounds__(kConvThreads)
 conv3d_igemm(const bf16* __restrict__ src0, const bf16* __restrict__ src1,
-             const bf16* __restrict__ w, int w_ld, const float* __restrict__ bias,
-             int B, int Ni, int No, float* __restrict__ out_f32,
-             bf16* __restrict__ out_bf16) {
+             const bf16* __restrict__ w, int B, int Ni, int No, float* __restrict__ out) {
   using namespace nvcuda;
   typedef ConvSmem<CIN> S;
   __shared__ __align__(128) unsigned char smem[S::kBytes];
@@ -326,12 +309,12 @@ conv3d_igemm(const bf16* __restrict__ src0, const bf16* __restrict__ src1,
       }
       *reinterpret_cast<uint4*>(As + r * S::kLdA + ch * 8) = val;
     }
-    const bf16* wt = w + (size_t)tap * CIN * w_ld + (size_t)blockIdx.y * kConvCout;
+    const bf16* wt = w + (size_t)tap * CIN * kConvCout;
     for (int j = tid; j < kChunksB; j += kConvThreads) {
       const int r = j / (kConvCout / 8);
       const int ch = j % (kConvCout / 8);
       *reinterpret_cast<uint4*>(Bs + r * S::kLdB + ch * 8) =
-          *reinterpret_cast<const uint4*>(wt + (size_t)r * w_ld + ch * 8);
+          *reinterpret_cast<const uint4*>(wt + (size_t)r * kConvCout + ch * 8);
     }
     __syncthreads();
 #pragma unroll
@@ -354,45 +337,20 @@ conv3d_igemm(const bf16* __restrict__ src0, const bf16* __restrict__ src1,
                             wmma::mem_row_major);
   __syncthreads();
 
-  if constexpr (EPI == kEpiRawF32) {
-    for (int j = tid; j < kConvBM * kConvCout; j += kConvThreads) {
-      const int r = j / kConvCout, co = j % kConvCout;
-      long long m = m0 + r;
-      if (m < M) out_f32[m * kConvCout + co] = Cs[r * S::kLdC + co];
-    }
-  } else {
-    const int ph = blockIdx.y;
-    const int rz = ph / 25, ry = (ph / 5) % 5, rx = ph % 5;
-    const long long n = 5LL * No;
-    for (int j = tid; j < kConvBM * kConvCout / 2; j += kConvThreads) {
-      const int r = j / (kConvCout / 2), co = (j % (kConvCout / 2)) * 2;
-      long long m = m0 + r;
-      if (m < M) {
-        long long b = m / no3;
-        long long q = m - b * no3;
-        long long qz = q / ((long long)No * No), qy = (q / No) % No, qx = q % No;
-        size_t vox = (size_t)(((b * n + 5 * qz + rz) * n + 5 * qy + ry) * n + 5 * qx + rx);
-        __nv_bfloat162 pair;
-        pair.x = lrelu_rounded_f32slope(
-            __float2bfloat16_rn(Cs[r * S::kLdC + co] + bias[co]));
-        pair.y = lrelu_rounded_f32slope(
-            __float2bfloat16_rn(Cs[r * S::kLdC + co + 1] + bias[co + 1]));
-        *reinterpret_cast<__nv_bfloat162*>(out_bf16 + vox * kConvCout + co) = pair;
-      }
-    }
+  for (int j = tid; j < kConvBM * kConvCout; j += kConvThreads) {
+    const int r = j / kConvCout, co = j % kConvCout;
+    long long m = m0 + r;
+    if (m < M) out[m * kConvCout + co] = Cs[r * S::kLdC + co];
   }
 }
 
-// col_blocks blocks of 64 output channels each; w_ld = 64 * col_blocks.
-template <int CIN, int KS, int STRIDE, int PAD, int EPI>
-inline cudaError_t launch_conv3d_igemm(const bf16* src0, const bf16* src1,
-                                       const bf16* w, const float* bias, int B, int Ni,
-                                       int No, float* out_f32, bf16* out_bf16,
-                                       cudaStream_t stream, int col_blocks = 1) {
+template <int CIN, int KS, int STRIDE, int PAD>
+inline cudaError_t launch_conv3d_igemm(const bf16* src0, const bf16* src1, const bf16* w,
+                                       int B, int Ni, int No, float* out,
+                                       cudaStream_t stream) {
   long long M = (long long)B * No * No * No;
-  dim3 grid((unsigned)((M + kConvBM - 1) / kConvBM), (unsigned)col_blocks);
-  conv3d_igemm<CIN, KS, STRIDE, PAD, EPI><<<grid, kConvThreads, 0, stream>>>(
-      src0, src1, w, kConvCout * col_blocks, bias, B, Ni, No, out_f32, out_bf16);
+  conv3d_igemm<CIN, KS, STRIDE, PAD><<<(unsigned)((M + kConvBM - 1) / kConvBM), kConvThreads,
+                                       0, stream>>>(src0, src1, w, B, Ni, No, out);
   return cudaGetLastError();
 }
 

@@ -143,8 +143,8 @@ extern "C" int voxactb_front_fused(const float* coords, const float* feats,
                                         N, p3, static_cast<bf16*>(d0), part);
   VX_CHECK(cudaGetLastError());
   VX_CHECK(vx::launch_stats_combine<kC>(part, B, p3, kp, gmax, stream));
-  VX_CHECK((vx::launch_conv3d_igemm<64, 5, 5, 2, vx::kEpiRawF32>(
-      static_cast<const bf16*>(d0), nullptr, static_cast<const bf16*>(wp), nullptr, B,
-      N, N / 5, patch, nullptr, stream)));
+  VX_CHECK((vx::launch_conv3d_igemm<64, 5, 5, 2>(static_cast<const bf16*>(d0), nullptr,
+                                                  static_cast<const bf16*>(wp), B, N, N / 5,
+                                                  patch, stream)));
   return 0;
 }

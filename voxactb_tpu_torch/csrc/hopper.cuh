@@ -2,10 +2,11 @@
 // 3-D tensor maps, mbarrier rings, warpgroup matrix multiply (wgmma) with
 // shared-memory descriptors for 128-byte-swizzled tiles, register
 // rebalancing, thread-block clusters and their distributed shared memory.
-// Used by the trainable attention (flash_attention_train.cu) and by the
+// Used by the trainable attention (flash_attention_train.cu), by the
 // inference forward loop of attention_fwd.cuh, which the act path's attention
 // (flash_attention.cu) and SAM's rel-pos attention (sam_attention.cu)
-// instantiate.
+// instantiate, and by the decoder tail's conv (tail_conv.cuh) and K8's phase
+// GEMM (phase_gemm.cuh).
 //
 // Tile layout. An operand tile holds rows of 64 bf16 (128 bytes), loaded
 // by TMA with CU_TENSOR_MAP_SWIZZLE_128B into a 1024-byte-aligned buffer:
@@ -134,6 +135,11 @@ __device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool v
                "r"(valid ? 4 : 0)
                : "memory");
 }
+// 16 bytes from global to shared memory, cached in L2 only
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -168,6 +174,10 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// all but the last committed group done
+__device__ __forceinline__ void wgmma_wait_1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
 // Keep the compiler from moving reads or writes of wgmma operands across the
@@ -265,8 +275,37 @@ __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[64 x 128] += A[64 x 16] B[16 x 128]: A in registers, B K-major in shared
+// memory (128 rows of the reduction dimension's 64 values)
+__device__ __forceinline__ void wgmma_rs_n128_kmajor(float (&d)[64], const uint32_t (&a)[4],
+                                                     uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : VX_F16(d, 0), VX_F16(d, 16), VX_F16(d, 32), VX_F16(d, 48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 #undef VX_F16
 #undef VX_F4
+
+// four 8 x 8 bf16 matrices from shared memory, lane l giving the address of
+// row l % 8 of matrix l / 8: the register A fragment of a 16 x 16 tile
+// (matrices: rows 0-7 / 8-15 of k 0-7, then of k 8-15)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
 
 // The accumulator fragment of m64nN: thread t of the warpgroup (warp w, lane
 // l) holds rows 16 w + l / 4 (h = 0) and 16 w + l / 4 + 8 (h = 1), columns

@@ -86,18 +86,6 @@ constexpr int kSmemBytes = kBarOff + 2 * kRing * 8 + 1024;
 static_assert(kBz == 2 * kConsumers, "two planes per consumer warpgroup");
 static_assert(kSmemBytes <= 232448, "shared memory of one CTA");
 
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
 struct Brick {
   int b, z0, y0, x0;
 };
@@ -133,10 +121,6 @@ __device__ __forceinline__ void stage_halo(uint32_t halo, const bf16* __restrict
 
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers * 128) : "memory");
-}
-
-__device__ __forceinline__ void wait_group_1() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
 // one batch: the A fragments of k16 steps kk0, kk0 + 1 of the warpgroup's
@@ -249,12 +233,12 @@ tail_conv(const __grid_constant__ CUtensorMap tm_w, const bf16* __restrict__ d0,
         // may be loaded again, and after batch 0 the previous group's stage
         // is free
         issue_batch(acc, a0, halo, v0, lchunk, st, 0);
-        wait_group_1();
+        wgmma_wait_1();
         fence_regs(a1[0]);
         fence_regs(a1[1]);
         if ((g9 > 0 || half > 0) && lane == 0) mbar_arrive(empty(Ring<kRing>::stage(it - 1)));
         issue_batch(acc, a1, halo, v0, lchunk, st, 2);
-        wait_group_1();
+        wgmma_wait_1();
         fence_regs(a0[0]);
         fence_regs(a0[1]);
       }

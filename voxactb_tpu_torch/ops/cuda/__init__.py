@@ -7,9 +7,12 @@ Each wrapper (``front_fused``, ``flash_attention``, ``decoder_head``,
 ``stats_head`` and ``decoder_head_v3``) takes its plain-PyTorch version for
 CPU tensors only; for CUDA tensors it launches its kernel or raises.
 ``LAUNCHES`` counts kernel launches per wrapper, so a run can show that its
-main path went through the kernels; ``decoder_tail_conv`` counts the launches
-of the decoder tail's u conv (``csrc/tail_conv.cuh``), which both
-``decoder_head`` and ``decoder_head_v3`` make.
+main path went through the kernels; ``decoder_tail_conv`` and
+``decoder_tail_trans_stats`` count the launches of the decoder tail's u conv
+(``csrc/tail_conv.cuh``) and its trans/stats pass (``csrc/decoder_tail.cuh``),
+which both ``decoder_head`` and ``decoder_head_v3`` make, and
+``decoder_phase_gemm`` those of ``decoder_head_v3``'s phase GEMM
+(``csrc/phase_gemm.cuh``).
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ LAUNCHES: Dict[str, int] = {"front_fused": 0, "flash_attention": 0,
                             "decoder_head": 0, "flash_attention_train_fwd": 0,
                             "flash_attention_train_bwd": 0, "sam_attention": 0,
                             "encoder_stats": 0, "stats_head": 0, "decoder_head_v3": 0,
-                            "decoder_tail_conv": 0}
+                            "decoder_tail_conv": 0, "decoder_tail_trans_stats": 0,
+                            "decoder_phase_gemm": 0}
 
 
 def reset_launch_counts() -> None:
