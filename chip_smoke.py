@@ -26,12 +26,15 @@ Phases:
                positions, a zero-padded slab) failing; the inline-upsample
                tail against cuDNN ``up0`` + the decoder tail; the decoder
                tail's trans/stats launch alone, a zero-ringed u failing; the
-               phase GEMM's u0 within 2^-7); time kernel
+               phase GEMM's u0 within 2^-7; the front's patchify launched
+               alone at 50^3, 100^3 and 100^3 batch 8, two launches
+               bit-equal, a zero-padded front edge failing); time kernel
                (wrapper call; for the attention kernels and each launch of
                the decoder tails also device time from the profiler), plain
                version and, where one PyTorch call computes the same function,
                that call (cuDNN's convs for the tail's conv and trans heads,
-               the phase GEMM and K1's patchify).
+               the phase GEMM and K1's patchify); K1's and K5's launches each
+               on the device by kernel name.
   3. act100  - full-width ``make_infer_fn`` at 100^3, batch 1 and 8, seeded
                weights: kernels on against the same weights with the kernel
                flags off (Q-field and head logits each within twice the plain
@@ -44,7 +47,8 @@ Phases:
                of the two-head variant, kernels on against kernels off.
   5. dense100 - the dense-grid act path (``pallas_front=False``: voxelize ->
                encoder front -> Perceiver with the stats kernel -> inline-
-               upsample tail) as act100, a planted phase-table fault failing;
+               upsample tail) as act100, a planted phase-table fault failing,
+               no d0-sized replicate pad in its profiled act;
                one ``QAttentionBCAgent.act`` whose ``voxel_grid_depth0`` is
                voxelize's grid; then checked single acts of the two-head
                variant at 50^3 (``dense_two_head50``) and of ``pallas_stats``
@@ -161,8 +165,10 @@ def check_front(model, n, batch, rng, details):
     import torch.nn.functional as F
     from voxactb_tpu_torch.models.blocks import edge_pad, to_ncdhw
     from voxactb_tpu_torch.agents.qfunction import normalize_rgb
-    from voxactb_tpu_torch.ops.cuda.front_fused import front_fused, front_fused_reference
-    from voxactb_tpu_torch.ops.voxelize import flatten_camera_observations
+    from voxactb_tpu_torch.ops.cuda.encoder_stats import voxel_pass_grid
+    from voxactb_tpu_torch.ops.cuda.front_fused import (
+        front_fused, front_fused_reference, patchify_segments)
+    from voxactb_tpu_torch.ops.voxelize import bin_points, flatten_camera_observations
 
     dev = torch.device(DEVICE)
     rgbs, pcds = clouds(rng, batch)
@@ -200,30 +206,148 @@ def check_front(model, n, batch, rng, details):
     with torch.inference_mode():
         ms = time_ms(lambda: front_fused(*args, voxel_size=n))
         plain = time_ms(lambda: front_fused_reference(*args, voxel_size=n), reps=5)
+        # each of K1's launches on the device
+        dev_ms = {k: device_ms(lambda: front_fused(*args, voxel_size=n), key)
+                  for k, key in FRONT_LAUNCHES.items()}
         # the patchify's yardstick: cuDNN's bf16 k5/s5 conv of d0 edge-padded
-        # by 2 beforehand, channels last
+        # by 2 beforehand, channels last (wrapper call, and its device time)
         xp = edge_pad(to_ncdhw(d0), 2).contiguous(memory_format=torch.channels_last_3d)
         wpc = wp.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous(
             memory_format=torch.channels_last_3d)
         patch_lib = time_ms(lambda: F.conv3d(xp, wpc, stride=5))
+        patch_lib_dev = device_ms(lambda: F.conv3d(xp, wpc, stride=5), "")
     del xp, wpc
     p = coords.shape[1]
     s = n // 5
-    nbytes = batch * p * 6 * 4 + batch * n ** 3 * 64 * 2 + batch * s ** 3 * 64 * 4 \
+    n3 = batch * n ** 3
+    nbytes = batch * p * 6 * 4 + n3 * 64 * 2 + batch * s ** 3 * 64 * 4 \
         + batch * 64 * 4 * 4 + (10 * 64 + 125 * 64 * 64) * 2 + 64 * 4
-    flops = 2.0 * batch * n ** 3 * 10 * 64 + 2.0 * batch * s ** 3 * 125 * 64 * 64
+    flops = 2.0 * n3 * 10 * 64 + 2.0 * batch * s ** 3 * 125 * 64 * 64
     bms, by = bound_ms(nbytes, flops)
-    row = dict(shape=f"N={n} B={batch} P={p}", max_abs_err=max_err(d0, rd0),
+    # per launch: the accumulator's memset (written once), the scatter (the
+    # points read, seven 4-byte atomic adds for each point that lands in the
+    # grid), the voxel pass (accumulator read, d0 written; the 1x1 conv's
+    # products and the fold's ~10 f32 operations per element), the combine
+    # (one partial per voxel-pass CTA), the patchify (d0 and its weights
+    # read, patch written) and its reduce (the partial tiles read, the split
+    # tiles written)
+    idx = bin_points(coords, bounds, n)
+    in_grid = int(((idx >= 1) & (idx <= n)).all(-1).sum())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g_vox = voxel_pass_grid(batch, n, sms)
+    segments = patchify_segments(batch, n, sms)
+    partials = sum(seg[4] is not None for seg in segments)
+    split_tiles = len({seg[1] for seg in segments if seg[4] is not None})
+    launch_bounds = {
+        "acc_memset": bound_ms(n3 * 8 * 4, 0.0),
+        "ff_scatter": bound_ms(batch * p * 6 * 4 + in_grid * 7 * 4, 0.0),
+        "ff_voxel": bound_ms(n3 * 8 * 4 + n3 * 64 * 2 + batch * g_vox * 5 * 64 * 4,
+                             2.0 * n3 * 10 * 64, f32_ops=10.0 * n3 * 64),
+        "stats_combine": bound_ms(batch * g_vox * 5 * 64 * 4 + batch * 4 * 64 * 4, 0.0),
+        "patchify_gemm": bound_ms(n3 * 64 * 2 + 125 * 64 * 64 * 2 + batch * s ** 3 * 64 * 4,
+                                  2.0 * batch * s ** 3 * 125 * 64 * 64),
+        "patchify_reduce": bound_ms((partials + split_tiles) * 128 * 64 * 4, 0.0),
+    }
+    row = dict(shape=f"N={n} B={batch} P={p}", points_in_grid=in_grid,
+               max_abs_err=max_err(d0, rd0),
                d0_frac_differing=frac_d0, patch_err=e_patch, kp_err=e_kp,
                gmax_err=e_g, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-               library_ms=None, patchify_library_ms=patch_lib)
+               library_ms=None, patchify_library_ms=patch_lib,
+               patchify_library_device_ms=patch_lib_dev, launch_device_ms=dev_ms,
+               device_ms=sum(dev_ms.values()),
+               launch_bound_ms={k: v[0] for k, v in launch_bounds.items()},
+               launch_bound_by={k: v[1] for k, v in launch_bounds.items()})
     details.setdefault("front_fused", []).append(row)
     log(f"[kernels] front_fused N={n}: d0 err {row['max_abs_err']:.3g} "
         f"(<=1 bf16 ulp; {frac_d0:.2e} of elements differ), patch err {e_patch:.3g} "
         f"(tol {tol_patch:.3g}), kp err {e_kp:.3g} (tol 1e-3), gmax err {e_g:.3g}; "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by}); patchify's cuDNN "
-        f"k5/s5 conv {patch_lib:.4f} ms")
+        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by}); device "
+        + ", ".join(f"{k} {v:.4f} (bound {launch_bounds[k][0]:.4f})" for k, v in dev_ms.items())
+        + f"; patchify's cuDNN k5/s5 conv {patch_lib:.4f} ms, device {patch_lib_dev:.4f}")
     return d0
+
+
+# K1's launches (csrc/front_fused.cu): their names here, and what the
+# profiler's name for each holds (the accumulator's cudaMemsetAsync is a
+# "Memset (Device)" activity)
+FRONT_LAUNCHES = {"acc_memset": "Memset", "ff_scatter": "ff_scatter",
+                  "ff_voxel": "ff_voxel", "stats_combine": "stats_combine",
+                  "patchify_gemm": "patchify_gemm", "patchify_reduce": "patchify_reduce"}
+# the patchify alone on seeded d0 (from torch.Generator(device="cuda") seeds)
+PATCHIFY_SHAPES = ((1, 50, 100), (1, 100, 101), (8, 100, 102))
+
+
+def zero_front_patchify(front_patchify, d0, wp):
+    """The patchify with zeros in front of d0 instead of its clamped edge,
+    run through the real kernel: d0 zero-padded by 5 voxels in front on each
+    axis, the first patch plane of each axis cropped. A planted fault."""
+    import torch.nn.functional as F
+
+    padded = F.pad(d0, (0, 0, 5, 0, 5, 0, 5, 0))
+    return front_patchify(padded, wp)[:, 1:, 1:, 1:]
+
+
+def check_patchify(model, details):
+    """The patchify launch alone (csrc/front_patchify.cuh, ``front_patchify``)
+    on seeded d0 at 50^3, 100^3 and 100^3 batch 8 against ``patchify_pre``
+    within the front check's 2e-3 x max|patch|; two launches bit-equal; the
+    zero-padded front edge must fail; device time beside cuDNN's bf16 conv
+    of the pre-padded d0."""
+    import torch
+    import torch.nn.functional as F
+    from voxactb_tpu_torch.models.blocks import edge_pad, to_ncdhw
+    from voxactb_tpu_torch.ops.cuda.front_fused import front_patchify, patchify_pre
+
+    dev = torch.device(DEVICE)
+    wp = model.patchify.kernel_dhwio().detach()
+    for batch, n, seed in PATCHIFY_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn((batch, n, n, n, 64), generator=g, device=dev)
+        d0 = torch.where(x >= 0, x, 0.02 * x).to(torch.bfloat16)
+        del x
+        with torch.inference_mode():
+            got = front_patchify(d0, wp)
+            again = front_patchify(d0, wp)
+            ref = patchify_pre(d0, wp)
+            wrong = zero_front_patchify(front_patchify, d0, wp)
+            torch.cuda.synchronize()
+        tag = f"N={n} B={batch}"
+        tol = 2e-3 * float(ref.abs().max())
+        err = max_err(got, ref)
+        expect(err <= tol, f"front_patchify {tag}: err {err} > {tol}")
+        expect(torch.equal(got, again), f"front_patchify {tag}: two launches differ")
+        planted = max_err(wrong, ref)
+        expect(planted > tol, f"front_patchify {tag}: a zero-padded front edge erred by "
+               f"{planted} only")
+        del got, again, wrong
+        with torch.inference_mode():
+            ms = time_ms(lambda: front_patchify(d0, wp))
+            plain = time_ms(lambda: patchify_pre(d0, wp), reps=5)
+            dev_ms = {k: device_ms(lambda: front_patchify(d0, wp), k)
+                      for k in ("patchify_gemm", "patchify_reduce")}
+            xp = edge_pad(to_ncdhw(d0), 2).contiguous(memory_format=torch.channels_last_3d)
+            wpc = wp.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous(
+                memory_format=torch.channels_last_3d)
+            lib = time_ms(lambda: F.conv3d(xp, wpc, stride=5))
+            lib_dev = device_ms(lambda: F.conv3d(xp, wpc, stride=5), "")
+        del xp, wpc
+        s = n // 5
+        bms, by = bound_ms(batch * n ** 3 * 64 * 2 + 125 * 64 * 64 * 2
+                           + batch * s ** 3 * 64 * 4, 2.0 * batch * s ** 3 * 125 * 64 * 64)
+        device = sum(dev_ms.values())
+        row = dict(shape=tag, max_abs_err=err, tol=tol, planted_zero_front_err=planted,
+                   ms=ms, device_ms=device, launch_device_ms=dev_ms, plain_ms=plain,
+                   bound_ms=bms, bound_by=by, library_ms=lib, library_device_ms=lib_dev,
+                   tbytes_per_s=batch * n ** 3 * 64 * 2 / device / 1e9)
+        details.setdefault("front_patchify", []).append(row)
+        log(f"[kernels] front_patchify {tag}: err {err:.3g} (tol {tol:.3g}); two launches "
+            f"bit-equal; planted zero-padded front edge err {planted:.3g}; {ms:.4f} ms, "
+            f"device {device:.4f} (gemm {dev_ms['patchify_gemm']:.4f}, reduce "
+            f"{dev_ms['patchify_reduce']:.4f}; {row['tbytes_per_s']:.2f} TB/s of d0), plain "
+            f"{plain:.4f} ms, bound {bms:.4f} ms ({by}); cuDNN bf16 k5/s5 conv {lib:.4f} ms, "
+            f"device {lib_dev:.4f}")
+        del d0, ref
+        torch.cuda.empty_cache()
 
 
 def unmasked_attention(attention):
@@ -304,25 +428,28 @@ def split_inputs(g, bh, tq, tk, splits, dev):
     return tuple(t.to(dev, torch.bfloat16) for t in (q, k, v))
 
 
-def device_ms(fn, name: str, reps: int = 10, tries: int = 3) -> float:
+def device_ms(fn, name: str, reps: int = 10, tries: int = 5) -> float:
     """Device time per call of the kernels whose name holds ``name``, from
     the profiler. A window in which the profiler recorded none of them (it
-    happens now and then over many short windows) is taken again; if every
-    try comes back empty the run fails."""
+    happens now and then over many short windows) is taken again, twice as
+    long, after a pause, and logged; if every try comes back empty the run
+    fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    for t in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(reps << t):
                 fn()
             torch.cuda.synchronize()
         total_us = sum(e.device_time_total for e in prof.key_averages()
                        if e.device_time_total > 0 and name in e.key)
         if total_us > 0:
-            return total_us / reps / 1e3
+            return total_us / (reps << t) / 1e3
+        log(f"[profiler] a window of {reps << t} calls recorded no {name} kernel")
+        time.sleep(0.1)
     raise AssertionError(f"the profiler recorded no {name} kernel in {tries} windows")
 
 
@@ -631,7 +758,7 @@ def check_encoder_stats(model, n, batch, rng, details):
     the kernel's d0."""
     import torch
     from voxactb_tpu_torch.ops.cuda.encoder_stats import (
-        encoder_stats, encoder_stats_reference)
+        encoder_stats, encoder_stats_reference, voxel_pass_grid)
 
     dev = torch.device(DEVICE)
     g = torch.Generator(device="cpu").manual_seed(int(rng.integers(1 << 30)))
@@ -655,6 +782,8 @@ def check_encoder_stats(model, n, batch, rng, details):
     with torch.inference_mode():
         ms = time_ms(lambda: encoder_stats(grid, w1, b1))
         plain = time_ms(lambda: encoder_stats_reference(grid, w1, b1), reps=5)
+        dev_ms = {k: device_ms(lambda: encoder_stats(grid, w1, b1), k)
+                  for k in ("es_voxel", "stats_combine")}
     n3 = batch * n ** 3
     # the grid as the path hands it over (f32), d0 written, the statistics;
     # the 1x1 conv's products on bf16 operands, and the fold's ~10 f32
@@ -662,14 +791,25 @@ def check_encoder_stats(model, n, batch, rng, details):
     nbytes = grid.numel() * grid.element_size() + n3 * 64 * 2 + batch * 4 * 4 * 64 \
         + 10 * 64 * 2 + 64 * 4
     bms, by = bound_ms(nbytes, 2.0 * n3 * 10 * 64, f32_ops=10.0 * n3 * 64)
+    # the voxel pass alone writes one partial per CTA; the combine reads them
+    g_vox = voxel_pass_grid(batch, n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    part_bytes = batch * g_vox * 5 * 64 * 4
+    launch_bounds = {
+        "es_voxel": bound_ms(nbytes - batch * 4 * 4 * 64 + part_bytes, 2.0 * n3 * 10 * 64,
+                             f32_ops=10.0 * n3 * 64),
+        "stats_combine": bound_ms(part_bytes + batch * 4 * 4 * 64, 0.0)}
     row = dict(shape=tag, max_abs_err=errs["d0"]["max_abs_err"], errs=errs,
                d0_frac_differing=d0_frac, planted_xy_swapped_kp_err=planted, ms=ms,
-               plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None)
+               plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+               launch_device_ms=dev_ms, device_ms=sum(dev_ms.values()),
+               launch_bound_ms={k: v[0] for k, v in launch_bounds.items()},
+               launch_bound_by={k: v[1] for k, v in launch_bounds.items()})
     details.setdefault("encoder_stats", []).append(row)
     log(f"[kernels] encoder_stats {tag}: " + ", ".join(
         f"{k} err {v['max_abs_err']:.3g} (tol {v['tol']:.3g})" for k, v in errs.items())
         + f", {d0_frac:.2e} of d0 differs; two launches bit-equal; planted xy swap kp err "
-        f"{planted:.3g}; {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by})")
+        f"{planted:.3g}; {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by}); device "
+        + ", ".join(f"{k} {v:.4f} (bound {launch_bounds[k][0]:.4f})" for k, v in dev_ms.items()))
     del grid, ref
     torch.cuda.empty_cache()
     return d0
@@ -1407,7 +1547,8 @@ def profile_act(fn, tag, details, act_ms, top=12):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         fn()
         torch.cuda.synchronize()
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -1415,9 +1556,14 @@ def profile_act(fn, tag, details, act_ms, top=12):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
+    # the replicate pads the call made, by input shape
+    pads = [dict(op=e.key, input_shapes=[list(x) for x in e.input_shapes if x], calls=e.count)
+            for e in prof.key_averages(group_by_input_shape=True)
+            if e.device_type == DeviceType.CPU and "replication_pad" in e.key]
     details.setdefault("profile", {})[tag] = dict(
         act_ms=act_ms, device_ms=device_ms, busy_share=device_ms / act_ms,
-        kernels=[dict(name=k[:120], ms=ms, calls=c) for k, ms, c in rows])
+        kernels=[dict(name=k[:120], ms=ms, calls=c) for k, ms, c in rows],
+        replicate_pads=pads)
     log(f"[profile] {tag}: device busy {device_ms:.3f} ms of the {act_ms:.3f} ms call "
         f"({100 * device_ms / act_ms:.1f}%)")
     for k, ms, c in rows[:top]:
@@ -1498,7 +1644,7 @@ def two_head50(rng, details):
                      crop_target_obj_voxel=True, crop_radius=0.3)
     return checked_act("two_head50", cfg, 2, CROP_BOUNDS, rng, details,
                        want={"decoder_head": 1, "front_fused": 1, "flash_attention": 8,
-                             "decoder_tail_trans_stats": 1})
+                             "decoder_tail_trans_stats": 1, "front_patchify": 1})
 
 
 def checked_act(tag, cfg, seed, bounds, rng, details, want):
@@ -1554,7 +1700,7 @@ def dense_config(n, **kw):
 DENSE_LAUNCHES = {"encoder_stats": 1, "stats_head": 1, "decoder_head_v3": 1,
                   "flash_attention": 8, "front_fused": 0, "decoder_head": 0,
                   "decoder_tail_conv": 1, "decoder_tail_trans_stats": 1,
-                  "decoder_phase_gemm": 1}
+                  "decoder_phase_gemm": 1, "front_patchify": 1}
 
 
 def swapped_phase_axes(phase_weight_table):
@@ -1581,6 +1727,13 @@ def dense100(rng, details, timings):
     for batch, r in run["per_batch"].items():
         expect(all(r["launches"][k] == v * r["acts"] for k, v in DENSE_LAUNCHES.items()),
                f"dense100 batch {batch}: launches {r['launches']} in {r['acts']} calls")
+    # the patchify reads d0 as it is: no replicate pad of a d0-sized tensor
+    pads = details["profile"]["dense100_b1"]["replicate_pads"]
+    d0_sized = [pad for pad in pads
+                if any(int(np.prod(shape)) >= 100 ** 3 * 64 for shape in pad["input_shapes"])]
+    expect(not d0_sized, f"dense100_b1 pads a d0-sized tensor: {d0_sized}")
+    log(f"[dense100] replicate pads in the profiled call: "
+        f"{[(pad['input_shapes'], pad['calls']) for pad in pads]}")
     return run
 
 
@@ -1661,7 +1814,8 @@ def stats100(rng, details):
     return checked_act("stats100", cfg, 4, SCENE_BOUNDS, rng, details,
                        want={"stats_head": 3, "flash_attention": 8, "encoder_stats": 0,
                              "decoder_head_v3": 0, "decoder_head": 0, "front_fused": 0,
-                             "decoder_phase_gemm": 0, "decoder_tail_trans_stats": 0})
+                             "decoder_phase_gemm": 0, "decoder_tail_trans_stats": 0,
+                             "front_patchify": 0})
 
 
 # ---------------------------------------------------------------------------
@@ -2185,6 +2339,8 @@ def main() -> int:
     for n in (50, 100):
         model = build_encoder(act_config(n, which_arm="right"), device=DEVICE, seed=0)
         d0 = check_front(model, n, 1, rng, details)
+        if n == 100:
+            check_patchify(model, details)
         check_decoder(model, d0, rng, details)
         if n == 50:
             check_decoder(model, d0, rng, details, heads=2)
@@ -2233,9 +2389,10 @@ def main() -> int:
 
     # phase 8: every kernel was launched on the main path that runs it
     act_kernels = ("front_fused", "flash_attention", "decoder_head", "decoder_tail_conv",
-                   "decoder_tail_trans_stats")
+                   "decoder_tail_trans_stats", "front_patchify")
     dense_kernels = ("encoder_stats", "stats_head", "decoder_head_v3", "flash_attention",
-                     "decoder_tail_conv", "decoder_tail_trans_stats", "decoder_phase_gemm")
+                     "decoder_tail_conv", "decoder_tail_trans_stats", "decoder_phase_gemm",
+                     "front_patchify")
     path_kernels = {"train50": ("flash_attention_train_fwd", "flash_attention_train_bwd"),
                     "vlm_episode": act_kernels + ("sam_attention",),
                     "dense100": dense_kernels, "dense100_agent": dense_kernels,
@@ -2269,14 +2426,33 @@ def main() -> int:
     dense_rows = (("encoder_stats", "N=100 B=1", "encoder_stats.py:59"),
                   ("stats_head", "[1,20^3,128] bfloat16", "stats_head.py:115"),
                   ("decoder_head_v3", "N=100 B=1 T=1", "decoder_head_v3.py:81"))
+    p100 = row_of("front_patchify", "N=100 B=1")
+    e100 = row_of("encoder_stats", "N=100 B=1")
     kernels_line = {"kernels": [
+        # K1 at 100^3 batch 1: the wrapper call, and each launch's device
+        # time beside its bound
         dict(name="front_fused", route="cuda",
              source="voxactb_tpu_torch/csrc/front_fused.cu",
              replaces="voxactb_tpu/ops/pallas/front_fused.py:303",
              launches=total["front_fused"], max_abs_err=max(
                  r["max_abs_err"] for r in details["front_fused"]),
              ms=f100["ms"], plain_ms=f100["plain_ms"], bound_ms=f100["bound_ms"],
-             bound_by=f100["bound_by"], library_ms=None),
+             bound_by=f100["bound_by"], library_ms=None, device_ms=f100["device_ms"],
+             launch_device_ms=f100["launch_device_ms"],
+             launch_bound_ms=f100["launch_bound_ms"],
+             launch_bound_by=f100["launch_bound_by"]),
+        # the k5/s5 patchify inside K1 and on the dense path, alone at 100^3
+        # batch 1: the wrapper call beside cuDNN's bf16 conv of the pre-padded
+        # d0, and the device time of each
+        dict(name="front_patchify", route="cuda",
+             source="voxactb_tpu_torch/csrc/front_patchify.cuh",
+             replaces="voxactb_tpu/ops/pallas/front_fused.py:303",
+             launches=total["front_patchify"],
+             max_abs_err=max(r["max_abs_err"] for r in details["front_patchify"]),
+             ms=p100["ms"], plain_ms=p100["plain_ms"], bound_ms=p100["bound_ms"],
+             bound_by=p100["bound_by"], library_ms=p100["library_ms"],
+             device_ms=p100["device_ms"], library_device_ms=p100["library_device_ms"],
+             launch_device_ms=p100["launch_device_ms"]),
         dict(name="flash_attention", route="cuda",
              source="voxactb_tpu_torch/csrc/flash_attention.cu",
              replaces="voxactb_tpu/ops/pallas/flash_attention.py:61",
@@ -2355,6 +2531,10 @@ def main() -> int:
               plain_ms=row_of(key, shape)["plain_ms"], bound_ms=row_of(key, shape)["bound_ms"],
               bound_by=row_of(key, shape)["bound_by"], library_ms=None)
          for key, shape, where in dense_rows]}
+    # K5's launches (the voxel pass, its combine) beside their bounds
+    k5 = next(k for k in kernels_line["kernels"] if k["name"] == "encoder_stats")
+    k5.update(device_ms=e100["device_ms"], launch_device_ms=e100["launch_device_ms"],
+              launch_bound_ms=e100["launch_bound_ms"], launch_bound_by=e100["launch_bound_by"])
     details["timings"] = timings
     details["runs"] = runs
     details["card"] = card

@@ -5,8 +5,8 @@
 // Used by the trainable attention (flash_attention_train.cu), by the
 // inference forward loop of attention_fwd.cuh, which the act path's attention
 // (flash_attention.cu) and SAM's rel-pos attention (sam_attention.cu)
-// instantiate, and by the decoder tail's conv (tail_conv.cuh) and K8's phase
-// GEMM (phase_gemm.cuh).
+// instantiate, by the decoder tail's conv (tail_conv.cuh), K8's phase GEMM
+// (phase_gemm.cuh) and the front's k5/s5 patchify (front_patchify.cuh).
 //
 // Tile layout. An operand tile holds rows of 64 bf16 (128 bytes), loaded
 // by TMA with CU_TENSOR_MAP_SWIZZLE_128B into a 1024-byte-aligned buffer:
@@ -148,6 +148,13 @@ __device__ __forceinline__ void cp_async_wait_group() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Shared-memory writes of this thread (st.shared, or cp.async copies it has
+// waited for) made visible to the async proxy, which wgmma reads its shared
+// operands through; a barrier after it publishes them to the warpgroup.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // -- wgmma -----------------------------------------------------------------------
 
 // descriptor of a 128-byte-swizzled tile at shared address `addr` (1024-byte
@@ -240,6 +247,23 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
     wgmma_ss_n64(d, da, db, accumulate);
   else
     wgmma_ss_n128(d, da, db, accumulate);
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A K-major and B MN-major in shared
+// memory
+__device__ __forceinline__ void wgmma_ss_n64_bmn(float (&d)[32], uint64_t da, uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : VX_F16(d, 0), VX_F16(d, 16)
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // d[64 x 64] += A[64 x 16] B[16 x 64]: A in registers (the fragment of

@@ -34,7 +34,7 @@ import torch
 from torch import nn
 
 from voxactb_tpu_torch.models.blocks import (
-    Conv3D, Conv3DUpsample, Dense, DenseBlock, LayerNorm, softargmax_stats_3d)
+    Conv3D, Conv3DUpsample, Dense, DenseBlock, LayerNorm, lrelu, softargmax_stats_3d)
 
 
 class Attention(nn.Module):
@@ -343,12 +343,19 @@ class PerceiverVoxelLangEncoder(nn.Module):
         elif (self.pallas_encoder and not train and self.activation == "lrelu"
               and dt == torch.bfloat16):
             from voxactb_tpu_torch.ops.cuda.encoder_stats import encoder_stats
+            from voxactb_tpu_torch.ops.cuda.front_fused import front_patchify
 
             # the kernel rounds the grid to bf16 itself
             d0, kp0, gmax0 = encoder_stats(
                 voxel_grid, self.input_preprocess.kernel_dhwio()[0, 0, 0],
                 self.input_preprocess.bias)
-            ins = self.patchify(d0)
+            if self.patchify.kernel_size == 5 and self.patchify.strides == 5:
+                # the patchify kernel (K1's) on d0 as it is: no padded copy of
+                # d0; bias and lrelu as Conv3D adds them
+                pre = front_patchify(d0, self.patchify.kernel_dhwio())
+                ins = lrelu((pre + self.patchify.bias).to(dt))
+            else:
+                ins = self.patchify(d0)
         else:
             d0 = self.input_preprocess(voxel_grid.to(dt))
             kp0, gmax0 = self._stats(d0)

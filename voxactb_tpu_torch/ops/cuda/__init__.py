@@ -10,9 +10,11 @@ CPU tensors only; for CUDA tensors it launches its kernel or raises.
 main path went through the kernels; ``decoder_tail_conv`` and
 ``decoder_tail_trans_stats`` count the launches of the decoder tail's u conv
 (``csrc/tail_conv.cuh``) and its trans/stats pass (``csrc/decoder_tail.cuh``),
-which both ``decoder_head`` and ``decoder_head_v3`` make, and
+which both ``decoder_head`` and ``decoder_head_v3`` make,
 ``decoder_phase_gemm`` those of ``decoder_head_v3``'s phase GEMM
-(``csrc/phase_gemm.cuh``).
+(``csrc/phase_gemm.cuh``), and ``front_patchify`` those of the k5/s5 patchify
+(``csrc/front_patchify.cuh``), which ``front_fused`` makes and the dense
+path's ``front_patchify`` wrapper makes alone.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ LAUNCHES: Dict[str, int] = {"front_fused": 0, "flash_attention": 0,
                             "flash_attention_train_bwd": 0, "sam_attention": 0,
                             "encoder_stats": 0, "stats_head": 0, "decoder_head_v3": 0,
                             "decoder_tail_conv": 0, "decoder_tail_trans_stats": 0,
-                            "decoder_phase_gemm": 0}
+                            "decoder_phase_gemm": 0, "front_patchify": 0}
 
 
 def reset_launch_counts() -> None:

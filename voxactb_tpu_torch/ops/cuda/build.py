@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -33,6 +34,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}
+
+
+def header_constant(header: str, name: str) -> int:
+    """The value of ``constexpr int name = <integer>;`` in ``csrc/<header>``,
+    so that a wrapper sizes its launch grid and scratch from the constants
+    the kernel is compiled with instead of restating them."""
+    text = (CSRC / header).read_text()
+    found = re.search(rf"constexpr int {name} = (\d+);", text)
+    if found is None:
+        raise LookupError(f"csrc/{header} declares no `constexpr int {name} = <integer>;`")
+    return int(found.group(1))
 
 
 def _nvcc() -> str:
