@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's act paths (fused front and dense grid), its
-VLM crop path and its BC train step on one NVIDIA H100 and check them.
+VLM crop path, its BC train step and its measurement tools on one NVIDIA H100
+and check them.
 
     python3 chip_smoke.py
 
@@ -67,7 +68,17 @@ Phases:
                timed steps with SE(3) augmentation and dropout on (loss finite
                and falling); a second run from the same seed; one step under
                the profiler; two ``agent.update`` steps.
-  8. report  - every kernel's launch count rose during its main-path run;
+  8. tools   - the tools' probe kernels against their plain versions: the
+               grid copy at d0's shape (rows 1 and 4, batch 1; rows 1, batch
+               8) bit-equal, a copy without its last slab failing; the scratch
+               probe launching at exactly the card's opt-in shared memory and
+               refused one row past it; the 9-tap shifted window within 2^-7, a
+               dy/dx swap failing; each beside its bound and ``copy_`` or
+               cuDNN. Then the tools' entry points on the card: the stage
+               profile at 100^3 batch 1, its quick subset, the scratch and
+               shifted-window probe, the roofline probes and the cost model at
+               the H100's peaks.
+  9. report  - every kernel's launch count rose during its main-path run;
                one ``{"kernels": [...]}`` line.
 Then the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -86,12 +97,14 @@ import time
 
 import numpy as np
 
+# the H100 SXM's data-sheet peaks, from the port's cost model
+from voxactb_tpu_torch.tools.cost_model import (
+    H100_HBM_BW as PEAK_BYTES, H100_PEAK_BF16_FLOPS as PEAK_BF16_FLOPS,
+    H100_PEAK_F32_FLOPS as PEAK_F32_FLOPS)
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 
-PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
-PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
-PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 SCENE_BOUNDS = [-0.8, -1.0, 0.1, 1.2, 1.0, 2.1]
 CROP_BOUNDS = [-0.1, -0.3, 0.5, 0.5, 0.3, 1.1]
 IMG = 128
@@ -428,27 +441,36 @@ def split_inputs(g, bh, tq, tk, splits, dev):
     return tuple(t.to(dev, torch.bfloat16) for t in (q, k, v))
 
 
-def device_ms(fn, name: str, reps: int = 10, tries: int = 5) -> float:
-    """Device time per call of the kernels whose name holds ``name``, from
-    the profiler. A window in which the profiler recorded none of them (it
-    happens now and then over many short windows) is taken again, twice as
-    long, after a pause, and logged; if every try comes back empty the run
-    fails."""
+def device_ms(fn, name, reps: int = 10, tries: int = 5) -> float:
+    """Device time per call of the kernels whose name holds ``name`` (of
+    every device-side event, copies and memsets too, when ``name`` is None),
+    from the profiler: each kernel's mean time over the launches the profiler
+    recorded, times its launches per call, so that a window that lost some
+    launches (logged) still gives their time. A window in which the profiler
+    recorded none of them (it happens now and then over many short windows)
+    is taken again, twice as long, after a pause, and logged; if every try
+    comes back empty the run fails."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for t in range(tries):
+        calls = reps << t
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps << t):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.device_time_total for e in prof.key_averages()
-                       if e.device_time_total > 0 and name in e.key)
-        if total_us > 0:
-            return total_us / (reps << t) / 1e3
-        log(f"[profiler] a window of {reps << t} calls recorded no {name} kernel")
+        found = [e for e in prof.key_averages() if e.device_time_total > 0 and (
+            name in e.key if name is not None else e.device_type == DeviceType.CUDA)]
+        if found:
+            lost = [f"{e.key[:60]} x{e.count}" for e in found if e.count % calls]
+            if lost:
+                log(f"[profiler] a window of {calls} calls recorded " + ", ".join(lost))
+            return sum(e.device_time_total / e.count * max(1, round(e.count / calls))
+                       for e in found) / 1e3
+        log(f"[profiler] a window of {calls} calls recorded no {name} kernel")
         time.sleep(0.1)
     raise AssertionError(f"the profiler recorded no {name} kernel in {tries} windows")
 
@@ -2304,6 +2326,217 @@ def train50(rng, details, timings, n_steps=10, warm=2):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the tools (P1-P3, then the profilers and probes on the card)
+# ---------------------------------------------------------------------------
+
+GRID_COPY_N = 100  # d0 [B, N^3, 64] bf16
+GRID_COPY_CASES = ((1, 1), (1, 4), (8, 1))  # (batch, rows per slab)
+SMEM_OPTIN = 232448  # 227 KB: an H100's shared memory per block with the opt-in
+TOOLS_KERNELS = ("grid_copy", "smem_scratch", "shifted_window")
+
+
+def check_grid_copy(details):
+    """P1 at d0's shape, seeded on the card (generator seeds 110 + batch):
+    the copy bit-equal to x and over two launches; the kernel launched on all
+    but the last slab into a NaN-filled output must fail that check, and
+    differ in exactly the last slab. Wrapper-call and device ms beside the
+    bytes bound (x read once, the copy written once) and ``copy_``'s."""
+    import torch
+    from voxactb_tpu_torch.ops.cuda.probes import (
+        grid_copy, grid_copy_reference, launch_grid_copy)
+
+    dev = torch.device(DEVICE)
+    bits = lambda t: t.view(torch.int16)  # noqa: E731
+    rows_out = []
+    for batch, rows in GRID_COPY_CASES:
+        g = torch.Generator(device=dev).manual_seed(110 + batch)
+        n = GRID_COPY_N
+        x = torch.randn((batch, n, n, n, 64), generator=g, device=dev).to(torch.bfloat16)
+        out = grid_copy(x, rows)
+        again = grid_copy(x, rows)
+        torch.cuda.synchronize()
+        tag = f"B={batch} rows={rows}"
+        expect(torch.equal(bits(out), bits(x)), f"grid_copy {tag}: the copy differs from x")
+        expect(torch.equal(bits(again), bits(out)), f"grid_copy {tag}: two launches differ")
+        fault = torch.full_like(x, float("nan"))
+        launch_grid_copy(x, fault, rows, n_slabs=batch * n // rows - 1)
+        torch.cuda.synchronize()
+        slab = rows * n * n * 64
+        expect(not torch.equal(bits(fault), bits(x)),
+               f"grid_copy {tag}: the copy without its last slab passed the check")
+        expect(torch.equal(bits(fault).view(-1)[:-slab], bits(x).view(-1)[:-slab])
+               and bool(torch.isnan(fault.view(-1)[-slab:]).all()),
+               f"grid_copy {tag}: the copy without its last slab differs elsewhere")
+        lib_out = torch.empty_like(x)
+        bound, by = bound_ms(2 * x.numel() * x.element_size(), 0)
+        rec = dict(shape=tag, max_abs_err=max_err(out, x), bound_ms=bound, bound_by=by,
+                   ms=time_ms(lambda: grid_copy(x, rows)),
+                   device_ms=device_ms(lambda: grid_copy(x, rows), "probe_grid_copy"),
+                   plain_ms=time_ms(lambda: grid_copy_reference(x, rows)),
+                   library_ms=time_ms(lambda: lib_out.copy_(x)),
+                   library_device_ms=device_ms(lambda: lib_out.copy_(x), None))
+        rows_out.append(rec)
+        log(f"[tools] grid_copy {tag}: bit-equal, two launches bit-equal, the planted "
+            f"last-slab fault caught; {rec['ms']:.4f} ms, device {rec['device_ms']:.4f} "
+            f"(bound {bound:.4f}, {by}); plain {rec['plain_ms']:.4f}; copy_ "
+            f"{rec['library_ms']:.4f}, device {rec['library_device_ms']:.4f}")
+        del x, out, again, fault, lib_out
+    torch.cuda.empty_cache()
+    details["grid_copy"] = rows_out
+    return rows_out[0]
+
+
+def check_smem_scratch(details):
+    """P2: the card's opt-in shared memory per block is 232,448 bytes by the
+    runtime's query and torch's; the scratch kernel launches at one row, 48
+    KB and exactly that limit, with row 0 exact, and is refused one 512-byte
+    row past it (the check itself, not a fallback), after which it launches
+    again."""
+    import torch
+    from voxactb_tpu_torch.ops.cuda.probes import (
+        SCRATCH_ROW_BYTES, smem_optin, smem_scratch, smem_scratch_reference)
+
+    dev = torch.device(DEVICE)
+    optin = smem_optin(dev)
+    torch_optin = getattr(torch.cuda.get_device_properties(dev),
+                          "shared_memory_per_block_optin", optin)
+    expect(optin == torch_optin == SMEM_OPTIN,
+           f"opt-in shared memory per block: runtime {optin}, torch {torch_optin}, "
+           f"expected {SMEM_OPTIN}")
+    g = torch.Generator(device=dev).manual_seed(120)
+    x = torch.randn((8, 128), generator=g, device=dev)
+    for nbytes in (SCRATCH_ROW_BYTES, 48 * 1024, SMEM_OPTIN):
+        out = smem_scratch(x, nbytes)
+        torch.cuda.synchronize()
+        expect(torch.equal(out[0], x[0]), f"smem_scratch at {nbytes} bytes: row 0 differs")
+    try:
+        smem_scratch(x, SMEM_OPTIN + SCRATCH_ROW_BYTES)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    expect(refused is not None,
+           f"smem_scratch launched with {SMEM_OPTIN + SCRATCH_ROW_BYTES} bytes of scratch")
+    out = smem_scratch(x, SMEM_OPTIN)
+    torch.cuda.synchronize()
+    expect(torch.equal(out[0], x[0]), "smem_scratch after a refused launch: row 0 differs")
+    bound, by = bound_ms(2 * SCRATCH_ROW_BYTES, 0)
+    rec = dict(shape=f"[8,128] f32, scratch {SMEM_OPTIN} bytes", max_abs_err=max_err(out[0], x[0]),
+               optin=optin, refused_past_the_limit=refused, bound_ms=bound, bound_by=by,
+               ms=time_ms(lambda: smem_scratch(x, SMEM_OPTIN)),
+               device_ms=device_ms(lambda: smem_scratch(x, SMEM_OPTIN), "probe_smem_scratch"),
+               plain_ms=time_ms(lambda: smem_scratch_reference(x, SMEM_OPTIN)),
+               library_ms=None)
+    details["smem_scratch"] = [rec]
+    log(f"[tools] smem_scratch: opt-in limit {optin} bytes; launches at it, refused at "
+        f"{SMEM_OPTIN + SCRATCH_ROW_BYTES} ({refused}); {rec['ms']:.4f} ms, device "
+        f"{rec['device_ms']:.4f}; plain {rec['plain_ms']:.4f}")
+    return rec
+
+
+def check_shifted_window(details):
+    """P3 at the JAX probe's shapes (x [102,102,128], w [9,128,64] bf16 from
+    ``np.random.default_rng(12)``): within 2^-7 of the plain version's largest
+    |output|, two launches bit-equal; weights with dy and dx swapped must
+    fail. Beside cuDNN's bf16 conv2d of the same input, channels last, to 64
+    channels (it writes bf16, not f32)."""
+    import torch
+    import torch.nn.functional as F
+    from voxactb_tpu_torch.ops.cuda.probes import shifted_window, shifted_window_reference
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(12)
+    x = torch.tensor(rng.normal(size=(102, 102, 128)).astype(np.float32)).to(dev, torch.bfloat16)
+    w = torch.tensor(rng.normal(size=(9, 128, 64)).astype(np.float32) * 0.1).to(
+        dev, torch.bfloat16)
+    got = shifted_window(x, w)
+    again = shifted_window(x, w)
+    ref = shifted_window_reference(x, w)
+    torch.cuda.synchronize()
+    tol = 2.0 ** -7 * float(ref.abs().max())
+    e = max_err(got, ref)
+    expect(e <= tol, f"shifted_window err {e} > {tol}")
+    expect(torch.equal(got, again), "shifted_window: two launches differ")
+    swapped = w.reshape(3, 3, 128, 64).transpose(0, 1).reshape(9, 128, 64).contiguous()
+    e_fault = max_err(shifted_window(x, swapped), ref)
+    expect(e_fault > tol, f"shifted_window with dy and dx swapped passed ({e_fault} <= {tol})")
+    xc = x.permute(2, 0, 1)[None]  # [1, 128, 102, 102], channels last
+    wc = w.reshape(3, 3, 128, 64).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    conv = lambda: F.conv2d(xc, wc)  # noqa: E731
+    e_lib = max_err(conv()[0].permute(1, 2, 0), ref)
+    h = wd = 100
+    bound, by = bound_ms(x.numel() * 2 + w.numel() * 2 + h * wd * 64 * 4,
+                         2 * h * wd * 64 * 9 * 128)
+    rec = dict(shape="x [102,102,128] w [9,128,64] bf16", max_abs_err=e, tol=tol,
+               fault_err=e_fault, library_err=e_lib, bound_ms=bound, bound_by=by,
+               ms=time_ms(lambda: shifted_window(x, w)),
+               device_ms=device_ms(lambda: shifted_window(x, w), "probe_shifted_window"),
+               plain_ms=time_ms(lambda: shifted_window_reference(x, w)),
+               library_ms=time_ms(conv), library_device_ms=device_ms(conv, None),
+               library="cuDNN bf16 conv2d, channels last, bf16 output")
+    details["shifted_window"] = [rec]
+    log(f"[tools] shifted_window: err {e:.3g} (tol {tol:.3g}), two launches bit-equal, "
+        f"swapped dy/dx err {e_fault:.3g}; {rec['ms']:.4f} ms, device {rec['device_ms']:.4f} "
+        f"(bound {bound:.4f}, {by}); plain {rec['plain_ms']:.4f}; cuDNN {rec['library_ms']:.4f}, "
+        f"device {rec['library_device_ms']:.4f} (its bf16 output within {e_lib:.3g})")
+    return rec
+
+
+def tools(details):
+    """The tools' kernels held to their plain versions, then their entry
+    points on the card: the stage profile at batch 1, its quick subset, the
+    scratch and shifted-window probe, the roofline probes and the cost model
+    at the H100's peaks. Their printed lines go to ``chip_smoke.json``; the
+    stage table is logged in one line."""
+    import io
+
+    import torch
+    from voxactb_tpu_torch.ops import cuda as kernels
+    from voxactb_tpu_torch.tools import (
+        cost_model, probe_smem, profile_quick, profile_stages, roofline)
+
+    rows = dict(grid_copy=check_grid_copy(details), smem_scratch=check_smem_scratch(details),
+                shifted_window=check_shifted_window(details))
+    printed = io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        stages = profile_stages.main(batch=1)
+        quick = profile_quick.main()
+        smem = probe_smem.main()
+        roof = roofline.main()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    run_s = time.perf_counter() - t0
+    expect(list(stages) == list(profile_stages.STAGES)
+           and all(np.isfinite(v) and v > 0 for v in stages.values()),
+           f"profile_stages: {stages}")
+    expect(list(quick) == list(profile_quick.STAGES)
+           and all(np.isfinite(v) and v > 0 for v in quick.values()), f"profile_quick: {quick}")
+    expect(smem["scratch_kb"].get(227) is True and smem["scratch_kb"].get(228) is False,
+           f"probe_smem: scratch {smem['scratch_kb']}")
+    expect(smem["shifted_einsum"]["rel_err"] <= 2.0 ** -7, f"probe_smem: {smem}")
+    expect(all(v > 0 for r in roof.values() for k, v in r.items() if k != "probe"),
+           f"roofline: {roof}")
+    cost = {f"act100_b{b}": cost_model.act_cost(n=100, batch=b) for b in (1, 8)}
+    cost["train50_b8"] = cost_model.train_cost(n=50, batch=8)
+    sol = {k: cost_model.speed_of_light(c) for k, c in cost.items()}
+    details["tools"] = dict(run_s=run_s, profile_stages=stages, profile_quick=quick,
+                            probe_smem=smem, roofline=roof, speed_of_light=sol,
+                            printed=printed.getvalue().splitlines())
+    log("[tools] profile_stages b1, ms per step: " + json.dumps(
+        {k: round(v, 4) for k, v in stages.items()}))
+    log("[tools] profile_quick, ms per step: " + json.dumps(
+        {k: round(v, 4) for k, v in quick.items()}))
+    log(f"[tools] probe_smem: {smem}; roofline: " + json.dumps(roof))
+    log("[tools] speed of light at the H100's peaks: " + json.dumps(
+        {k: {kk: (round(vv, 4) if isinstance(vv, float) else vv) for kk, vv in v.items()}
+         for k, v in sol.items()}))
+    log(f"[tools] the entry points took {run_s:.1f} s; launches: {counts}")
+    return dict(launches=counts), rows
+
+
 def main() -> int:
     import torch
 
@@ -2386,8 +2619,13 @@ def main() -> int:
     t0 = time.perf_counter()
     runs["train50"] = train50(rng, details, timings)
     log(f"[train50] took {time.perf_counter() - t0:.1f} s")
+    # the tools' phase draws from streams of its own (numpy seed 12, card
+    # generator seeds 110-120, the tools' own seeds)
+    t0 = time.perf_counter()
+    runs["tools"], tool_rows = tools(details)
+    log(f"[tools] took {time.perf_counter() - t0:.1f} s")
 
-    # phase 8: every kernel was launched on the main path that runs it
+    # phase 9: every kernel was launched on the main path that runs it
     act_kernels = ("front_fused", "flash_attention", "decoder_head", "decoder_tail_conv",
                    "decoder_tail_trans_stats", "front_patchify")
     dense_kernels = ("encoder_stats", "stats_head", "decoder_head_v3", "flash_attention",
@@ -2397,7 +2635,10 @@ def main() -> int:
                     "vlm_episode": act_kernels + ("sam_attention",),
                     "dense100": dense_kernels, "dense100_agent": dense_kernels,
                     "dense_two_head50": dense_kernels,
-                    "stats100": ("stats_head", "flash_attention")}
+                    "stats100": ("stats_head", "flash_attention"),
+                    "tools": TOOLS_KERNELS + ("front_fused", "front_patchify", "decoder_head",
+                                              "decoder_tail_conv", "decoder_tail_trans_stats",
+                                              "flash_attention")}
     total = {k: 0 for k in kernels.LAUNCHES}
     for name, run in runs.items():
         for k in path_kernels.get(name, act_kernels):
@@ -2530,7 +2771,17 @@ def main() -> int:
               max_abs_err=largest_err(key), ms=row_of(key, shape)["ms"],
               plain_ms=row_of(key, shape)["plain_ms"], bound_ms=row_of(key, shape)["bound_ms"],
               bound_by=row_of(key, shape)["bound_by"], library_ms=None)
-         for key, shape, where in dense_rows]}
+         for key, shape, where in dense_rows] + [
+        # the tools' probes: P1 at d0's shape, batch 1, one row per slab; P2 at
+        # the opt-in limit; P3 at the JAX probe's shapes
+        dict(name=key, route="cuda", source="voxactb_tpu_torch/csrc/probes.cu",
+             replaces=where, launches=total[key],
+             max_abs_err=max(r["max_abs_err"] for r in details[key]),
+             **{k: tool_rows[key][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms", "device_ms")})
+        for key, where in (("grid_copy", "tools/profile_stages.py:211"),
+                           ("smem_scratch", "tools/probe_vmem.py:13"),
+                           ("shifted_window", "tools/probe_vmem.py:36"))]}
     # K5's launches (the voxel pass, its combine) beside their bounds
     k5 = next(k for k in kernels_line["kernels"] if k["name"] == "encoder_stats")
     k5.update(device_ms=e100["device_ms"], launch_device_ms=e100["launch_device_ms"],

@@ -14,7 +14,9 @@ which both ``decoder_head`` and ``decoder_head_v3`` make,
 ``decoder_phase_gemm`` those of ``decoder_head_v3``'s phase GEMM
 (``csrc/phase_gemm.cuh``), and ``front_patchify`` those of the k5/s5 patchify
 (``csrc/front_patchify.cuh``), which ``front_fused`` makes and the dense
-path's ``front_patchify`` wrapper makes alone.
+path's ``front_patchify`` wrapper makes alone. ``grid_copy``, ``smem_scratch``
+and ``shifted_window`` (``probes.py``, ``csrc/probes.cu``) count the launches
+of the tools' probe kernels.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ LAUNCHES: Dict[str, int] = {"front_fused": 0, "flash_attention": 0,
                             "flash_attention_train_bwd": 0, "sam_attention": 0,
                             "encoder_stats": 0, "stats_head": 0, "decoder_head_v3": 0,
                             "decoder_tail_conv": 0, "decoder_tail_trans_stats": 0,
-                            "decoder_phase_gemm": 0, "front_patchify": 0}
+                            "decoder_phase_gemm": 0, "front_patchify": 0,
+                            "grid_copy": 0, "smem_scratch": 0, "shifted_window": 0}
 
 
 def reset_launch_counts() -> None:

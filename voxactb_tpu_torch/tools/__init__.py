@@ -1,0 +1,92 @@
+"""The port's measurement tools, counterparts of the JAX package's ``tools/``.
+
+- ``profile_stages``: per-stage latency of the act program's building blocks
+  at 100^3 (``python3 -m voxactb_tpu_torch.tools.profile_stages``);
+- ``profile_quick``: its decoder-path subset with the whole Q-forward;
+- ``probe_smem``: the shared-memory scratch a kernel can take, and the 9-tap
+  shifted-window matmul (``tools/probe_vmem.py``'s counterpart);
+- ``roofline``: the card's measured memory and bf16 matmul rates;
+- ``cost_model``: analytic FLOPs and bytes at the H100's peaks.
+
+The helpers below are what the timed tools share: inputs synthesized on the
+device from a seed, chains of steps that each read a fresh input slice and
+reduce their outputs to an f32 sum (the JAX tools' ``lax.scan``), and a
+timer that reads CUDA events on the card and the host clock elsewhere.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+
+import torch
+
+
+def device_line(dev: torch.device) -> dict:
+    """What a timed tool ran on: the card's name, or the CPU."""
+    if dev.type == "cuda":
+        return {"device": torch.cuda.get_device_name(dev), "count": torch.cuda.device_count()}
+    return {"device": "cpu"}
+
+
+def emit(record: dict) -> dict:
+    print(json.dumps(record), flush=True)
+    return record
+
+
+def device_normal(shape, seed: int, dev: torch.device, dtype=torch.bfloat16,
+                  std: float = 1.0) -> torch.Tensor:
+    """``std`` x standard normals of ``shape`` in ``dtype``, drawn on ``dev``
+    from ``torch.Generator`` seeded with ``seed``, one leading slice at a time
+    (no float32 copy of the whole tensor)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    for i in range(shape[0]):
+        out[i] = torch.randn(shape[1:], generator=g, device=dev) * std
+    return out
+
+
+def leaves(y):
+    """The tensors of a (nested) tuple, list or dict of outputs."""
+    if isinstance(y, torch.Tensor):
+        return [y]
+    if isinstance(y, dict):
+        y = list(y.values())
+    return [t for v in y if v is not None for t in leaves(v)]
+
+
+def chain(inp, fn, n_chain: int) -> torch.Tensor:
+    """``fn`` on slices 0 .. n_chain - 1 of ``inp`` (a tensor or a tuple of
+    tensors with a leading chain axis), each step's outputs reduced to an f32
+    sum; the ``[n_chain]`` sums."""
+    tots = []
+    for i in range(n_chain):
+        xs = tuple(t[i] for t in inp) if isinstance(inp, tuple) else inp[i]
+        tots.append(sum(t.sum(dtype=torch.float32) for t in leaves(fn(xs))))
+    return torch.stack(tots)
+
+
+def seconds(fn, dev: torch.device) -> float:
+    """Seconds of one call of ``fn``: between two CUDA events on the card,
+    host clock around the call elsewhere."""
+    if dev.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def warm_seconds(fn, dev: torch.device) -> float:
+    """Host seconds of a first (warming) call, to its end on the device:
+    kernel builds, library plans and allocations included."""
+    t0 = time.perf_counter()
+    fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0
