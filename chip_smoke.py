@@ -2339,12 +2339,15 @@ TOOLS_KERNELS = ("grid_copy", "smem_scratch", "shifted_window")
 def check_grid_copy(details):
     """P1 at d0's shape, seeded on the card (generator seeds 110 + batch):
     the copy bit-equal to x and over two launches; the kernel launched on all
-    but the last slab into a NaN-filled output must fail that check, and
-    differ in exactly the last slab. Wrapper-call and device ms beside the
-    bytes bound (x read once, the copy written once) and ``copy_``'s."""
+    but the last slab, and on one CTA fewer than its plan (its chunks dealt
+    out as before), each into a NaN-filled output, must fail that check and
+    differ in exactly the last slab, or exactly the missing CTA's chunks.
+    Wrapper-call and device ms beside the bytes bound (x read once, the copy
+    written once) and ``copy_``'s."""
     import torch
+    from voxactb_tpu_torch.ops.cuda.build import sm_count
     from voxactb_tpu_torch.ops.cuda.probes import (
-        grid_copy, grid_copy_reference, launch_grid_copy)
+        grid_copy, grid_copy_chunks, grid_copy_reference, launch_grid_copy)
 
     dev = torch.device(DEVICE)
     bits = lambda t: t.view(torch.int16)  # noqa: E731
@@ -2368,9 +2371,25 @@ def check_grid_copy(details):
         expect(torch.equal(bits(fault).view(-1)[:-slab], bits(x).view(-1)[:-slab])
                and bool(torch.isnan(fault.view(-1)[-slab:]).all()),
                f"grid_copy {tag}: the copy without its last slab differs elsewhere")
+        # one CTA short: the chunks dealt to the last CTA stay NaN
+        chunks = grid_copy_chunks(batch * n // rows, slab * 2, sm_count(dev))
+        fault.fill_(float("nan"))
+        launch_grid_copy(x, fault, rows, grid=len(chunks) - 1)
+        torch.cuda.synchronize()
+        missed = torch.zeros(x.numel(), dtype=torch.bool, device=dev)
+        for start, size in chunks[-1]:
+            missed[start // 2:(start + size) // 2] = True
+        flat, xf = fault.view(-1), x.view(-1)
+        expect(not torch.equal(bits(fault), bits(x)),
+               f"grid_copy {tag}: the copy without CTA {len(chunks) - 1} passed the check")
+        expect(torch.equal(bits(flat[~missed]), bits(xf[~missed]))
+               and bool(torch.isnan(flat[missed]).all()),
+               f"grid_copy {tag}: the copy without CTA {len(chunks) - 1} differs elsewhere "
+               f"than in its {len(chunks[-1])} chunks")
         lib_out = torch.empty_like(x)
         bound, by = bound_ms(2 * x.numel() * x.element_size(), 0)
         rec = dict(shape=tag, max_abs_err=max_err(out, x), bound_ms=bound, bound_by=by,
+                   ctas=len(chunks), chunks=sum(map(len, chunks)),
                    ms=time_ms(lambda: grid_copy(x, rows)),
                    device_ms=device_ms(lambda: grid_copy(x, rows), "probe_grid_copy"),
                    plain_ms=time_ms(lambda: grid_copy_reference(x, rows)),
@@ -2378,10 +2397,11 @@ def check_grid_copy(details):
                    library_device_ms=device_ms(lambda: lib_out.copy_(x), None))
         rows_out.append(rec)
         log(f"[tools] grid_copy {tag}: bit-equal, two launches bit-equal, the planted "
-            f"last-slab fault caught; {rec['ms']:.4f} ms, device {rec['device_ms']:.4f} "
+            f"last-slab and missing-CTA faults caught ({len(chunks)} CTAs, "
+            f"{rec['chunks']} chunks); {rec['ms']:.4f} ms, device {rec['device_ms']:.4f} "
             f"(bound {bound:.4f}, {by}); plain {rec['plain_ms']:.4f}; copy_ "
             f"{rec['library_ms']:.4f}, device {rec['library_device_ms']:.4f}")
-        del x, out, again, fault, lib_out
+        del x, out, again, fault, lib_out, missed, flat, xf
     torch.cuda.empty_cache()
     details["grid_copy"] = rows_out
     return rows_out[0]
@@ -2426,7 +2446,7 @@ def check_smem_scratch(details):
                ms=time_ms(lambda: smem_scratch(x, SMEM_OPTIN)),
                device_ms=device_ms(lambda: smem_scratch(x, SMEM_OPTIN), "probe_smem_scratch"),
                plain_ms=time_ms(lambda: smem_scratch_reference(x, SMEM_OPTIN)),
-               library_ms=None)
+               library_ms=None, library_device_ms=None)
     details["smem_scratch"] = [rec]
     log(f"[tools] smem_scratch: opt-in limit {optin} bytes; launches at it, refused at "
         f"{SMEM_OPTIN + SCRATCH_ROW_BYTES} ({refused}); {rec['ms']:.4f} ms, device "
@@ -2434,53 +2454,78 @@ def check_smem_scratch(details):
     return rec
 
 
+# (x's [H+2, W+2], numpy seed): the JAX probe's shapes, then a ragged grid
+# (H = 37, W = 69) that is a multiple of neither side of a CTA's band
+SHIFTED_WINDOW_CASES = (((102, 102), 12), ((39, 71), 13))
+
+
 def check_shifted_window(details):
     """P3 at the JAX probe's shapes (x [102,102,128], w [9,128,64] bf16 from
-    ``np.random.default_rng(12)``): within 2^-7 of the plain version's largest
-    |output|, two launches bit-equal; weights with dy and dx swapped must
-    fail. Beside cuDNN's bf16 conv2d of the same input, channels last, to 64
-    channels (it writes bf16, not f32)."""
+    ``np.random.default_rng(12)``) and on a ragged x [39,71,128] (from
+    ``np.random.default_rng(13)``): within 2^-7 of the plain version's
+    largest |output|, two launches bit-equal; weights with dy and dx swapped,
+    and the kernel with its second warpgroup gathering the first tile's
+    pixels (``wg_row_offset=0``), must fail. At the probe's shapes, beside
+    cuDNN's bf16 conv2d of the same input, channels last, to 64 channels (it
+    writes bf16, not f32)."""
     import torch
     import torch.nn.functional as F
-    from voxactb_tpu_torch.ops.cuda.probes import shifted_window, shifted_window_reference
+    from voxactb_tpu_torch.ops.cuda.probes import (
+        launch_shifted_window, shifted_window, shifted_window_reference)
 
     dev = torch.device(DEVICE)
-    rng = np.random.default_rng(12)
-    x = torch.tensor(rng.normal(size=(102, 102, 128)).astype(np.float32)).to(dev, torch.bfloat16)
-    w = torch.tensor(rng.normal(size=(9, 128, 64)).astype(np.float32) * 0.1).to(
-        dev, torch.bfloat16)
-    got = shifted_window(x, w)
-    again = shifted_window(x, w)
-    ref = shifted_window_reference(x, w)
-    torch.cuda.synchronize()
-    tol = 2.0 ** -7 * float(ref.abs().max())
-    e = max_err(got, ref)
-    expect(e <= tol, f"shifted_window err {e} > {tol}")
-    expect(torch.equal(got, again), "shifted_window: two launches differ")
-    swapped = w.reshape(3, 3, 128, 64).transpose(0, 1).reshape(9, 128, 64).contiguous()
-    e_fault = max_err(shifted_window(x, swapped), ref)
-    expect(e_fault > tol, f"shifted_window with dy and dx swapped passed ({e_fault} <= {tol})")
-    xc = x.permute(2, 0, 1)[None]  # [1, 128, 102, 102], channels last
-    wc = w.reshape(3, 3, 128, 64).permute(3, 2, 0, 1).contiguous(
-        memory_format=torch.channels_last)
-    conv = lambda: F.conv2d(xc, wc)  # noqa: E731
-    e_lib = max_err(conv()[0].permute(1, 2, 0), ref)
-    h = wd = 100
-    bound, by = bound_ms(x.numel() * 2 + w.numel() * 2 + h * wd * 64 * 4,
-                         2 * h * wd * 64 * 9 * 128)
-    rec = dict(shape="x [102,102,128] w [9,128,64] bf16", max_abs_err=e, tol=tol,
-               fault_err=e_fault, library_err=e_lib, bound_ms=bound, bound_by=by,
-               ms=time_ms(lambda: shifted_window(x, w)),
-               device_ms=device_ms(lambda: shifted_window(x, w), "probe_shifted_window"),
-               plain_ms=time_ms(lambda: shifted_window_reference(x, w)),
-               library_ms=time_ms(conv), library_device_ms=device_ms(conv, None),
-               library="cuDNN bf16 conv2d, channels last, bf16 output")
-    details["shifted_window"] = [rec]
-    log(f"[tools] shifted_window: err {e:.3g} (tol {tol:.3g}), two launches bit-equal, "
-        f"swapped dy/dx err {e_fault:.3g}; {rec['ms']:.4f} ms, device {rec['device_ms']:.4f} "
-        f"(bound {bound:.4f}, {by}); plain {rec['plain_ms']:.4f}; cuDNN {rec['library_ms']:.4f}, "
-        f"device {rec['library_device_ms']:.4f} (its bf16 output within {e_lib:.3g})")
-    return rec
+    recs = []
+    for (hp, wp), seed in SHIFTED_WINDOW_CASES:
+        rng = np.random.default_rng(seed)
+        x = torch.tensor(rng.normal(size=(hp, wp, 128)).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        w = torch.tensor(rng.normal(size=(9, 128, 64)).astype(np.float32) * 0.1).to(
+            dev, torch.bfloat16)
+        h, wd = hp - 2, wp - 2
+        tag = f"x [{hp},{wp},128] w [9,128,64] bf16"
+        got = shifted_window(x, w)
+        again = shifted_window(x, w)
+        ref = shifted_window_reference(x, w)
+        torch.cuda.synchronize()
+        tol = 2.0 ** -7 * float(ref.abs().max())
+        e = max_err(got, ref)
+        expect(e <= tol, f"shifted_window {tag}: err {e} > {tol}")
+        expect(torch.equal(got, again), f"shifted_window {tag}: two launches differ")
+        swapped = w.reshape(3, 3, 128, 64).transpose(0, 1).reshape(9, 128, 64).contiguous()
+        e_fault = max_err(shifted_window(x, swapped), ref)
+        expect(e_fault > tol,
+               f"shifted_window {tag} with dy and dx swapped passed ({e_fault} <= {tol})")
+        one_tile = torch.empty_like(got)
+        launch_shifted_window(x, w, one_tile, wg_row_offset=0)
+        e_tile = max_err(one_tile, ref)
+        expect(e_tile > tol, f"shifted_window {tag} with both warpgroups on the first tile "
+                             f"passed ({e_tile} <= {tol})")
+        bound, by = bound_ms(x.numel() * 2 + w.numel() * 2 + h * wd * 64 * 4,
+                             2 * h * wd * 64 * 9 * 128)
+        rec = dict(shape=tag, max_abs_err=e, tol=tol, fault_err=e_fault,
+                   one_tile_fault_err=e_tile, bound_ms=bound, bound_by=by)
+        log(f"[tools] shifted_window {tag}: err {e:.3g} (tol {tol:.3g}), two launches "
+            f"bit-equal, swapped dy/dx err {e_fault:.3g}, both warpgroups on one tile err "
+            f"{e_tile:.3g}")
+        if not recs:
+            xc = x.permute(2, 0, 1)[None]  # [1, 128, 102, 102], channels last
+            wc = w.reshape(3, 3, 128, 64).permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            conv = lambda: F.conv2d(xc, wc)  # noqa: E731
+            rec.update(library_err=max_err(conv()[0].permute(1, 2, 0), ref),
+                       ms=time_ms(lambda: shifted_window(x, w)),
+                       device_ms=device_ms(lambda: shifted_window(x, w), "probe_shifted_window"),
+                       plain_ms=time_ms(lambda: shifted_window_reference(x, w)),
+                       library_ms=time_ms(conv), library_device_ms=device_ms(conv, None),
+                       library="cuDNN bf16 conv2d, channels last, bf16 output")
+            log(f"[tools] shifted_window {tag}: {rec['ms']:.4f} ms, device "
+                f"{rec['device_ms']:.4f} (bound {bound:.4f}, {by}); plain "
+                f"{rec['plain_ms']:.4f}; cuDNN {rec['library_ms']:.4f}, device "
+                f"{rec['library_device_ms']:.4f} (its bf16 output within "
+                f"{rec['library_err']:.3g})")
+        recs.append(rec)
+    details["shifted_window"] = recs
+    return recs[0]
 
 
 def tools(details):
@@ -2778,7 +2823,8 @@ def main() -> int:
              replaces=where, launches=total[key],
              max_abs_err=max(r["max_abs_err"] for r in details[key]),
              **{k: tool_rows[key][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                "library_ms", "device_ms")})
+                                                "library_ms", "device_ms",
+                                                "library_device_ms")})
         for key, where in (("grid_copy", "tools/profile_stages.py:211"),
                            ("smem_scratch", "tools/probe_vmem.py:13"),
                            ("shifted_window", "tools/probe_vmem.py:36"))]}

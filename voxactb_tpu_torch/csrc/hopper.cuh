@@ -6,7 +6,8 @@
 // inference forward loop of attention_fwd.cuh, which the act path's attention
 // (flash_attention.cu) and SAM's rel-pos attention (sam_attention.cu)
 // instantiate, by the decoder tail's conv (tail_conv.cuh), K8's phase GEMM
-// (phase_gemm.cuh) and the front's k5/s5 patchify (front_patchify.cuh).
+// (phase_gemm.cuh), the front's k5/s5 patchify (front_patchify.cuh) and the
+// shifted-window probe (probes.cu).
 //
 // Tile layout. An operand tile holds rows of 64 bf16 (128 bytes), loaded
 // by TMA with CU_TENSOR_MAP_SWIZZLE_128B into a 1024-byte-aligned buffer:

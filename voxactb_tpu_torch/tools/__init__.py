@@ -6,7 +6,9 @@
 - ``probe_smem``: the shared-memory scratch a kernel can take, and the 9-tap
   shifted-window matmul (``tools/probe_vmem.py``'s counterpart);
 - ``roofline``: the card's measured memory and bf16 matmul rates;
-- ``cost_model``: analytic FLOPs and bytes at the H100's peaks.
+- ``cost_model``: analytic FLOPs and bytes at the H100's peaks;
+- ``probe_sweep``: variants of the copy and shifted-window probe kernels
+  (``csrc/probes.cu``) built and timed in turns on the card.
 
 The helpers below are what the timed tools share: inputs synthesized on the
 device from a seed, chains of steps that each read a fresh input slice and
