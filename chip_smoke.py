@@ -24,7 +24,10 @@ Phases:
                dense paths' five shapes and the inline-upsample tail at 50^3
                and 100^3 and with two heads, each within 2^-7 of its largest
                output, two launches bit-equal, planted faults (swapped 'xy'
-               positions, a zero-padded slab) failing; the inline-upsample
+               positions, a zero-padded slab; for the stats kernel also CTA
+               0's tiles skipped, merges without their rescale and arrival
+               counters left raised) failing, the stats kernel's device time
+               beside its bound and ``torch.amax``'s; the inline-upsample
                tail against cuDNN ``up0`` + the decoder tail; the decoder
                tail's trans/stats launch alone, a zero-ringed u failing; the
                phase GEMM's u0 within 2^-7; the front's patchify launched
@@ -72,7 +75,7 @@ Phases:
                grid copy at d0's shape (rows 1 and 4, batch 1; rows 1, batch
                8) bit-equal, a copy without its last slab failing; the scratch
                probe launching at exactly the card's opt-in shared memory and
-               refused one row past it; the 9-tap shifted window within 2^-7, a
+               refused one row past it, beside an empty launch's device time; the 9-tap shifted window within 2^-7, a
                dy/dx swap failing; each beside its bound and ``copy_`` or
                cuDNN. Then the tools' entry points on the card: the stage
                profile at 100^3 batch 1, its quick subset, the scratch and
@@ -847,11 +850,25 @@ STATS_SHAPES = (((1, 100, 64), "bfloat16"), ((1, 20, 128), "bfloat16"),
 
 def check_stats_head(rng, details):
     """K6 against its plain version on d0-like features (bf16-rounded lrelu of
-    a normal) at each of ``STATS_SHAPES``."""
+    a normal) at each of ``STATS_SHAPES``: its launch's device time beside its
+    bound, and ``torch.amax`` over the same tensor's spatial axes, a read-rate
+    yardstick that computes less (no PyTorch call computes K6's function).
+    Faults planted through the real kernel must fail: swapped 'xy' positions;
+    CTA 0's tiles skipped, on the grid with a row above every channel's max
+    put in tile 0 (CTA 0's first), where its loss shows in every channel;
+    the last CTA's merge without its rescale. Then ``check_stats_head_counter``."""
     import torch
-    from voxactb_tpu_torch.ops.cuda.stats_head import stats_head, stats_head_reference
+    from voxactb_tpu_torch.ops.cuda.stats_head import (
+        launch_stats_head, stats_head, stats_head_reference)
 
     dev = torch.device(DEVICE)
+
+    def faulty(x, fault):
+        kp = torch.full((x.shape[0], 3 * x.shape[-1]), float("nan"), device=dev)
+        gmax = torch.full((x.shape[0], x.shape[-1]), float("nan"), device=dev)
+        launch_stats_head(x, kp, gmax, fault=fault)
+        return kp, gmax
+
     rows = []
     for (b, n, c), dtype in STATS_SHAPES:
         g = torch.Generator(device="cpu").manual_seed(int(rng.integers(1 << 30)))
@@ -862,28 +879,77 @@ def check_stats_head(rng, details):
         again = stats_head(x)
         ref = stats_head_reference(x)
         kp_swapped, _ = stats_head(swapped_xy(x))
+        hot = x.clone()
+        hot[:, 0, 0, 0, :] = x.amax(dim=(1, 2, 3)) + 1
+        ref_hot = stats_head_reference(hot)
+        planted = dict(xy_swapped=(kp_swapped, ref[0]),
+                       skip_cta=(faulty(hot, "skip_cta")[0], ref_hot[0]),
+                       no_rescale=(faulty(x, "no_rescale")[0], ref[0]))
         torch.cuda.synchronize()
         errs = hold("stats_head", tag, ("kp", "gmax"), got, ref, again)
-        planted = max_err(kp_swapped, ref[0])
-        expect(planted > errs["kp"]["tol"],
-               f"stats_head {tag}: swapped xy positions erred by {planted} only")
+        hold("stats_head", tag + " hot row", ("kp", "gmax"), stats_head(hot), ref_hot,
+             stats_head(hot))
+        planted = {k: max_err(*v) for k, v in planted.items()}
+        for k, v in planted.items():  # NaN (outputs left unwritten) fails too
+            expect(not v <= errs["kp"]["tol"], f"stats_head {tag}: planted {k} erred by {v} only")
         ms = time_ms(lambda: stats_head(x))
         plain = time_ms(lambda: stats_head_reference(x), reps=5)
+        dev_ms = device_ms(lambda: stats_head(x), "stats_head_kernel")
+        amax = lambda: torch.amax(x, dim=(1, 2, 3))  # noqa: E731
+        amax_ms, amax_dev = time_ms(amax), device_ms(amax, None)
         # x read once, kp and gmax written; ~10 f32 operations per element
         bms, by = bound_ms(x.numel() * x.element_size() + b * 4 * 4 * c, 0.0,
                            f32_ops=10.0 * x.numel())
         row = dict(shape=tag, max_abs_err=errs["kp"]["max_abs_err"], errs=errs,
-                   planted_xy_swapped_kp_err=planted, ms=ms, plain_ms=plain, bound_ms=bms,
-                   bound_by=by, library_ms=None)
+                   planted_kp_err=planted, ms=ms, plain_ms=plain, bound_ms=bms,
+                   bound_by=by, library_ms=None, device_ms=dev_ms,
+                   launch_device_ms={"stats_head_kernel": dev_ms},
+                   launch_bound_ms={"stats_head_kernel": bms},
+                   launch_bound_by={"stats_head_kernel": by},
+                   amax_ms=amax_ms, amax_device_ms=amax_dev)
         rows.append(row)
         log(f"[kernels] stats_head {tag}: " + ", ".join(
             f"{k} err {v['max_abs_err']:.3g} (tol {v['tol']:.3g})" for k, v in errs.items())
-            + f"; two launches bit-equal; planted xy swap kp err {planted:.3g}; {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by})")
-        del x, got, again, ref, kp_swapped
+            + "; two launches bit-equal; planted faults' kp err " + ", ".join(
+                f"{k} {v:.3g}" for k, v in planted.items())
+            + f"; {ms:.4f} ms, device {dev_ms:.4f} (bound {bms:.4f}, {by}), plain "
+            f"{plain:.4f} ms; torch.amax (less work) {amax_ms:.4f} ms, device {amax_dev:.4f}")
+        del x, hot, got, again, ref, ref_hot, kp_swapped
     torch.cuda.empty_cache()
     details["stats_head"] = rows
+    details["stats_head_counter"] = check_stats_head_counter(faulty)
     return rows
+
+
+def check_stats_head_counter(faulty):
+    """K6's arrival counters are set back to 0 by every launch: a launch at
+    [1,10^3,192] right after one at [8,20^3,128] (which shares the counters)
+    gives the bits of a fresh launch, into outputs filled with NaN
+    beforehand; with the planted fault that leaves the counters raised (both
+    launches in the faulted launches' own workspace) it does not. Inputs from
+    ``torch.Generator(device="cuda")`` seed 130."""
+    import torch
+    from voxactb_tpu_torch.ops.cuda.stats_head import reset_workspace, stats_head
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(130)
+    big = torch.randn(8, 20, 20, 20, 128, generator=g, device=dev).to(torch.bfloat16)
+    small = torch.randn(1, 10, 10, 10, 192, generator=g, device=dev).to(torch.bfloat16)
+    reset_workspace()
+    fresh = stats_head(small)
+    runs = {}
+    for fault in (None, "stale_counter"):
+        faulty(big, fault)
+        after = faulty(small, fault)
+        torch.cuda.synchronize()
+        runs[fault or "none"] = all(torch.equal(a, f) for a, f in zip(after, fresh))
+        reset_workspace()
+    expect(runs["none"], "stats_head: a launch after another shape differs from a fresh one")
+    expect(not runs["stale_counter"],
+           "stats_head: the planted stale counter left the next launch bit-equal")
+    log("[kernels] stats_head counters: [1,10^3,192] after [8,20^3,128] bit-equal to a fresh "
+        "launch; with the planted stale counter it is not")
+    return runs
 
 
 def check_decoder_v3(model, d0, rng, details, heads=1):
@@ -2412,10 +2478,10 @@ def check_smem_scratch(details):
     runtime's query and torch's; the scratch kernel launches at one row, 48
     KB and exactly that limit, with row 0 exact, and is refused one 512-byte
     row past it (the check itself, not a fallback), after which it launches
-    again."""
+    again. Its device time beside an empty 128-thread launch's, its floor."""
     import torch
     from voxactb_tpu_torch.ops.cuda.probes import (
-        SCRATCH_ROW_BYTES, smem_optin, smem_scratch, smem_scratch_reference)
+        SCRATCH_ROW_BYTES, empty_launch, smem_optin, smem_scratch, smem_scratch_reference)
 
     dev = torch.device(DEVICE)
     optin = smem_optin(dev)
@@ -2446,11 +2512,13 @@ def check_smem_scratch(details):
                ms=time_ms(lambda: smem_scratch(x, SMEM_OPTIN)),
                device_ms=device_ms(lambda: smem_scratch(x, SMEM_OPTIN), "probe_smem_scratch"),
                plain_ms=time_ms(lambda: smem_scratch_reference(x, SMEM_OPTIN)),
-               library_ms=None, library_device_ms=None)
+               library_ms=None, library_device_ms=None,
+               launch_floor_device_ms=device_ms(lambda: empty_launch(dev), "probe_empty"))
     details["smem_scratch"] = [rec]
     log(f"[tools] smem_scratch: opt-in limit {optin} bytes; launches at it, refused at "
         f"{SMEM_OPTIN + SCRATCH_ROW_BYTES} ({refused}); {rec['ms']:.4f} ms, device "
-        f"{rec['device_ms']:.4f}; plain {rec['plain_ms']:.4f}")
+        f"{rec['device_ms']:.4f} (an empty 128-thread launch {rec['launch_floor_device_ms']:.4f})"
+        f"; plain {rec['plain_ms']:.4f}")
     return rec
 
 
@@ -2832,6 +2900,14 @@ def main() -> int:
     k5 = next(k for k in kernels_line["kernels"] if k["name"] == "encoder_stats")
     k5.update(device_ms=e100["device_ms"], launch_device_ms=e100["launch_device_ms"],
               launch_bound_ms=e100["launch_bound_ms"], launch_bound_by=e100["launch_bound_by"])
+    # P2 beside the floor of its launch
+    next(k for k in kernels_line["kernels"] if k["name"] == "smem_scratch").update(
+        launch_floor_device_ms=tool_rows["smem_scratch"]["launch_floor_device_ms"])
+    # K6's one launch on the decoder grid, and torch.amax of it (less work)
+    k6 = next(k for k in kernels_line["kernels"] if k["name"] == "stats_head")
+    s20 = row_of("stats_head", "[1,20^3,128] bfloat16")
+    k6.update({key: s20[key] for key in ("device_ms", "launch_device_ms", "launch_bound_ms",
+                                         "launch_bound_by", "amax_ms", "amax_device_ms")})
     details["timings"] = timings
     details["runs"] = runs
     details["card"] = card

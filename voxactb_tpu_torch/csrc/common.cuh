@@ -7,7 +7,9 @@
 // partial (max, sum e, three weighted sums) per channel and `stats_combine`
 // merges the partials, so the result differs from the TPU's only by f32
 // summation order. The fronts' voxel pass (voxel_pass.cuh) and the decoder
-// tail's trans/stats pass (decoder_tail.cuh) write such partials.
+// tail's trans/stats pass (decoder_tail.cuh) write such partials. The folds
+// by tiles (the voxel pass, the decoder tail, stats_head.cu) take the ex2
+// form below: one ex2 an element, where stat_corr takes an expf.
 
 #pragma once
 
@@ -15,6 +17,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace vx {
 
@@ -54,6 +58,39 @@ __device__ __forceinline__ float stat_corr(float m_old, float m_new) {
 __device__ __forceinline__ void stat_merge(Stat& a, const Stat& b) {
   float m = fmaxf(a.m, b.m);
   float ca = stat_corr(a.m, m), cb = stat_corr(b.m, m);
+  a.s = a.s * ca + b.s * cb;
+  a.wx = a.wx * ca + b.wx * cb;
+  a.wd = a.wd * ca + b.wd * cb;
+  a.wz = a.wz * ca + b.wz * cb;
+  a.m = m;
+}
+
+// The ex2 form: with k = log2(e) / T, a weight exp((x - m) / T) is
+// 2^(x k - m k), so a fold keeps its running max as m k and takes one ex2 an
+// element.
+constexpr float kExp2Scale = kInvTemperature * hopper::kLog2e;
+
+// Sums taken against the running max mk (times k) raised to nk where that is
+// larger: times 2^(mk - nk), 0 from mk = -inf (the first tile).
+__device__ __forceinline__ void stat_raise(float nk, float& mk, float& s, float& wx, float& wd,
+                                           float& wz) {
+  if (nk > mk) {
+    const float c = hopper::exp2_approx(mk - nk);
+    s *= c;
+    wx *= c;
+    wd *= c;
+    wz *= c;
+    mk = nk;
+  }
+}
+
+// stat_merge in the ex2 form: each side's sums rescaled to the larger max M
+// by 2^(m k - M k), 1 on the side that holds it (on both with rescale false,
+// a fault that stats_head.cu plants).
+__device__ __forceinline__ void stat_merge_ex2(Stat& a, const Stat& b, bool rescale = true) {
+  const float m = fmaxf(a.m, b.m), mk = m * kExp2Scale;
+  const float ca = !rescale || a.m == m ? 1.f : hopper::exp2_approx(a.m * kExp2Scale - mk);
+  const float cb = !rescale || b.m == m ? 1.f : hopper::exp2_approx(b.m * kExp2Scale - mk);
   a.s = a.s * ca + b.s * cb;
   a.wx = a.wx * ca + b.wx * cb;
   a.wd = a.wd * ca + b.wd * cb;

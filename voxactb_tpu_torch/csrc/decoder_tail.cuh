@@ -212,8 +212,7 @@ tail_trans_stats(const bf16* __restrict__ u, const bf16* __restrict__ wt,
           if (yy < ny && xx < nx) mx = __hmax2(mx, raw[yy][xx]);
       const float m0 = __low2float(mx), m1 = __high2float(mx);
       // exp((u - m) / T) = 2^(u k - m k), k = log2(e) / T
-      constexpr float k2e = kInvTemperature * kLog2e;
-      const float o0 = m0 * k2e, o1 = m1 * k2e;
+      const float o0 = m0 * kExp2Scale, o1 = m1 * kExp2Scale;
       Stat s0, s1;  // position sums: wx by lin[y], wd by lin[z], wz by lin[x]
       s0.m = m0;
       s1.m = m1;
@@ -227,8 +226,8 @@ tail_trans_stats(const bf16* __restrict__ u, const bf16* __restrict__ wt,
           if (xx < nx) {
             const float px = lin[br.x0 + xx];
             const float2 f = __bfloat1622float2(raw[yy][xx]);
-            const float e0 = exp2_approx(fmaf(f.x, k2e, -o0));
-            const float e1 = exp2_approx(fmaf(f.y, k2e, -o1));
+            const float e0 = exp2_approx(fmaf(f.x, kExp2Scale, -o0));
+            const float e1 = exp2_approx(fmaf(f.y, kExp2Scale, -o1));
             r0 += e0;
             r1 += e1;
             q0 += e0 * px;

@@ -13,7 +13,8 @@
 // What bounds each on an H100:
 //  - grid_copy: bytes. d0 at 100^3 (128 MB) is read and written once, 256 MB
 //    at 3.35 TB/s, 0.076 ms; larger than the 50 MB L2.
-//  - smem_scratch: a launch; it moves 1 KB.
+//  - smem_scratch: a launch; it moves 1 KB. probe_empty, the same launch
+//    with no work, is its floor.
 //  - shifted_window: at H = W = 100, 1.47 GFLOP (0.0015 ms at 989 TFLOP/s)
 //    and 5.4 MB (0.0016 ms), all of which fit in the L2, so neither is a
 //    floor: what a CTA waits for is its weights' and halo's trip from the L2
@@ -162,6 +163,10 @@ __global__ void __launch_bounds__(kScratchCols) probe_smem_scratch(const float* 
   out[c] = scratch[c];
 }
 
+// The same launch with nothing in it: the floor of a 128-thread launch, which
+// smem_scratch's device time is held against.
+__global__ void __launch_bounds__(kScratchCols) probe_empty() {}
+
 // -- shifted_window ----------------------------------------------------------
 
 constexpr int kSwC = 128;                      // input channels (K per tap)
@@ -299,6 +304,12 @@ extern "C" int voxactb_smem_scratch(const float* x, float* out, int nbytes, void
   }
   if (err != cudaSuccess) (void)cudaGetLastError();
   return (int)err;
+}
+
+// One empty 128-thread launch (probe_empty).
+extern "C" int voxactb_empty_launch(void* stream_ptr) {
+  probe_empty<<<1, kScratchCols, 0, static_cast<cudaStream_t>(stream_ptr)>>>();
+  return (int)cudaGetLastError();
 }
 
 // The card's shared memory per block with the opt-in (the ceiling the scratch

@@ -62,7 +62,6 @@ constexpr int kWarps = kThreads / 32;
 static_assert(kThreads == 2 * kTile, "rows on threads 0-63, positions on 64-127");
 constexpr int kRow = 16;        // floats per staged row: values 0-9, positions 12-14
 constexpr int kPos = 12;
-constexpr float kExp2Scale = kInvTemperature * hopper::kLog2e;
 constexpr int kCtasPerSm = 2;   // resident CTAs per SM (read by voxel_pass_grid)
 
 constexpr int kRowBufs = 3;    // a tile's rows stay until the tile after next
@@ -243,15 +242,7 @@ __device__ __forceinline__ void voxel_pass(Src& src, Smem& sh, const bf16* __res
     for (int j = 0; j < 8; ++j) {
       // where the tile raises the running max, the sums rescaled to it by
       // exp((m - mt) / T) = 2^(m k - mt k): 0 on the first tile (m k = -inf)
-      const float mnk = mt[j] * kExp2Scale;
-      if (mnk > mk[j]) {
-        const float corr = hopper::exp2_approx(mk[j] - mnk);
-        s[j] *= corr;
-        wx[j] *= corr;
-        wd[j] *= corr;
-        wz[j] *= corr;
-        mk[j] = mnk;
-      }
+      stat_raise(mt[j] * kExp2Scale, mk[j], s[j], wx[j], wd[j], wz[j]);
     }
     if (vr == 0) {
 #pragma unroll

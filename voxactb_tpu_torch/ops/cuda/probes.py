@@ -218,6 +218,17 @@ def smem_scratch(x: torch.Tensor, nbytes: int) -> torch.Tensor:
     return out
 
 
+def empty_launch(device) -> None:
+    """One launch of an empty 128-thread kernel on ``device``: the floor
+    that ``smem_scratch``'s device time is held against. Counted nowhere:
+    it is a yardstick, on no path."""
+    from voxactb_tpu_torch.ops.cuda.build import entry
+
+    dev = torch.device(device)
+    lib, fn = entry("probes", "voxactb_empty_launch", [ctypes.c_void_p])
+    check(lib, "probes", fn(stream_ptr(dev)))
+
+
 def smem_optin(device) -> int:
     """The card's shared memory per block with the opt-in, from the CUDA
     runtime's attribute query: the largest scratch ``smem_scratch`` takes."""
