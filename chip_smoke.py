@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's act paths (fused front and dense grid), its
-VLM crop path, its BC train step and its measurement tools on one NVIDIA H100
-and check them.
+VLM crop path, its BC train step, its measurement tools and its train and eval
+CLIs on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py
 
@@ -81,7 +81,20 @@ Phases:
                profile at 100^3 batch 1, its quick subset, the scratch and
                shifted-window probe, the roofline probes and the cost model at
                the H100's peaks.
-  9. report  - every kernel's launch count rose during its main-path run;
+  9. protocol - the CLIs end to end at VoxAct-B's operating point: two live
+               sim demos of open_jar (three 128^2 cameras), ``cli.train`` of
+               the acting (dominant) and the stabilizing (assistive) policy
+               at full width on the 50^3 crop (bf16, kernel flags on, arm
+               loss, SE(3) augmentation, batch 8, 6 steps, checkpoints at 0,
+               3 and 5), then ``cli.eval``'s dual-policy rollout of the
+               acting policy's checkpoints with the stabilizing policy's last
+               (2 episodes of up to 25 steps each): losses finite, files
+               written, language non-zero, one CSV row per checkpoint with a
+               finite return, stabilizing acts on even steps and acting on
+               odd ones, every act inside its episode's crop bounds;
+               ``PrefetchIterator`` bit-equal to its host batches with a
+               busy consumer and with a slow worker.
+ 10. report  - every kernel's launch count rose during its main-path run;
                one ``{"kernels": [...]}`` line.
 Then the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -1444,18 +1457,22 @@ def path_outputs(cfg, model, inputs, bounds):
 
 
 @contextlib.contextmanager
+def wrapped(owner, attr, wrap):
+    """Replace ``owner.attr`` by ``wrap(original)`` for the block."""
+    orig = getattr(owner, attr)
+    setattr(owner, attr, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(owner, attr, orig)
+
+
 def planted(module, attr, wrap):
     """Replace a kernel wrapper by ``wrap(wrapper)`` for the block (the port
     looks its wrappers up at call time)."""
     import importlib
 
-    mod = importlib.import_module(module)
-    orig = getattr(mod, attr)
-    setattr(mod, attr, wrap(orig))
-    try:
-        yield
-    finally:
-        setattr(mod, attr, orig)
+    return wrapped(importlib.import_module(module), attr, wrap)
 
 
 def swapped_decoder_taps(decoder_head):
@@ -2650,6 +2667,280 @@ def tools(details):
     return dict(launches=counts), rows
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the protocol, through the CLIs (sim demos -> replay -> cli.train ->
+# cli.eval's dual-policy rollout on the sim)
+# ---------------------------------------------------------------------------
+
+PROTOCOL_TASK = "open_jar"
+PROTOCOL_CAMERAS = ["front", "wrist", "wrist2"]
+PREFETCH_BATCHES = 6
+
+
+def protocol_overrides(which_arm, log_dir):
+    """VoxAct-B's operating point through ``cli.train``: two live sim demos,
+    three 128^2 cameras, the 50^3 crop, full widths, bf16, the kernel flags
+    that ``bench.py`` runs, the arm loss, SE(3) augmentation, batch 8."""
+    return [f"rlbench.task_name={PROTOCOL_TASK}", f"rlbench.tasks=['{PROTOCOL_TASK}']",
+            "rlbench.demo_path=sim", "rlbench.demos=2",
+            f"rlbench.cameras={PROTOCOL_CAMERAS}", f"rlbench.camera_resolution=[{IMG},{IMG}]",
+            "rlbench.episode_length=25", "method.voxel_sizes=[50]",
+            "method.crop_target_obj_voxel=True", "method.crop_radius=0.3",
+            "method.compute_dtype=bfloat16", "method.pallas_front=True",
+            "method.pallas_attention=True", "method.pallas_decoder=True",
+            "method.pallas_attention_train=True", "method.arm_pred_loss=True",
+            "method.apply_se3=True", f"method.which_arm={which_arm}",
+            "replay.batch_size=8", "framework.training_iterations=6",
+            "framework.save_freq=3", "framework.log_freq=1",
+            "framework.tensorboard_logging=False", f"log_dir={log_dir}"]
+
+
+def check_prefetch(details):
+    """``PrefetchIterator`` on the card against the host batches it was given,
+    bit for bit and in order, in both orders: a consumer whose stream is
+    busy while the worker runs ahead, and a worker slower than the consumer.
+    Each batch is summed on the consumer's stream right after ``next``."""
+    import itertools
+
+    import torch
+    from voxactb_tpu_torch.replay.dataset import PrefetchIterator, _host_tensor
+
+    expect(_host_tensor(np.zeros(3, np.float32), True).is_pinned(),
+           "prefetch: the staging tensor is not pinned")
+    rows = {}
+    for order in ("consumer_busy", "worker_slow"):
+        counter = itertools.count()
+        sent = []
+
+        def sample():
+            r = np.random.default_rng(200 + next(counter))
+            batch = {"rgb": r.integers(0, 255, (8, 3, IMG, IMG, 3)).astype(np.uint8),
+                     "pcd": r.uniform(-1, 1, (8, 3, IMG, IMG, 3)).astype(np.float32),
+                     "idx": r.integers(0, 50, (8, 3)).astype(np.int32)}
+            sent.append({k: v.copy() for k, v in batch.items()})
+            if order == "worker_slow":
+                time.sleep(0.05)
+            return batch
+
+        it = PrefetchIterator(sample, device=DEVICE)
+        try:
+            sums, got = [], []
+            for _ in range(PREFETCH_BATCHES):
+                if order == "consumer_busy":
+                    torch.cuda._sleep(20_000_000)  # about 10 ms of a busy stream
+                b = next(it)
+                sums.append(b["pcd"].double().sum())
+                got.append({k: v.cpu().numpy() for k, v in b.items()})
+        finally:
+            it.close()
+        for i, g in enumerate(got):
+            expect(all(np.array_equal(g[k], sent[i][k]) for k in g),
+                   f"prefetch {order}: batch {i} differs from the host batch")
+            pcd = sent[i]["pcd"].astype(np.float64)
+            expect(abs(float(sums[i]) - pcd.sum()) <= 1e-9 * np.abs(pcd).sum(),
+                   f"prefetch {order}: the consumer's sum of batch {i} read other data")
+        rows[order] = dict(batches=PREFETCH_BATCHES)
+    details["prefetch"] = rows
+    log(f"[protocol] PrefetchIterator: {PREFETCH_BATCHES} batches bit-equal to the host "
+        "batches, in order, with a busy consumer and with a slow worker")
+
+
+def protocol(details, timings):
+    """Train the acting (dominant) and the stabilizing (assistive) policy
+    through ``cli.train`` from two live sim demos each, then score the acting
+    policy's checkpoints through ``cli.eval``'s dual-policy rollout with the
+    stabilizing policy's last checkpoint."""
+    import csv
+    import importlib
+    import shutil
+
+    import torch
+    from voxactb_tpu_torch.agents.qattention_agent import QAttentionBCAgent
+    from voxactb_tpu_torch.cli import eval as eval_cli
+    from voxactb_tpu_torch.cli import train as train_cli
+    from voxactb_tpu_torch.ops import cuda as kernels
+    from voxactb_tpu_torch.ops.geometry import scene_bounds_from_crop
+    from voxactb_tpu_torch.sim.environment import BimanualTaskEnvironment
+
+    # the module, not the function that ``voxactb_tpu_torch.data`` exports
+    fill_replay = importlib.import_module("voxactb_tpu_torch.data.fill_replay")
+    t_phase = time.perf_counter()
+    check_prefetch(details)
+    root = os.path.join(HERE, "build", "protocol")
+    shutil.rmtree(root, ignore_errors=True)
+    demo_s, fill_s, replays, updates, losses = [], [], [], [], []
+    acts, sim_s, crops = [], [], []
+    # host seconds of the agents' builds, checkpoint saves and loads
+    host_s = {"build": [], "save": [], "load": []}
+    role = {}  # id(agent) -> "acting" | "stabilizing", from what it loaded
+
+    def timed(sink):
+        def wrap(fn):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                sink.append(time.perf_counter() - t0)
+                return out
+            return call
+        return wrap
+
+    def keep_replay(fn):
+        def call(cfg, *a, **kw):
+            replay, agent = fn(cfg, *a, **kw)
+            replays.append(replay)
+            return replay, agent
+        return call
+
+    def synced_update(fn):
+        def call(self, step, sample):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, step, sample)
+            losses.append(float(out["total_loss"]))  # syncs
+            updates.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    def tag(name):
+        """Name an agent by what it loaded, after the load: ``load_weights``
+        (a checkpoint step, the acting policy) calls ``load_weight`` (a file,
+        the stabilizing policy's ``left_arm_ckpt``) inside it."""
+        def wrap(fn):
+            def call(self, *a, **kw):
+                out = fn(self, *a, **kw)
+                role[id(self)] = name
+                return out
+            return call
+        return wrap
+
+    def logged_act(fn):
+        def call(self, step, observation, **kw):
+            t0 = time.perf_counter()
+            out = fn(self, step, observation, **kw)
+            acts.append(dict(agent=id(self), step=step, ms=(time.perf_counter() - t0) * 1e3,
+                             bounds=kw.get("new_scene_bounds"),
+                             dual=kw.get("dominant_assitive_policy")))
+            return out
+        return call
+
+    def logged_crop(fn):
+        def call(self):
+            out = fn(self)
+            crops.append(np.asarray(out, np.float32).copy())
+            return out
+        return call
+
+    # 1. cli.train, the acting and the stabilizing policy
+    seed_dirs = {}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(wrapped(BimanualTaskEnvironment, "get_demo", timed(demo_s)))
+        stack.enter_context(wrapped(fill_replay, "fill_multi_task_replay", timed(fill_s)))
+        stack.enter_context(wrapped(train_cli, "build_replay_and_agent", keep_replay))
+        stack.enter_context(wrapped(QAttentionBCAgent, "update", synced_update))
+        stack.enter_context(wrapped(QAttentionBCAgent, "build", timed(host_s["build"])))
+        stack.enter_context(wrapped(QAttentionBCAgent, "save_weights",
+                                    timed(host_s["save"])))
+        for which in ("dominant", "assistive"):
+            seed_dirs[which] = train_cli.main(
+                protocol_overrides(which, os.path.join(root, which)), device=DEVICE)
+    torch.cuda.synchronize()
+    train_counts = kernels.launch_counts()
+    train_s = time.perf_counter() - t0
+    expect(len(losses) == 12 and all(np.isfinite(losses)), f"protocol: train losses {losses}")
+    for which, d in seed_dirs.items():
+        for f in ("config.json", "train_data.csv") + tuple(
+                f"weights/{s}/QAttentionAgent_layer0.pt" for s in (0, 3, 5)):
+            expect(os.path.exists(os.path.join(d, f)), f"protocol: {which} wrote no {f}")
+    for which, replay in zip(seed_dirs, replays):
+        emb = replay.sample_transition_batch(8)["lang_goal_emb"]
+        expect(bool(np.abs(emb).max() > 0), f"protocol: {which} replay's lang_goal_emb is 0")
+    step_ms = statistics.median(updates[1:6] + updates[7:])  # the first builds the state
+
+    # 2. cli.eval on the acting policy's seed dir, the stabilizing one's last .pt
+    left_ckpt = os.path.join(seed_dirs["assistive"], "weights", "5",
+                             "QAttentionAgent_layer0.pt")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(wrapped(QAttentionBCAgent, "act", logged_act))
+        stack.enter_context(wrapped(QAttentionBCAgent, "load_weights", tag("acting")))
+        stack.enter_context(wrapped(QAttentionBCAgent, "load_weight", tag("stabilizing")))
+        stack.enter_context(wrapped(QAttentionBCAgent, "load_weight", timed(host_s["load"])))
+        stack.enter_context(wrapped(QAttentionBCAgent, "build", timed(host_s["build"])))
+        stack.enter_context(wrapped(BimanualTaskEnvironment, "step", timed(sim_s)))
+        stack.enter_context(wrapped(BimanualTaskEnvironment, "target_object_world_coords",
+                                    logged_crop))
+        results = eval_cli.main([f"seed_dir={seed_dirs['dominant']}",
+                                 "framework.eval_type=missing", "framework.eval_episodes=2",
+                                 "rlbench.episode_length=25",
+                                 f"framework.left_arm_ckpt={left_ckpt}"], device=DEVICE)
+    torch.cuda.synchronize()
+    eval_counts = kernels.launch_counts()
+    eval_s = time.perf_counter() - t0
+    with open(os.path.join(seed_dirs["dominant"], "eval_data.csv")) as f:
+        rows = list(csv.DictReader(f))
+    expect([int(float(r["step"])) for r in rows] == [0, 3, 5],
+           f"protocol: eval_data.csv steps {[r.get('step') for r in rows]}")
+    expect(all(np.isfinite(float(r["eval_envs/return"])) for r in rows),
+           f"protocol: eval returns {[r.get('eval_envs/return') for r in rows]}")
+    expect(len(results) == 3, f"protocol: eval results {results}")
+    # assistive (stabilizing) acts on even steps, dominant (acting) on odd ones
+    wrong = [(a["step"], role.get(a["agent"])) for a in acts
+             if role.get(a["agent"]) != ("stabilizing" if a["step"] % 2 == 0 else "acting")
+             or not a["dual"]]
+    expect(acts and not wrong, f"protocol: acts out of turn {wrong[:5]}")
+    # every act got the crop's bounds (the crop point of its episode)
+    episodes = sum(1 for a in acts if a["step"] == 0)
+    expect(episodes == 6 and len(crops) == 6, f"protocol: {episodes} episodes, "
+           f"{len(crops)} crops")
+    ep = -1
+    for a in acts:
+        ep += a["step"] == 0
+        want = scene_bounds_from_crop(crops[ep], 0.3).tolist()
+        expect(a["bounds"] is not None and list(a["bounds"]) == want,
+               f"protocol: act {a['step']} of episode {ep} got bounds {a['bounds']}, "
+               f"not {want}")
+    wall_s = time.perf_counter() - t_phase
+    act_ms = statistics.median(a["ms"] for a in acts)
+    sim_ms = statistics.median(sim_s) * 1e3
+    ref_act = timings.get("dual50", {}).get("ms_per_act_median")
+    ref_step = timings.get("train50_b8", {}).get("ms_per_step")
+    timings["protocol"] = dict(
+        s_per_demo=statistics.mean(demo_s), demos=len(demo_s), fill_s=fill_s,
+        train_step_ms=step_ms, train_samples_per_s=8 / step_ms * 1e3,
+        train_step_walls_ms=updates, train_losses=losses, train_s=train_s,
+        ms_per_act_median=act_ms, acts=len(acts), sim_step_ms_median=sim_ms,
+        sim_steps=len(sim_s), eval_s=eval_s, eval_rows=rows, wall_s=wall_s,
+        host_s={k: sum(v) for k, v in host_s.items()},
+        host_calls={k: len(v) for k, v in host_s.items()},
+        dual50_ms_per_act=ref_act, train50_ms_per_step=ref_step)
+    log(f"[protocol] {len(demo_s)} sim demos of {PROTOCOL_TASK} at {IMG}^2 x "
+        f"{len(PROTOCOL_CAMERAS)} cameras: {statistics.mean(demo_s):.3f} s per demo; replay "
+        f"fills {', '.join(f'{x:.3f}' for x in fill_s)} s")
+    log(f"[protocol] cli.train x2 (dominant, assistive; 6 steps each, batch 8, "
+        f"{len(PROTOCOL_CAMERAS)} cameras): {step_ms:.3f} ms/step median "
+        f"({8 / step_ms * 1e3:.3f} samples/s) beside train50's direct step "
+        f"{ref_step if ref_step is None else round(ref_step, 3)} ms (2 cameras); losses "
+        f"{[round(x, 4) for x in losses]}; {train_s:.1f} s; launches: {train_counts}")
+    log(f"[protocol] cli.eval: {len(rows)} checkpoints x 2 episodes, {len(acts)} acts at "
+        f"{act_ms:.3f} ms/act median beside dual50's "
+        f"{ref_act if ref_act is None else round(ref_act, 3)}; sim step "
+        f"{sim_ms:.3f} ms median over {len(sim_s)}; returns "
+        f"{[r['eval_envs/return'] for r in rows]}; {eval_s:.1f} s; launches: {eval_counts}")
+    log(f"[protocol] the phase took {wall_s:.1f} s; of it the agents' builds "
+        f"{sum(host_s['build']):.2f} s ({len(host_s['build'])}), checkpoint saves "
+        f"{sum(host_s['save']):.2f} s ({len(host_s['save'])}), checkpoint loads "
+        f"{sum(host_s['load']):.2f} s ({len(host_s['load'])}), demos {sum(demo_s):.2f} s, "
+        f"replay fills {sum(fill_s):.2f} s, train steps {sum(updates) / 1e3:.2f} s, acts "
+        f"{sum(a['ms'] for a in acts) / 1e3:.2f} s, sim steps {sum(sim_s):.2f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return (dict(launches=train_counts, steps=len(updates)),
+            dict(launches=eval_counts, acts=len(acts)))
+
+
 def main() -> int:
     import torch
 
@@ -2737,8 +3028,9 @@ def main() -> int:
     t0 = time.perf_counter()
     runs["tools"], tool_rows = tools(details)
     log(f"[tools] took {time.perf_counter() - t0:.1f} s")
+    runs["protocol_train"], runs["protocol_eval"] = protocol(details, timings)
 
-    # phase 9: every kernel was launched on the main path that runs it
+    # phase 10: every kernel was launched on the main path that runs it
     act_kernels = ("front_fused", "flash_attention", "decoder_head", "decoder_tail_conv",
                    "decoder_tail_trans_stats", "front_patchify")
     dense_kernels = ("encoder_stats", "stats_head", "decoder_head_v3", "flash_attention",
@@ -2749,6 +3041,8 @@ def main() -> int:
                     "dense100": dense_kernels, "dense100_agent": dense_kernels,
                     "dense_two_head50": dense_kernels,
                     "stats100": ("stats_head", "flash_attention"),
+                    "protocol_train": ("flash_attention_train_fwd",
+                                       "flash_attention_train_bwd"),
                     "tools": TOOLS_KERNELS + ("front_fused", "front_patchify", "decoder_head",
                                               "decoder_tail_conv", "decoder_tail_trans_stats",
                                               "flash_attention")}

@@ -152,3 +152,60 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         make_train_step(cfg, make_optimizer(cfg), ["wrist"])
     # the caller may ask for the CPU
     QAttentionBCAgent(cfg, ["wrist"], [0, 0, 0, 1, 1, 1], device="cpu").build(training=True)
+
+
+def test_host_modules_load_no_jax():
+    """The slice's host modules (sim, replay, data, runners, CLIs) import
+    nothing of JAX or the JAX package, and a sim demo and a CPU rollout
+    step load none of it."""
+    script = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        import voxactb_tpu_torch.cli.train, voxactb_tpu_torch.cli.eval
+        import voxactb_tpu_torch.runners.rollout, voxactb_tpu_torch.runners.env_runner
+        import voxactb_tpu_torch.runners.train_runner, voxactb_tpu_torch.runners.eval_runner
+        import voxactb_tpu_torch.sim, voxactb_tpu_torch.sim.tasks
+        import voxactb_tpu_torch.sim.randomization, voxactb_tpu_torch.sim.planning
+        import voxactb_tpu_torch.replay, voxactb_tpu_torch.replay.dataset
+        import voxactb_tpu_torch.replay.prioritized
+        import voxactb_tpu_torch.data, voxactb_tpu_torch.data.rlbench_format
+        import voxactb_tpu_torch.envs.fake_env, voxactb_tpu_torch.utils.keypoints
+        import voxactb_tpu_torch.utils.loggers, voxactb_tpu_torch.utils.observation
+        from voxactb_tpu_torch.sim.environment import BimanualTaskEnvironment
+        from voxactb_tpu_torch.sim.tasks import TASK_REGISTRY
+
+        # the sim with its own (torch) language encoder
+        env = BimanualTaskEnvironment(TASK_REGISTRY["open_jar"], cameras=["wrist"],
+                                      image_size=8, episode_length=4)
+        frames, _ = env.get_demo(0)
+        obs = env.reset()
+        assert obs["lang_goal_emb"].shape == (1024,) and len(frames) > 5
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in %r)
+        print("LOADED", loaded)
+        assert not loaded, loaded
+    """ % (FORBIDDEN,))
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LOADED []" in res.stdout
+
+
+@pytest.mark.parametrize("cli", ["train", "eval"])
+def test_cli_mains_raise_without_cuda(cli, monkeypatch, tmp_path):
+    """Both entry points refuse to fall back to the CPU; ``device="cpu"``
+    is the caller's own choice."""
+    import importlib
+
+    mod = importlib.import_module(f"voxactb_tpu_torch.cli.{cli}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = [f"log_dir={tmp_path}"] if cli == "train" else [f"seed_dir={tmp_path}"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(argv)
+    # with the CPU asked for, the CLI gets past the device: train finds no
+    # demos, eval no config snapshot
+    with pytest.raises(SystemExit if cli == "train" else FileNotFoundError):
+        mod.main(argv + ["framework.tensorboard_logging=False"] if cli == "train"
+                 else argv, device="cpu")

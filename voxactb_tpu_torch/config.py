@@ -1,9 +1,11 @@
-"""Method configuration for the PyTorch/CUDA port.
+"""Typed configuration tree for the PyTorch/CUDA port.
 
-A copy of ``voxactb_tpu.config.MethodConfig`` with the same field names and
-defaults, so a config of the JAX package translates 1:1 (``MethodConfig(**
-dataclasses.asdict(jax_cfg))``). The port keeps its own copy rather than
-importing the JAX package's module.
+A copy of ``voxactb_tpu.config`` (``MethodConfig``, ``ReplayConfig``,
+``RLBenchConfig``, ``FrameworkConfig``, ``DDPConfig`` and ``Config``) with the
+same field names and defaults, so a config of the JAX package translates 1:1
+(``MethodConfig(**dataclasses.asdict(jax_cfg))``) and a ``config.json`` written
+by either package's ``cli.train`` loads in the other. The port keeps its own
+copy rather than importing the JAX package's module.
 
 The ``pallas_*`` kernel switches keep their names: in the port,
 ``pallas_front``, ``pallas_attention`` and ``pallas_decoder`` select the
@@ -13,8 +15,10 @@ the trainable attention kernel of the BC train step (``ops/cuda/``).
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import List
+from typing import Any, List, Optional, Tuple
 
 
 @dataclass
@@ -135,3 +139,141 @@ class MethodConfig:
         variant stacks BOTH arms' per-arm states (right then left)."""
         return self.low_dim_size() * (
             2 if self.variant == "one_policy_more_heads" else 1)
+
+
+@dataclass
+class ReplayConfig:
+    """conf/config.yaml replay group."""
+
+    batch_size: int = 1
+    timesteps: int = 1
+    prioritisation: bool = False
+    task_uniform: bool = True
+    use_disk: bool = False
+    path: str = "/tmp/voxactb_replay"
+    max_parallel_processes: int = 8
+
+
+@dataclass
+class RLBenchConfig:
+    """conf/config.yaml rlbench group."""
+
+    task_name: str = "open_jar"
+    tasks: List[str] = field(default_factory=lambda: ["open_jar"])
+    demo_path: str = ""
+    episode_length: int = 25
+    demos: int = 10
+    camera_resolution: List[int] = field(default_factory=lambda: [128, 128])
+    cameras: List[str] = field(default_factory=lambda: ["wrist", "wrist2"])
+    scene_bounds: List[float] = field(
+        default_factory=lambda: [-0.8, -1.0, 0.1, 1.2, 1.0, 2.1]
+    )
+    include_lang_goal_in_obs: bool = True
+    headless: bool = True
+
+
+@dataclass
+class FrameworkConfig:
+    """conf/config.yaml framework group."""
+
+    training_iterations: int = 1_000_000
+    save_freq: int = 10_000
+    log_freq: int = 100
+    start_seed: int = 0
+    seeds: int = 1
+    replay_ratio: Optional[int] = None
+    transitions_before_train: int = 200
+    tensorboard_logging: bool = True
+    csv_logging: bool = True
+    load_existing_weights: bool = True
+    num_weights_to_keep: int = 60
+    record_every_n: int = -1
+    eval_envs: int = 1
+    eval_episodes: int = 25
+    eval_from_eps_number: int = 0
+    eval_type: str = "missing"  # missing | best | last | iteration int
+    left_arm_ckpt: Optional[str] = None
+    left_arm_train_cfg: Optional[str] = None
+
+
+@dataclass
+class DDPConfig:
+    """conf/config.yaml ddp group (the JAX package maps it onto a device mesh;
+    the port reads no field of it yet)."""
+
+    num_devices: int = 1
+    master_addr: str = "localhost"
+    master_port: int = 29500
+    # mesh axis sizes; data parallel by default. fsdp shards params too.
+    mesh_axes: Tuple[str, ...] = ("dp",)
+    fsdp: bool = False
+
+
+@dataclass
+class Config:
+    method: MethodConfig = field(default_factory=MethodConfig)
+    replay: ReplayConfig = field(default_factory=ReplayConfig)
+    rlbench: RLBenchConfig = field(default_factory=RLBenchConfig)
+    framework: FrameworkConfig = field(default_factory=FrameworkConfig)
+    ddp: DDPConfig = field(default_factory=DDPConfig)
+    log_dir: str = "/tmp/voxactb_logs"
+    seed: int = 0
+
+    # ---- hydra-style helpers ----------------------------------------------------
+
+    def override(self, **dotted: Any) -> "Config":
+        """Apply dotted-path overrides: cfg.override(**{'method.lr': 1e-4}).
+
+        Deep-copies first — ``dataclasses.replace`` alone would share the nested
+        group dataclasses and leak mutations back into the original config.
+        """
+        import copy
+
+        cfg = copy.deepcopy(self)
+        for key, value in dotted.items():
+            parts = key.split(".")
+            obj = cfg
+            for p in parts[:-1]:
+                obj = getattr(obj, p)
+            if not hasattr(obj, parts[-1]):
+                raise KeyError(f"unknown config key: {key}")
+            setattr(obj, parts[-1], value)
+        return cfg
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def save(self, path: str) -> None:
+        """Write the per-seed config snapshot the eval side reloads
+        (train.py:62-63 / eval.py:279-284 behavior)."""
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f, indent=2)
+
+    @classmethod
+    def load(cls, path: str) -> "Config":
+        with open(path) as f:
+            raw = json.load(f)
+
+        sub_types = {
+            "method": MethodConfig,
+            "replay": ReplayConfig,
+            "rlbench": RLBenchConfig,
+            "framework": FrameworkConfig,
+            "ddp": DDPConfig,
+        }
+
+        def build(dc_cls, d):
+            kwargs = {}
+            for fld in dataclasses.fields(dc_cls):
+                if fld.name not in d:
+                    continue
+                v = d[fld.name]
+                if fld.name in sub_types and dc_cls is cls:
+                    kwargs[fld.name] = build(sub_types[fld.name], v)
+                elif fld.name == "mesh_axes" and isinstance(v, list):
+                    kwargs[fld.name] = tuple(v)
+                else:
+                    kwargs[fld.name] = v
+            return dc_cls(**kwargs)
+
+        return build(cls, raw)

@@ -146,8 +146,10 @@ def attention_coordinate(voxel_index: torch.Tensor, voxel_size: int,
 def scene_bounds_from_crop(crop_point, radius: float) -> torch.Tensor:
     """Crop point +- radius -> scene bounds [x0,y0,z0,x1,y1,z1], the crop point
     rounded to 2 decimals first (``get_new_scene_bounds_based_on_crop``,
-    helpers/utils.py:32-40). ``round(x, 2)`` is ``round(x * 100) / 100`` in
-    f32, half to even, as ``jnp.round`` computes it."""
+    helpers/utils.py:32-40). ``round(x, 2)`` is ``round(x * 100) * f32(0.01)``
+    in f32, half to even: ``jnp.round``'s ``/ 100`` compiles to that
+    multiplication by the f32 reciprocal (``reciprocal``), which lands an ulp
+    off the division for about a third of crop points."""
     p = torch.as_tensor(crop_point, dtype=torch.float32)
-    p = torch.round(p * 100.0) / 100.0
+    p = torch.round(p * 100.0) * reciprocal(100)
     return torch.cat([p - radius, p + radius], -1)
