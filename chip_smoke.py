@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's act paths (fused front and dense grid), its
-VLM crop path, its BC train step, its measurement tools and its train and eval
-CLIs on one NVIDIA H100 and check them.
+VLM crop path, its BC train step, its measurement tools, its train and eval
+CLIs, its native disk replay and its protocol tool on one NVIDIA H100 and
+check them.
 
     python3 chip_smoke.py
 
@@ -94,7 +95,23 @@ Phases:
                odd ones, every act inside its episode's crop bounds;
                ``PrefetchIterator`` bit-equal to its host batches with a
                busy consumer and with a slow worker.
- 10. report  - every kernel's launch count rose during its main-path run;
+ 10. protocol_eval - ``cli.train`` with ``replay.use_disk=True`` at that
+               operating point: every row of every batch on the card is a row
+               of the native store byte for byte, the store holds the
+               in-memory replay's rows from the same fill in order, the run
+               closes in its teardown order, the feed is closed five times in
+               each order while the prefetch thread waits, and the feed's ms
+               per batch stands beside the in-memory replay's; then
+               ``tools.run_protocol_eval`` on open_jar at full width (bf16,
+               kernel flags; 2 demos, 4 steps per policy, checkpoints 0, 2
+               and 3, 2 episodes per checkpoint) through the 'missing' sweep,
+               the stabilizing sweep, 'best' on the test seed and
+               ``--vlm-eval``: finite returns in every summary entry, the CSVs'
+               steps, the pair that ``select_checkpoints`` and the last argmax
+               pick, alternating acts inside their episodes' crop bounds, K4
+               in the train leg and K1-K3 in the eval leg, and the seconds of
+               each stage, save, load, demo, train step, act and sim step.
+ 11. report  - every kernel's launch count rose during its main-path run;
                one ``{"kernels": [...]}`` line.
 Then the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -2941,6 +2958,419 @@ def protocol(details, timings):
             dict(launches=eval_counts, acts=len(acts)))
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the protocol tool (run_protocol_eval's three stages and its
+# --vlm-eval) at full width, and cli.train on the native disk replay
+# ---------------------------------------------------------------------------
+
+PROTOCOL_EVAL_ITERS = 4  # with save_freq 2: checkpoints 0, 2 and 3
+DISK_REPLAY_ITERS = 4
+FEED_BATCHES = 20
+TEARDOWN_ROUNDS = 5
+# protocol_overrides' keys that the tool sets itself, per task and policy
+TOOL_KEYS = ("rlbench.task_name", "rlbench.tasks", "rlbench.demo_path", "rlbench.demos",
+             "method.which_arm", "framework.training_iterations", "framework.save_freq",
+             "framework.log_freq", "log_dir")
+WIDTH_KEYS = ("num_latents", "latent_dim", "transformer_depth", "cross_dim_head",
+              "latent_dim_head", "final_dim")
+
+
+def protocol_eval_extra():
+    """``--extra`` for the tool: ``protocol_overrides``' operating point (three
+    128^2 cameras, bf16, the kernel flags, SE(3) augmentation, batch 8) at the
+    config's full widths, which the tool's ``COMMON`` narrows."""
+    from voxactb_tpu_torch.config import MethodConfig
+
+    full = MethodConfig()
+    return ([o for o in protocol_overrides("dominant", "") if o.split("=")[0] not in TOOL_KEYS]
+            + [f"method.{k}={getattr(full, k)}" for k in WIDTH_KEYS])
+
+
+def leg_counts(sink, kernels):
+    """Wrap a stage so that the kernel launches during it add to ``sink``."""
+    def wrap(fn):
+        def call(*a, **kw):
+            import torch
+
+            torch.cuda.synchronize()
+            before = kernels.launch_counts()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            for k, v in kernels.launch_counts().items():
+                sink[k] = sink.get(k, 0) + v - before[k]
+            return out
+        return call
+    return wrap
+
+
+def disk_replay(timings):
+    """``cli.train`` with ``replay.use_disk=True`` on two live sim demos at
+    the protocol's operating point: every batch that reaches the card is
+    rows of the store, byte for byte; the store holds the rows that the
+    in-memory replay takes from the same fill, in order; the run closes in
+    its teardown order; then the feed is closed while the prefetch thread
+    waits, in that order and the other, and timed against the in-memory
+    replay's ``sample_transition_batch``."""
+    import importlib
+    import shutil
+
+    import torch
+    from voxactb_tpu_torch.agents.qattention_agent import QAttentionBCAgent
+    from voxactb_tpu_torch.cli import train as train_cli
+    from voxactb_tpu_torch.config import Config
+    from voxactb_tpu_torch.models.clip_text import ClipLanguageEncoder
+    from voxactb_tpu_torch.ops import cuda as kernels
+    from voxactb_tpu_torch.replay.dataset import PrefetchIterator
+    from voxactb_tpu_torch.replay.native_buffer import AsyncBatchSampler, NativeReplayBuffer
+    from voxactb_tpu_torch.utils.bpe import SimpleTokenizer
+
+    fill_replay = importlib.import_module("voxactb_tpu_torch.data.fill_replay")
+    root = os.path.join(HERE, "build", "disk_replay")
+    shutil.rmtree(root, ignore_errors=True)
+    store_dir = os.path.join(root, "replay")
+    # cli.train's language tower, each description encoded once, so that the
+    # in-memory fill below gets the embeddings the store got
+    enc = ClipLanguageEncoder(tokenizer=SimpleTokenizer(), device=DEVICE)
+    lang_cache = {}
+
+    def language(text):
+        if text not in lang_cache:
+            lang_cache[text] = tuple(t.cpu().numpy() for t in enc.encode_text([text]))
+        return lang_cache[text]
+
+    overrides = protocol_overrides("dominant", os.path.join(root, "logs")) + [
+        f"framework.training_iterations={DISK_REPLAY_ITERS}", "framework.save_freq=100",
+        "replay.use_disk=True", f"replay.path={store_dir}"]
+    captured, batches, replays = {}, [], []
+
+    def keep_demos(fn):
+        def call(replay, demos, *a, **kw):
+            captured["demos"] = demos
+            return fn(replay, demos, *a, **kw)
+        return call
+
+    def keep_replay(fn):
+        def call(cfg, *a, **kw):
+            replay, agent = fn(cfg, *a, **kw)
+            replays.append(replay)
+            return replay, agent
+        return call
+
+    def keep_batch(fn):
+        def call(self, step, sample):
+            expect(all(v.device.type == torch.device(DEVICE).type for v in sample.values()),
+                   "disk replay: a batch reached the update off the card")
+            batches.append({k: v.cpu().numpy() for k, v in sample.items()
+                            if k != "scene_bounds"})
+            return fn(self, step, sample)
+        return call
+
+    counts = {}
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(wrapped(fill_replay, "fill_multi_task_replay", keep_demos))
+        stack.enter_context(wrapped(train_cli, "build_replay_and_agent", keep_replay))
+        stack.enter_context(wrapped(QAttentionBCAgent, "update", keep_batch))
+        stack.enter_context(wrapped(train_cli, "_train_one", leg_counts(counts, kernels)))
+        train_cli.main(overrides, lang_encoder=language, device=DEVICE)
+    train_s = time.perf_counter() - t0
+    store_path = os.path.join(store_dir, "seed0.replay")
+    expect(isinstance(replays[0], NativeReplayBuffer) and replays[0].path == store_path,
+           "disk replay: cli.train did not train from the native store")
+    expect(len(batches) == DISK_REPLAY_ITERS, f"disk replay: {len(batches)} batches")
+
+    # the in-memory replay from the same demos and language, and the store
+    cfg = Config().override(**train_cli.parse_overrides(overrides + ["replay.use_disk=False"]))
+    memory, _ = train_cli.build_replay_and_agent(cfg, language, captured["demos"],
+                                                 device=DEVICE)
+    store = NativeReplayBuffer(int(1e5), replays[0]._signature, store_path)
+    n = store.size
+    expect(n == memory.size > 0 and store.add_count == n,
+           f"disk replay: the store holds {n} rows, the in-memory replay {memory.size}")
+    stored, held = store.gather(np.arange(n)), memory.gather(np.arange(n))
+    keys = sorted(stored)
+    bad = [k for k in keys if not (stored[k].dtype == held[k].dtype
+                                   and np.array_equal(stored[k], held[k]))]
+    expect(not bad, f"disk replay: the store's rows differ from the in-memory replay's in {bad}")
+    row_key = lambda rows, i: b"".join(rows[k][i].tobytes() for k in keys)  # noqa: E731
+    index = {row_key(stored, i) for i in range(n)}
+    rows_checked = 0
+    for j, b in enumerate(batches):
+        expect(sorted(b) == keys, f"disk replay: batch {j} has keys {sorted(b)}")
+        for i in range(len(b[keys[0]])):
+            expect(row_key(b, i) in index,
+                   f"disk replay: row {i} of batch {j} is no row of the store")
+            rows_checked += 1
+
+    # the feed against the in-memory replay's sampling, on the host
+    batch = cfg.replay.batch_size
+    feed = AsyncBatchSampler(store, batch, seed=0)
+    for _ in range(2):
+        feed.next()
+    t0 = time.perf_counter()
+    for _ in range(FEED_BATCHES):
+        feed.next()
+    feed_ms = (time.perf_counter() - t0) / FEED_BATCHES * 1e3
+    feed.close()
+    t0 = time.perf_counter()
+    for _ in range(FEED_BATCHES):
+        memory.sample_transition_batch(batch)
+    memory_ms = (time.perf_counter() - t0) / FEED_BATCHES * 1e3
+    t0 = time.perf_counter()
+    for _ in range(FEED_BATCHES):
+        store.sample_transition_batch(batch)
+    gather_ms = (time.perf_counter() - t0) / FEED_BATCHES * 1e3
+
+    # close while the prefetch thread waits: cli.train's order (prefetch
+    # thread, then the sampler), then the sampler first under the thread
+    ends = {"prefetch_first": [], "sampler_first": []}
+    for order in ends:
+        for _ in range(TEARDOWN_ROUNDS):
+            feed = AsyncBatchSampler(store, batch, seed=0)
+            it = PrefetchIterator(feed.next, device=DEVICE)
+            got = next(it)
+            expect(row_key({k: v.cpu().numpy() for k, v in got.items()}, 0) in index,
+                   "disk replay: a prefetched row is no row of the store")
+            time.sleep(0.05)  # the worker runs ahead and waits on its queue
+            if order == "prefetch_first":
+                it.close()
+                feed.close()
+            else:
+                feed.close()
+                it.close()
+            ends[order].append(type(it._error).__name__ if it._error else None)
+    expect(all(e is None for e in ends["prefetch_first"]),
+           f"disk replay: the prefetch thread failed in cli.train's order: {ends}")
+    expect(all(e in (None, "RuntimeError") for e in ends["sampler_first"]),
+           f"disk replay: the prefetch thread under a closed sampler: {ends}")
+    row_bytes = store.row_bytes
+    store.close()
+    shutil.rmtree(root, ignore_errors=True)
+    timings["disk_replay"] = dict(
+        rows=n, row_bytes=row_bytes, batches=len(batches), rows_checked=rows_checked,
+        feed_ms_per_batch=feed_ms, memory_sample_ms_per_batch=memory_ms,
+        store_sample_ms_per_batch=gather_ms, train_s=train_s, teardown=ends)
+    log(f"[protocol_eval] disk replay: cli.train on the native store ({n} rows of "
+        f"{row_bytes} bytes, {row_bytes * n / 1e6:.1f} MB written): {len(batches)} batches, "
+        f"{rows_checked} rows on the card, each a row of the store byte for byte; the store "
+        f"equal to the in-memory replay's {memory.size} rows in order; {train_s:.1f} s; "
+        f"launches: {counts}")
+    log(f"[protocol_eval] disk replay: batch {batch} on the host: AsyncBatchSampler "
+        f"{feed_ms:.3f} ms per batch, the store's sample_transition_batch {gather_ms:.3f} ms, "
+        f"the in-memory replay's {memory_ms:.3f} ms; closed {TEARDOWN_ROUNDS} times each "
+        f"while the prefetch thread waited (thread then sampler: {ends['prefetch_first']}; "
+        f"sampler then thread: {ends['sampler_first']})")
+    torch.cuda.empty_cache()
+    return dict(launches=counts, steps=len(batches))
+
+
+def protocol_tool(timings):
+    """``run_protocol_eval.main`` on open_jar at full width (bf16, kernel
+    flags): two live demos and four steps per policy, then its three stages
+    and ``--vlm-eval`` with two episodes per checkpoint."""
+    import csv
+    import shutil
+
+    import torch
+    from voxactb_tpu_torch.agents.qattention_agent import QAttentionBCAgent
+    from voxactb_tpu_torch.ops import cuda as kernels
+    from voxactb_tpu_torch.ops.geometry import scene_bounds_from_crop
+    from voxactb_tpu_torch.runners.eval_runner import EvalRunner, select_checkpoints
+    from voxactb_tpu_torch.sim.environment import BimanualTaskEnvironment
+    from voxactb_tpu_torch.tools import run_protocol_eval as tool
+
+    root = os.path.join(HERE, "build", "protocol_eval")
+    shutil.rmtree(root, ignore_errors=True)
+    head = ["--tasks", PROTOCOL_TASK, "--iters", str(PROTOCOL_EVAL_ITERS), "--save-freq", "2",
+            "--demos", "2", "--episodes", "2", "--out", root]
+    argv = head + ["--extra", *protocol_eval_extra()]
+    sinks = {k: [] for k in ("save", "load", "demo", "sim_step", "build")}
+    updates, acts, crops, runners, stages = [], [], [], [], []
+    role = {}  # id(agent) -> "acting" | "stabilizing", from the runner it was given to
+    state = {"eval": False}
+    train_counts, eval_counts = {}, {}
+
+    def timed(sink):
+        def wrap(fn):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                sink.append(time.perf_counter() - t0)
+                return out
+            return call
+        return wrap
+
+    def staged(name):
+        def wrap(fn):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                label = name(*a, **kw) if callable(name) else name
+                stages.append((label, time.perf_counter() - t0))
+                return out
+            return call
+        return wrap
+
+    def synced_update(fn):
+        def call(self, step, sample):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, step, sample)
+            expect(np.isfinite(float(out["total_loss"])), "protocol_eval: a loss is not finite")
+            updates.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    def logged_runner(fn):
+        def call(self, env, agent, *a, **kw):
+            fn(self, env, agent, *a, **kw)
+            role[id(agent)] = "acting"
+            role[id(kw["left_arm_agent"])] = "stabilizing"
+            runners.append(dict(csv=os.path.basename(self._csv_path),
+                                left_arm_ckpt=kw.get("left_arm_ckpt")))
+        return call
+
+    def logged_act(fn):
+        def call(self, step, observation, **kw):
+            t0 = time.perf_counter()
+            out = fn(self, step, observation, **kw)
+            # the role at the act: a later runner's agent may take a freed id
+            acts.append(dict(role=role.get(id(self)), step=step,
+                             ms=(time.perf_counter() - t0) * 1e3,
+                             bounds=kw.get("new_scene_bounds"),
+                             dual=kw.get("dominant_assitive_policy")))
+            return out
+        return call
+
+    def evaluating(fn):
+        def call(*a, **kw):
+            state["eval"] = True
+            try:
+                return fn(*a, **kw)
+            finally:
+                state["eval"] = False
+        return call
+
+    def logged_crop(fn):
+        def call(self):
+            out = fn(self)
+            if state["eval"]:  # the crops of the eval episodes, not the demos'
+                crops.append(np.asarray(out, np.float32).copy())
+            return out
+        return call
+
+    eval_name = lambda task, acting, stab, eps, seed, eval_type, csv_name, *a, **kw: (  # noqa: E731
+        f"eval {eval_type} {csv_name}")
+    t_phase = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for owner, attr, wrap in (
+                (tool, "train_policy", leg_counts(train_counts, kernels)),
+                (tool, "run_eval", leg_counts(eval_counts, kernels)),
+                (tool, "run_stab_sweep", leg_counts(eval_counts, kernels)),
+                (tool, "train_policy", staged(lambda task, arm, *a, **kw: f"train {arm}")),
+                (tool, "run_eval", staged(eval_name)),
+                (tool, "run_stab_sweep", staged("stabilizing sweep")),
+                (tool, "run_eval", evaluating),
+                (tool, "run_stab_sweep", evaluating),
+                (QAttentionBCAgent, "update", synced_update),
+                (QAttentionBCAgent, "act", logged_act),
+                (QAttentionBCAgent, "build", timed(sinks["build"])),
+                (QAttentionBCAgent, "save_weights", timed(sinks["save"])),
+                (QAttentionBCAgent, "load_weight", timed(sinks["load"])),
+                (BimanualTaskEnvironment, "get_demo", timed(sinks["demo"])),
+                (BimanualTaskEnvironment, "step", timed(sinks["sim_step"])),
+                (BimanualTaskEnvironment, "target_object_world_coords", logged_crop),
+                (EvalRunner, "__init__", logged_runner)):
+            stack.enter_context(wrapped(owner, attr, wrap))
+        summary = tool.main(argv, device=DEVICE)
+        summary = tool.main(argv + ["--vlm-eval"], device=DEVICE)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t_phase
+
+    # the summary and the CSVs
+    task = summary[PROTOCOL_TASK]
+    acting_dir = task["acting_dir"]
+    finite = lambda rows: rows and all(np.isfinite(r["return"]) for r in rows)  # noqa: E731
+    vlm = summary.get(f"{PROTOCOL_TASK}_vlmcrop", {})
+    expect(finite(task["val"]) and finite(task["test"]) and finite(task["stab_sweep"]["rows"])
+           and finite(vlm.get("val")) and finite(vlm.get("test")),
+           f"protocol_eval: summary {json.dumps(summary)[:400]}")
+    def read(name):
+        with open(os.path.join(acting_dir, name)) as f:
+            return list(csv.DictReader(f))
+
+    val_rows, sweep_rows = read("eval_data.csv"), read("stabilizing_sweep.csv")
+    steps = [0, 2, PROTOCOL_EVAL_ITERS - 1]
+    expect([int(float(r["step"])) for r in val_rows] == steps,
+           f"protocol_eval: eval_data.csv steps {[r['step'] for r in val_rows]}")
+    best = select_checkpoints(os.path.join(acting_dir, "weights"), "best",
+                              os.path.join(acting_dir, "eval_data.csv"))
+    best_rows = [r for r in sweep_rows if int(float(r["step"])) == best[0]]
+    expect([int(float(r["left_step"])) for r in best_rows] == steps,
+           f"protocol_eval: the sweep's left steps {[r['left_step'] for r in sweep_rows]}")
+    best_left = max(range(len(best_rows)),
+                    key=lambda i: (float(best_rows[i]["eval_envs/return"]), i))
+    best_left = int(float(best_rows[best_left]["left_step"]))
+    sweep = task["stab_sweep"]
+    expect(sweep["acting_step"] == best[0] and sweep["best_left_step"] == best_left
+           and [int(r["step"]) for r in task["test"]] == [best[0]]
+           and [int(r["step"]) for r in vlm["val"] + vlm["test"]] == [best[0]] * 2,
+           f"protocol_eval: chose {sweep['acting_step']}/{sweep['best_left_step']}, the CSVs "
+           f"give {best[0]}/{best_left}")
+    test_runner = next(r for r in runners if r["csv"] == "test_data.csv")
+    expect(os.path.basename(os.path.dirname(test_runner["left_arm_ckpt"])) == str(best_left),
+           f"protocol_eval: the test pass paired {test_runner['left_arm_ckpt']}")
+
+    # the acts: alternating, each inside its episode's crop bounds
+    wrong = [(a["step"], a["role"]) for a in acts
+             if a["role"] != ("stabilizing" if a["step"] % 2 == 0 else "acting")
+             or not a["dual"]]
+    expect(acts and not wrong, f"protocol_eval: acts out of turn {wrong[:5]}")
+    episodes = sum(1 for a in acts if a["step"] == 0)
+    expect(episodes == len(crops) == 2 * (2 * len(steps) + 1 + 2),
+           f"protocol_eval: {episodes} episodes, {len(crops)} crops")
+    ep = -1
+    for a in acts:
+        ep += a["step"] == 0
+        want = scene_bounds_from_crop(crops[ep], 0.3).tolist()
+        expect(a["bounds"] is not None and list(a["bounds"]) == want,
+               f"protocol_eval: act {a['step']} of episode {ep} got bounds {a['bounds']}, "
+               f"not {want}")
+    expect(len(updates) == 2 * PROTOCOL_EVAL_ITERS, f"protocol_eval: {len(updates)} updates")
+    for leg, counts, names in (("train", train_counts, ("flash_attention_train_fwd",
+                                                        "flash_attention_train_bwd")),
+                               ("eval", eval_counts, ("front_fused", "flash_attention",
+                                                      "decoder_head"))):
+        expect(all(counts.get(k, 0) > 0 for k in names),
+               f"protocol_eval: the {leg} leg launched {counts}")
+
+    sums = {k: sum(v) for k, v in sinks.items()}
+    sums.update(train_step=sum(updates) / 1e3, act=sum(a["ms"] for a in acts) / 1e3)
+    calls = {k: len(v) for k, v in sinks.items()}
+    calls.update(train_step=len(updates), act=len(acts))
+    timings["protocol_eval"] = dict(
+        wall_s=wall_s, stages=stages, host_s=sums, host_calls=calls,
+        train_step_ms=statistics.median(updates[1:PROTOCOL_EVAL_ITERS]
+                                        + updates[PROTOCOL_EVAL_ITERS + 1:]),
+        ms_per_act_median=statistics.median(a["ms"] for a in acts), episodes=episodes,
+        summary=summary, train_launches=train_counts, eval_launches=eval_counts)
+    log(f"[protocol_eval] run_protocol_eval at full width ({' '.join(head[:-2])}, bf16, "
+        f"kernel flags): val {[r['return'] for r in task['val']]}, sweep "
+        f"{[r['return'] for r in sweep['rows']]}, chose acting {best[0]} with stabilizing "
+        f"{best_left}, test {[r['return'] for r in task['test']]}, VLM crop val/test "
+        f"{[r['return'] for r in vlm['val'] + vlm['test']]}")
+    log(f"[protocol_eval] stages: " + ", ".join(f"{name} {s:.2f} s" for name, s in stages))
+    log(f"[protocol_eval] {wall_s:.1f} s; of it " + ", ".join(
+        f"{k} {sums[k]:.2f} s ({calls[k]})" for k in ("build", "save", "load", "demo",
+                                                       "train_step", "act", "sim_step")))
+    log(f"[protocol_eval] train leg launches: {train_counts}")
+    log(f"[protocol_eval] eval leg launches: {eval_counts}")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return (dict(launches=train_counts, steps=len(updates)),
+            dict(launches=eval_counts, acts=len(acts)))
+
+
 def main() -> int:
     import torch
 
@@ -3029,8 +3459,12 @@ def main() -> int:
     runs["tools"], tool_rows = tools(details)
     log(f"[tools] took {time.perf_counter() - t0:.1f} s")
     runs["protocol_train"], runs["protocol_eval"] = protocol(details, timings)
+    t0 = time.perf_counter()
+    runs["disk_replay"] = disk_replay(timings)
+    runs["protocol_tool_train"], runs["protocol_tool_eval"] = protocol_tool(timings)
+    log(f"[protocol_eval] took {time.perf_counter() - t0:.1f} s")
 
-    # phase 10: every kernel was launched on the main path that runs it
+    # phase 11: every kernel was launched on the main path that runs it
     act_kernels = ("front_fused", "flash_attention", "decoder_head", "decoder_tail_conv",
                    "decoder_tail_trans_stats", "front_patchify")
     dense_kernels = ("encoder_stats", "stats_head", "decoder_head_v3", "flash_attention",
@@ -3043,6 +3477,9 @@ def main() -> int:
                     "stats100": ("stats_head", "flash_attention"),
                     "protocol_train": ("flash_attention_train_fwd",
                                        "flash_attention_train_bwd"),
+                    "disk_replay": ("flash_attention_train_fwd", "flash_attention_train_bwd"),
+                    "protocol_tool_train": ("flash_attention_train_fwd",
+                                            "flash_attention_train_bwd"),
                     "tools": TOOLS_KERNELS + ("front_fused", "front_patchify", "decoder_head",
                                               "decoder_tail_conv", "decoder_tail_trans_stats",
                                               "flash_attention")}

@@ -128,11 +128,33 @@ def test_make_env_builds_the_sim_task_for_every_registered_name():
 
 
 def test_use_disk_raises_not_implemented(tmp_path):
+    """``replay.use_disk=True`` no longer raises ``NotImplementedError``: it
+    trains from the native store at ``replay.path/seed0.replay``, and stops
+    with a message where the store holds fewer rows than a batch (its C++
+    sampler would wait for them forever)."""
     from voxactb_tpu_torch.cli import train
+    from voxactb_tpu_torch.replay.native_buffer import NativeReplayBuffer
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A.20"):
-        train.main(OVERRIDES + ["replay.use_disk=True", f"log_dir={tmp_path}"],
-                   lang_encoder=_language, device="cpu")
+    stores = []
+    disk = OVERRIDES + ["replay.use_disk=True", f"replay.path={tmp_path / 'replay'}",
+                        "framework.training_iterations=2", "framework.save_freq=1"]
+    seed_dir = train.main(disk + [f"log_dir={tmp_path / 'run'}"], lang_encoder=_language,
+                          device="cpu")
+    assert os.path.exists(os.path.join(seed_dir, "weights", "1", "QAttentionAgent_layer0.pt"))
+    assert (tmp_path / "replay" / "seed0.replay").exists()
+    original = NativeReplayBuffer.__init__
+
+    def keep(self, *a, **kw):
+        original(self, *a, **kw)
+        stores.append(self)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(NativeReplayBuffer, "__init__", keep)
+        with pytest.raises(SystemExit, match="fewer than a batch of 100000"):
+            train.main(disk + ["replay.batch_size=100000", f"log_dir={tmp_path / 'big'}",
+                               f"replay.path={tmp_path / 'big_replay'}"],
+                       lang_encoder=_language, device="cpu")
+    assert len(stores) == 1 and stores[0]._handle is None  # closed on the way out
 
 
 def test_language_encoder_failure_stops_training(tmp_path, monkeypatch):

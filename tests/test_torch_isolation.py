@@ -155,11 +155,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_host_modules_load_no_jax():
-    """The slice's host modules (sim, replay, data, runners, CLIs) import
-    nothing of JAX or the JAX package, and a sim demo and a CPU rollout
-    step load none of it."""
+    """The slices' host modules (sim, replay, data, runners, CLIs, the native
+    replay, the protocol and data tools) import nothing of JAX or the JAX
+    package, and a sim demo, an oracle episode and a native store load none
+    of it."""
     script = textwrap.dedent("""
-        import sys
+        import os, sys
         import numpy as np
         import torch
         torch.set_num_threads(1)
@@ -173,6 +174,15 @@ def test_host_modules_load_no_jax():
         import voxactb_tpu_torch.data, voxactb_tpu_torch.data.rlbench_format
         import voxactb_tpu_torch.envs.fake_env, voxactb_tpu_torch.utils.keypoints
         import voxactb_tpu_torch.utils.loggers, voxactb_tpu_torch.utils.observation
+        # the protocol slice's modules: the native disk replay, the protocol
+        # tools, the validator and the data tools
+        import voxactb_tpu_torch.native, voxactb_tpu_torch.replay.native_buffer
+        import voxactb_tpu_torch.tools.oracle_protocol_check
+        import voxactb_tpu_torch.tools.run_protocol_eval, voxactb_tpu_torch.tools.train_pair
+        import voxactb_tpu_torch.sim.validator, voxactb_tpu_torch.sim.pyrep_backend
+        import voxactb_tpu_torch.tools.task_builder, voxactb_tpu_torch.tools.dataset_generator
+        import voxactb_tpu_torch.tools.make_synthetic_dataset
+        import voxactb_tpu_torch.envs.gym_adapter
         from voxactb_tpu_torch.sim.environment import BimanualTaskEnvironment
         from voxactb_tpu_torch.sim.tasks import TASK_REGISTRY
 
@@ -182,6 +192,18 @@ def test_host_modules_load_no_jax():
         frames, _ = env.get_demo(0)
         obs = env.reset()
         assert obs["lang_goal_emb"].shape == (1024,) and len(frames) > 5
+        # the oracle's episode and a store of the native replay
+        import tempfile
+        from voxactb_tpu_torch.tools.oracle_protocol_check import oracle_episode
+        assert oracle_episode(env, 50, 5, 0.3, 0)["steps"] > 0
+        from voxactb_tpu_torch.replay import bc_replay_signature
+        from voxactb_tpu_torch.replay.native_buffer import NativeReplayBuffer
+        with tempfile.TemporaryDirectory() as d:
+            buf = NativeReplayBuffer(4, bc_replay_signature(["wrist"], (8, 8)),
+                                     os.path.join(d, "r.bin"))
+            buf.add({"reward": 1.0})
+            assert buf.gather(np.zeros(1))["reward"][0] == 1.0
+            buf.close()
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in %r)
         print("LOADED", loaded)

@@ -6,7 +6,10 @@ replay from stored demos, build the agent, run the offline train loop on one CUD
 device (``device``: cuda unless the caller passes ``"cpu"``; it raises without
 CUDA). Checkpoints are ``weights/<step>/QAttentionAgent_layer0.pt``. The kernels
 run only where the config's ``pallas_*`` flags are on (``method.pallas_front``,
-``pallas_attention``, ``pallas_decoder``, ``pallas_attention_train``).
+``pallas_attention``, ``pallas_decoder``, ``pallas_attention_train``). With
+``replay.use_disk=True`` the replay is the native mmap store at
+``replay.path/seed<seed>.replay`` (``replay/native_buffer.py``; g++ builds its
+library into ``build/native/`` on first use), fed by its C++ batch sampler.
 
 Usage:
   python -m voxactb_tpu_torch.cli.train rlbench.task_name=open_jar \\
@@ -55,12 +58,26 @@ def build_replay_and_agent(cfg, lang_encoder=None, demos=None, device=None):
         two_arm=m.which_arm == "both",
     )
     if cfg.replay.use_disk:
-        raise NotImplementedError(
-            "replay.use_disk: the native disk replay (replay/native_buffer.py with "
-            "native/replay_store.cpp) is not ported yet (ROADMAP A.20); use the "
-            "in-memory replay")
-    replay = TaskUniformReplayBuffer(
-        capacity=int(1e5), signature=sig, seed=cfg.seed)
+        # disk-mode replay: native mmap store (the reference's one-pickle-per-
+        # transition disk mode, uniform sampling) + C++ async batch feed.
+        # NOTE: the native sampler is plain-uniform over transitions, not
+        # task-uniform like TaskUniformReplayBuffer — with several tasks the
+        # batch composition follows per-task transition counts.
+        from voxactb_tpu_torch.replay.native_buffer import NativeReplayBuffer
+
+        if len(cfg.rlbench.tasks) > 1:
+            logging.warning(
+                "replay.use_disk samples uniformly over transitions, not "
+                "task-uniformly: %d tasks will mix by transition count",
+                len(cfg.rlbench.tasks))
+        os.makedirs(cfg.replay.path, exist_ok=True)
+        replay = NativeReplayBuffer(
+            capacity=int(1e5), signature=sig,
+            path=os.path.join(cfg.replay.path, f"seed{cfg.seed}.replay"),
+            seed=cfg.seed)
+    else:
+        replay = TaskUniformReplayBuffer(
+            capacity=int(1e5), signature=sig, seed=cfg.seed)
 
     if demos is None and cfg.rlbench.demo_path == "sim":
         # record scripted demos live from the built-in sim benchmark
@@ -199,10 +216,30 @@ def _train_one(cfg, demos=None, lang_encoder=None, device=None):
 
     scene_bounds = np.asarray(cfg.rlbench.scene_bounds, np.float32)
 
-    def sample():
-        batch = replay.sample_transition_batch(cfg.replay.batch_size)
-        batch["scene_bounds"] = scene_bounds
-        return batch
+    from voxactb_tpu_torch.replay.native_buffer import AsyncBatchSampler, \
+        NativeReplayBuffer
+
+    native_feed = None
+    if isinstance(replay, NativeReplayBuffer):
+        rows = replay.size
+        if rows < cfg.replay.batch_size:
+            # the C++ producers publish nothing until the store holds a batch
+            replay.close()
+            raise SystemExit(
+                f"the disk replay holds {rows} transitions, fewer than a "
+                f"batch of {cfg.replay.batch_size}: its sampler would wait forever")
+        native_feed = AsyncBatchSampler(
+            replay, cfg.replay.batch_size, seed=cfg.seed)
+
+        def sample():
+            batch = native_feed.next()
+            batch["scene_bounds"] = scene_bounds
+            return batch
+    else:
+        def sample():
+            batch = replay.sample_transition_batch(cfg.replay.batch_size)
+            batch["scene_bounds"] = scene_bounds
+            return batch
 
     dataset = PrefetchIterator(sample, device=device)
     runner = OfflineTrainRunner(
@@ -220,7 +257,17 @@ def _train_one(cfg, demos=None, lang_encoder=None, device=None):
     try:
         runner.start()
     finally:
+        # teardown order: (1) the host prefetch thread — it is the only
+        # bs_acquire caller, and bs_stop deletes the C++ Sampler, so the
+        # consumer must be joined first (producers are still filling the ring
+        # at this point, so a blocked acquire always wakes); (2) the C++
+        # producer threads; (3) the mmap store they sample from
         dataset.close()
+        if native_feed is not None:
+            native_feed.close()
+        if isinstance(replay, NativeReplayBuffer):
+            replay.flush()
+            replay.close()
     return seed_dir
 
 
