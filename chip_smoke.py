@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's act paths (fused front and dense grid), its
 VLM crop path, its BC train step, its measurement tools, its train and eval
-CLIs, its native disk replay and its protocol tool on one NVIDIA H100 and
-check them.
+CLIs, its native disk replay, its protocol tool and its diagnosis probes and
+profilers on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py
 
@@ -33,7 +33,12 @@ Phases:
                tail's trans/stats launch alone, a zero-ringed u failing; the
                phase GEMM's u0 within 2^-7; the front's patchify launched
                alone at 50^3, 100^3 and 100^3 batch 8, two launches
-               bit-equal, a zero-padded front edge failing); time kernel
+               bit-equal, a zero-padded front edge failing; the inference and
+               the trainable attention (forward, dQ, dK, dV) at head dims 32
+               and 96, SAM attention at 32, all zero-padded to the kernels'
+               64 / 128 / 80 by their wrappers, each against its plain
+               version at the head dim 64 tolerances with a pad of noise
+               failing, two launches bit-equal); time kernel
                (wrapper call; for the attention kernels and each launch of
                the decoder tails also device time from the profiler), plain
                version and, where one PyTorch call computes the same function,
@@ -71,7 +76,14 @@ Phases:
                path (within twice the plain bf16 path's distance from f32);
                timed steps with SE(3) augmentation and dropout on (loss finite
                and falling); a second run from the same seed; one step under
-               the profiler; two ``agent.update`` steps.
+               the profiler; two ``agent.update`` steps. Then round 5's model
+               (``eval_artifacts``' open_jar config: latents 64 x 64, depth 2,
+               heads of 32) on the kernel path: one act (K1 and K2 on heads
+               of 32; K3's gate keeps the plain tail at its final_dim of 16)
+               under the act rule and one train step's losses and gradients
+               (K4) under the train rule against the same model with K4's
+               plain version, a pad of noise failing each, two steps whose
+               launches show K4 took every attention.
   8. tools   - the tools' probe kernels against their plain versions: the
                grid copy at d0's shape (rows 1 and 4, batch 1; rows 1, batch
                8) bit-equal, a copy without its last slab failing; the scratch
@@ -111,7 +123,14 @@ Phases:
                pick, alternating acts inside their episodes' crop bounds, K4
                in the train leg and K1-K3 in the eval leg, and the seconds of
                each stage, save, load, demo, train step, act and sim step.
- 11. report  - every kernel's launch count rose during its main-path run;
+ 11. diagnose - on the checkpoints of phase 10's short leg, the five
+               diagnosis probes (replay ambiguity and accuracy, open loop with
+               the live rollout, input diff, hybrid inputs), then
+               ``profile_train --flash-ab-only --steps 2`` and ``profile_sam
+               --frames 1``: each tool's record on a line of its own, its
+               printed output in ``chip_smoke.json``; the acts launch K1-K3,
+               the profilers K4 and K7.
+ 12. report  - every kernel's launch count rose during its main-path run;
                one ``{"kernels": [...]}`` line.
 Then the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -1414,6 +1433,222 @@ def check_sam_attention(rng, details):
     return rows
 
 
+# K2 and K4 at head dims the kernels are not built for (zero-padded to 64 or
+# 128 by their wrappers): (name, head dim, K2's [BH, Tq, Tk], K4's [BH, Tq,
+# Tk, dropout]). Round 5's 32 and 96 in (64, 128] at the full model's cross
+# shapes (an act at 50^3 batch 8, the train step at batch 8), then round 5's
+# own attention shapes (latents 64, 8 heads of 32 in self attention; an act
+# at batch 1, a train step at batch 4); K7 below 64 on two heads of one
+# 14 x 14 window.
+HEAD_DIM_CASES = (("32", 32, (8, 2048, 1077), (8, 2048, 1077, 0.1)),
+                  ("96", 96, (8, 2048, 1077), (8, 2048, 1077, 0.1)),
+                  ("round5_cross", 32, (1, 64, 1077), (4, 64, 1077, 0.1)),
+                  ("round5_self", 32, (8, 64, 64), (32, 64, 64, 0.1)),
+                  ("round5_decoder", 32, (1, 1077, 64), (4, 1077, 64, 0.1)))
+HEAD_DIM_SAM = (32, (2, 14, 14))
+
+
+def noise_padded(launch, width, n_operands=3, sliced=None):
+    """A kernel's launcher fed its first ``n_operands`` arguments padded on
+    the head dim with standard normals (seeded) instead of zeros, a pad that
+    is not exact, its head-dim outputs sliced back. (A constant pad would
+    shift each row of logits by one constant, which the softmax ignores.) A
+    planted fault, run through the real kernel."""
+    import torch
+
+    def fn(*args, **kw):
+        hd = args[0].shape[-1]
+        g = torch.Generator(device=args[0].device).manual_seed(11)
+        ops = []
+        for x in args[:n_operands]:
+            pad = torch.randn(*x.shape[:-1], width - hd, generator=g, device=x.device)
+            ops.append(torch.cat([x, pad.to(x.dtype)], -1).contiguous())
+        out = launch(*ops, *args[n_operands:], **kw)
+        if sliced is None:
+            return out[..., :hd]
+        return tuple(o[..., :hd] if i in sliced else o for i, o in enumerate(out))
+    return fn
+
+
+def check_head_dims(rng, details):
+    """K2 and K4 (forward, dQ, dK, dV) at head dims 32 and 96 and at round 5's
+    shapes (``HEAD_DIM_CASES``), and K7 at 32, against their plain versions
+    on the card at the tolerances of the head dim 64 checks; a pad of noise
+    instead of zeros must fail each; two launches bit-equal; times beside the
+    plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from voxactb_tpu_torch.ops.cuda import flash_attention as K2
+    from voxactb_tpu_torch.ops.cuda import flash_attention_train as K4
+    from voxactb_tpu_torch.ops.cuda import sam_attention as K7
+    from voxactb_tpu_torch.ops.cuda.head_dim import kernel_head_dim
+    from voxactb_tpu_torch.ops.sam_attention import global_rel_attention_plain
+
+    dev = torch.device(DEVICE)
+    bf = torch.bfloat16
+    rows = {"flash_attention": {}, "flash_attention_train": {}, "sam_attention": {}}
+
+    def randn(g, *shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, bf)
+
+    for name, hd, k2_shape, k4_shape in HEAD_DIM_CASES:
+        # K2
+        bh, tq, tk = k2_shape
+        width = kernel_head_dim(hd, K2.HEAD_DIMS, "flash_attention")
+        g = torch.Generator(device="cpu").manual_seed(int(rng.integers(1 << 30)))
+        q, k, v = randn(g, bh, tq, hd, scale=hd ** -0.5), randn(g, bh, tk, hd), randn(
+            g, bh, tk, hd)
+        ref = K2.flash_attention_reference(q, k, v)
+        got, again = K2.flash_attention(q, k, v), K2.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        tol = 2.0 ** -7 * float(ref.float().abs().max())
+        err = max_err(got, ref)
+        expect(got.shape == ref.shape and err <= tol,
+               f"attention head dim {hd}: err {err} > {tol}")
+        expect(torch.equal(got, again), f"attention head dim {hd}: two launches differ")
+        fault = max_err(noise_padded(K2._launch, width)(q, k, v, schedule=0), ref)
+        expect(fault > tol, f"attention head dim {hd}: a pad of noise erred by {fault} only")
+        flops = 4.0 * bh * tq * tk * hd
+        bms, by = bound_ms(2.0 * (2 * bh * tq * hd + 2 * bh * tk * hd), flops)
+        row = dict(shape=f"BH={bh} Tq={tq} Tk={tk} hd={hd} (kernel {width})",
+                   max_abs_err=err, tol=tol, planted_noise_pad_err=fault,
+                   ms=time_ms(lambda: K2.flash_attention(q, k, v)),
+                   device_ms=device_ms(lambda: K2.flash_attention(q, k, v), "attention_fwd"),
+                   plain_ms=time_ms(lambda: K2.flash_attention_reference(q, k, v), reps=5),
+                   library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                       q[None], k[None], v[None], scale=1.0)),
+                   bound_ms=bms, bound_by=by)
+        rows["flash_attention"][name] = row
+        log(f"[kernels] flash_attention {row['shape']}: err {err:.3g} (tol {tol:.3g}), two "
+            f"launches bit-equal, planted noise_pad err {fault:.3g}; {row['ms']:.4f} ms "
+            f"(device {row['device_ms']:.4f}), plain {row['plain_ms']:.4f}, sdpa "
+            f"{row['library_ms']:.4f}, bound {bms:.4f} ({by})")
+        del q, k, v, ref, got, again
+
+        # K4
+        bh, tq, tk, drop = k4_shape
+        width = kernel_head_dim(hd, K4.HEAD_DIMS, "flash_attention_train")
+        q, k, v = randn(g, bh, tq, hd, scale=hd ** -0.5), randn(g, bh, tk, hd), randn(
+            g, bh, tk, hd)
+        d_out = randn(g, bh, tq, hd)
+        seed = torch.tensor(int(rng.integers(1 << 32)), dtype=torch.int64, device=dev)
+        row = dict(shape=f"BH={bh} Tq={tq} Tk={tk} hd={hd} (kernel {width})")
+        tols = {"out": 2.0 ** -7, "lse": 2.0 ** -20, "dq": 2.0 ** -7, "dk": 2.0 ** -7,
+                "dv": 2.0 ** -7}
+        for dropout in (0.0, drop):
+            out, lse, bits = K4.flash_attention_train_forward(q, k, v, seed, dropout)
+            grads = K4.flash_attention_train_backward(q, k, v, lse, d_out, bits, dropout)
+            rout, rlse = K4.plain_forward(q, k, v, seed, dropout)
+            refs = dict(zip(("dq", "dk", "dv"), K4.plain_backward(q, k, v, rlse, d_out, seed,
+                                                                   dropout)))
+            pairs = {"out": (out, rout), "lse": (lse, rlse),
+                     **{key: (a, refs[key]) for key, a in zip(("dq", "dk", "dv"), grads)}}
+            errs = {}
+            for key, (a, r) in pairs.items():
+                t = tols[key] * float(r.float().abs().max())
+                errs[key] = dict(max_abs_err=max_err(a, r), tol=t)
+                expect(a.shape == r.shape and errs[key]["max_abs_err"] <= t,
+                       f"attention_train head dim {hd} dropout {dropout}: {key} err "
+                       f"{errs[key]['max_abs_err']} > {t}")
+            if dropout > 0.0:
+                want = K4.keep_bits(seed, bh, tq, tk, dropout)
+                expect(torch.equal(bits, want), f"attention_train head dim {hd}: keep bits")
+                again = K4.flash_attention_train_forward(q, k, v, seed, dropout)
+                again += K4.flash_attention_train_backward(q, k, v, again[1], d_out,
+                                                           again[2], dropout)
+                expect(all(torch.equal(a, b_) for a, b_ in zip((out, lse, bits, *grads),
+                                                               again)),
+                       f"attention_train head dim {hd}: two launches differ")
+                # planted: the operands and dO padded with noise
+                w_out = noise_padded(K4._launch_forward, width, sliced=(0,))(
+                    q, k, v, seed, dropout)[0]
+                w_grads = noise_padded(K4._launch_backward, width, n_operands=4,
+                                      sliced=(0, 1, 2))(q, k, v, d_out, lse, bits, dropout)
+                planted = {"out": max_err(w_out, rout), **{
+                    key: max_err(a, refs[key]) for key, a in zip(("dq", "dk", "dv"),
+                                                                 w_grads)}}
+                caught = [key for key, e in planted.items() if e > errs[key]["tol"]]
+                row["planted_noise_pad_err"] = planted
+                expect(len(caught) == 4, f"attention_train head dim {hd}: a pad of noise "
+                                         f"passed in {set(planted) - set(caught)}")
+                del again, w_out, w_grads
+            row[f"dropout_{dropout}"] = errs
+        _, lse, bits = K4.flash_attention_train_forward(q, k, v, seed, drop)
+        row.update(
+            fwd_ms=time_ms(lambda: K4.flash_attention_train_forward(q, k, v, seed, drop),
+                           reps=5),
+            bwd_ms=time_ms(lambda: K4.flash_attention_train_backward(q, k, v, lse, d_out,
+                                                                     bits, drop), reps=5),
+            fwd_device_ms=device_ms(lambda: K4.flash_attention_train_forward(
+                q, k, v, seed, drop), "train_fwd", reps=5),
+            bwd_device_ms=device_ms(lambda: K4.flash_attention_train_backward(
+                q, k, v, lse, d_out, bits, drop), "train_bwd", reps=5),
+            plain_fwd_ms=time_ms(lambda: K4.plain_forward(q, k, v, seed, drop), reps=3,
+                                 warmup=1),
+            plain_bwd_ms=time_ms(lambda: K4.plain_backward(q, k, v, lse, d_out, seed, drop),
+                                 reps=3, warmup=1))
+        ql, kl, vl = (t.detach()[None].clone().requires_grad_() for t in (q, k, v))
+        with torch.no_grad():
+            row["library_fwd_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+                ql, kl, vl, dropout_p=drop, scale=1.0), reps=5)
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, dropout_p=drop, scale=1.0)
+        row["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            lib_out, (ql, kl, vl), d_out[None], retain_graph=True), reps=5)
+        flops = 4.0 * bh * tq * tk * hd
+        qkv_bytes = 2.0 * (bh * tq * hd + 2 * bh * tk * hd)
+        bits_bytes = 4.0 * bh * tq * (-(-tk // 32))
+        row["fwd_bound_ms"], row["fwd_bound_by"] = bound_ms(
+            qkv_bytes + 2.0 * bh * tq * hd + 4.0 * bh * tq + bits_bytes, flops)
+        row["bwd_bound_ms"], row["bwd_bound_by"] = bound_ms(
+            2.0 * qkv_bytes + 2.0 * 2 * bh * tq * hd + 4.0 * bh * tq + bits_bytes,
+            2.5 * flops)
+        rows["flash_attention_train"][name] = row
+        log(f"[kernels] flash_attention_train {row['shape']}: " + "; ".join(
+            f"dropout {d}: " + ", ".join(f"{key} err {e['max_abs_err']:.3g} (tol "
+                                         f"{e['tol']:.3g})"
+                                         for key, e in row[f"dropout_{d}"].items())
+            for d in (0.0, drop)) + ", keep bits bit-equal, two launches bit-equal, planted "
+            "noise_pad " + ", ".join(f"{key} {e:.3g}"
+                                    for key, e in row["planted_noise_pad_err"].items())
+            + f"; forward {row['fwd_ms']:.4f} ms (device {row['fwd_device_ms']:.4f}, plain "
+            f"{row['plain_fwd_ms']:.4f}, sdpa {row['library_fwd_ms']:.4f}, bound "
+            f"{row['fwd_bound_ms']:.4f}), backward {row['bwd_ms']:.4f} ms (device "
+            f"{row['bwd_device_ms']:.4f}, plain {row['plain_bwd_ms']:.4f}, sdpa "
+            f"{row['library_bwd_ms']:.4f}, bound {row['bwd_bound_ms']:.4f})")
+        del q, k, v, d_out, lse, bits, ql, kl, vl, lib_out
+        torch.cuda.empty_cache()
+
+    # K7 below 64, on the ragged window case's inputs
+    hd, (bh, kh, kw) = HEAD_DIM_SAM
+    width = kernel_head_dim(hd, K7.HEAD_DIMS, "sam_attention")
+    g = torch.Generator(device="cpu").manual_seed(int(rng.integers(1 << 30)))
+    q, k, v, rel_h, rel_w = sam_attention_inputs(g, "ragged", bh, kh, kw, dev, hd)
+    run = lambda: K7.global_rel_attention(q, k, v, rel_h, rel_w, kh=kh, kw=kw)  # noqa: E731
+    ref = global_rel_attention_plain(q, k, v, rel_h, rel_w, kh=kh, kw=kw)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    tol = 2.0 ** -7 * float(ref.float().abs().max())
+    err = max_err(got, ref)
+    expect(got.shape == ref.shape and err <= tol,
+           f"sam_attention head dim {hd}: err {err} > {tol}")
+    expect(torch.equal(got, again), f"sam_attention head dim {hd}: two launches differ")
+    fault = max_err(noise_padded(K7._launch, width)(q, k, v, rel_h, rel_w, kh=kh, kw=kw), ref)
+    expect(fault > tol, f"sam_attention head dim {hd}: a pad of noise erred by {fault} only")
+    t = kh * kw
+    bms, by = bound_ms(2.0 * 4 * bh * t * hd + 4.0 * bh * t * (kh + kw), 4.0 * bh * t * t * hd)
+    row = dict(shape=f"BH={bh} T={t} kh={kh} kw={kw} hd={hd} (kernel {width})",
+               max_abs_err=err, tol=tol, planted_noise_pad_err=fault, ms=time_ms(run),
+               device_ms=device_ms(run, "attention_fwd"),
+               plain_ms=time_ms(lambda: global_rel_attention_plain(
+                   q, k, v, rel_h, rel_w, kh=kh, kw=kw), reps=5), bound_ms=bms, bound_by=by)
+    rows["sam_attention"][str(hd)] = row
+    log(f"[kernels] sam_attention {row['shape']}: err {err:.3g} (tol {tol:.3g}), two "
+        f"launches bit-equal, planted noise_pad err {fault:.3g}; {row['ms']:.4f} ms (device "
+        f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f}, bound {bms:.4f} ({by})")
+    details["head_dims"] = rows
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: the act path
 # ---------------------------------------------------------------------------
@@ -1769,9 +2004,10 @@ def two_head50(rng, details):
                              "decoder_tail_trans_stats": 1, "front_patchify": 1})
 
 
-def checked_act(tag, cfg, seed, bounds, rng, details, want):
+def checked_act(tag, cfg, seed, bounds, rng, details, want, faults=()):
     """One act of ``cfg``: kernels on against kernels off under the act-level
-    tolerance, then the act itself, whose launches must be ``want``."""
+    tolerance (``faults`` planted as ``compare_paths`` plants them), then the
+    act itself, whose launches must be ``want``."""
     import torch
     from voxactb_tpu_torch.agents.qfunction import make_infer_fn
     from voxactb_tpu_torch.ops import cuda as kernels
@@ -1780,7 +2016,7 @@ def checked_act(tag, cfg, seed, bounds, rng, details, want):
     model_on, infer = make_infer_fn(cfg, device=DEVICE, seed=seed)
     refs = {d: reference_model(cfg, model_on, d) for d in ("bfloat16", "float32")}
     inputs = act_inputs(rng, 1, cfg.proprio_width())
-    compare_paths(cfg, model_on, refs, inputs, [bounds], tag, details)
+    compare_paths(cfg, model_on, refs, inputs, [bounds], tag, details, faults=faults)
     del refs
     kernels.reset_launch_counts()
     out = infer(model_on, inputs["rgbs"], inputs["pcds"], inputs["proprio"],
@@ -2272,57 +2508,258 @@ def train_batch(rng, cfg, b):
     return batch
 
 
-def compare_train_paths(batch, details):
+def k4_plain(_wrapper):
+    """K4's wrapper replaced by its plain version (the same rounding points,
+    f32 sums in another order), on the card."""
+    from voxactb_tpu_torch.ops.cuda.flash_attention_train import (
+        flash_attention_train_reference)
+
+    return flash_attention_train_reference
+
+
+def k4_plain_ulp(seed):
+    """K4's plain version with one bf16 ulp added to 1% of its outputs
+    (seeded): an error inside what the kernel checks accept (2^-7 of the
+    largest output is one to two ulps), to measure what such an error does
+    to a train step."""
+    def wrap(_wrapper):
+        import torch
+        from voxactb_tpu_torch.ops.cuda.flash_attention_train import (
+            flash_attention_train_reference)
+
+        state = {}
+
+        def fn(q, k, v, seed_, *, dropout=0.0):
+            g = state.setdefault("g", torch.Generator(device=q.device).manual_seed(seed))
+            out = flash_attention_train_reference(q, k, v, seed_, dropout=dropout)
+            flip = (torch.rand(out.shape, generator=g, device=out.device) < 0.01)
+            return out * (1 + flip.to(out.dtype) * 2.0 ** -7)
+        return fn
+    return wrap
+
+
+K4_ULP_RUNS = 4  # one-ulp perturbations of K4's plain version per noise floor
+
+
+def compare_train_paths(batch, details, model=None, tag="train50", reference="plain",
+                        faults=()):
     """One step's losses and gradients with dropout and augmentation off:
     kernels on (K4) against the plain attention path at bf16, on the same
     seeded weights. The tolerance is twice the plain bf16 path's own distance
     from the plain path at f32, as at act level: over the losses as one group,
     and per gradient leaf, scaled by the leaf's largest f32 gradient (a leaf
-    whose own distance happens to be small gets the median leaf's)."""
+    whose own distance happens to be small gets the median leaf's). ``model``
+    overrides the config's widths (round 5's model); the report goes to
+    ``details`` under ``tag``'s name. With ``reference="k4_plain"`` the
+    kernel path is held to the same model with K4's plain version in the
+    kernel's place (``k4_plain``), and each tolerance is also at least twice
+    the largest distance that ``K4_ULP_RUNS`` one-ulp perturbations of that
+    plain version (``k4_plain_ulp``) put between their step and its: round
+    5's small model at random weights is so sensitive that K4's rounding
+    points (dS rounded to bf16, as on the TPU) fail the plain-path rule on
+    about half the batches with K4's plain version alone, and a one-ulp
+    change in 1% of the attention outputs fails it on two of three (on the
+    CPU); the plain-path distance is one sample of that noise. ``faults``, as
+    ``compare_paths``' (name, module, attribute, wrap, must catch), are run
+    through the kernel path."""
     import torch
     from voxactb_tpu_torch.agents.qfunction import make_optimizer, make_train_step
 
     quiet = dict(apply_se3=False, input_dropout=0.0, attn_dropout=0.0)
     results = {}
-    for tag, kw in (("on", {}), ("off", dict(pallas_attention_train=False)),
-                    ("f32", dict(pallas_attention_train=False, compute_dtype="float32"))):
-        cfg = train_config(**quiet, **kw)
-        _, init_fn, step = make_train_step(cfg, make_optimizer(cfg, 100_000),
-                                           TRAIN_CAMERAS, device=DEVICE, seed=0)
-        metrics, grads = step.loss_and_grads(init_fn(), batch)
-        torch.cuda.synchronize()
-        results[tag] = ({k: float(v) for k, v in metrics.items()},
-                        {k: v.float() for k, v in grads.items()})
+
+    def run(kw, *plant):
+        cfg = train_config(**{**(model or {}), **quiet, **kw})
+        with contextlib.ExitStack() as stack:
+            if plant:
+                stack.enter_context(planted(*plant))
+            _, init_fn, step = make_train_step(cfg, make_optimizer(cfg, 100_000),
+                                               TRAIN_CAMERAS, device=DEVICE, seed=0)
+            metrics, grads = step.loss_and_grads(init_fn(), batch)
+            torch.cuda.synchronize()
+        out = ({k: float(v) for k, v in metrics.items()},
+               {k: v.float() for k, v in grads.items()})
         del step, init_fn, metrics, grads
         torch.cuda.empty_cache()
+        return out
+
+    k4 = ("voxactb_tpu_torch.ops.cuda.flash_attention_train", "flash_attention_train")
+    results["on"] = run({})
+    ulp = []
+    if reference == "k4_plain":
+        results["ref"] = run({}, *k4, k4_plain)
+        ulp = [run({}, *k4, k4_plain_ulp(seed)) for seed in range(1, K4_ULP_RUNS + 1)]
+    results["off"] = run(dict(pallas_attention_train=False))
+    results["f32"] = run(dict(pallas_attention_train=False, compute_dtype="float32"))
     (m_on, g_on), (m_off, g_off), (m_32, g_32) = (results[t] for t in ("on", "off", "f32"))
-    loss_tol = 2.0 * max(abs(m_off[k] - m_32[k]) for k in m_32)
-    loss_err = {k: abs(m_on[k] - m_off[k]) for k in m_32}
+    m_ref, g_ref = results.get("ref", results["off"])
+    loss_floor = max((abs(m[k] - m_ref[k]) for m, _ in ulp for k in m_32), default=0.0)
+    loss_tol = 2.0 * max(max(abs(m_off[k] - m_32[k]) for k in m_32), loss_floor)
+    loss_err = {k: abs(m_on[k] - m_ref[k]) for k in m_32}
     scale = {k: float(g_32[k].abs().max()) for k in g_32}
     live = [k for k in g_32 if scale[k] > 0.0]
     plain = {k: max_err(g_off[k], g_32[k]) / scale[k] for k in live}
-    kernel = {k: max_err(g_on[k], g_off[k]) / scale[k] for k in live}
+    kernel = {k: max_err(g_on[k], g_ref[k]) / scale[k] for k in live}
+    kernel_f32 = {k: max_err(g_on[k], g_32[k]) / scale[k] for k in live}
+    kernel_plain = {k: max_err(g_on[k], g_off[k]) / scale[k] for k in live}
     typical = statistics.median(plain.values())
-    grad_tol = {k: 2.0 * max(plain[k], typical) for k in live}
+    floor = {k: max((max_err(g[k], g_ref[k]) / scale[k] for _, g in ulp), default=0.0)
+             for k in live}
+    grad_tol = {k: 2.0 * max(plain[k], typical, floor[k]) for k in live}
     worst = max(kernel, key=lambda k: kernel[k] / grad_tol[k])
     report = dict(losses=m_on, losses_plain=m_off, losses_f32=m_32, loss_err=loss_err,
                   loss_tol=loss_tol, grad_err_worst=kernel[worst],
                   grad_tol_worst=grad_tol[worst], grad_err_worst_leaf=worst,
                   grad_plain_vs_f32_median=typical,
                   grad_plain_vs_f32_worst=max(plain.values()), leaves=len(live),
-                  grad_err=kernel, grad_plain_vs_f32=plain)
-    details["train_compare"] = report
-    log(f"[train50] kernels on vs plain attention path, dropout and aug off: total loss "
-        f"{m_on['total_loss']:.5f} vs {m_off['total_loss']:.5f} (f32 {m_32['total_loss']:.5f}"
-        f"); largest loss err {max(loss_err.values()):.3g} (tol {loss_tol:.3g}); largest "
-        f"gradient err against its tolerance {kernel[worst]:.3g} of the leaf's largest "
-        f"gradient, at {worst} (tol {grad_tol[worst]:.3g}; the plain bf16 path is "
-        f"{typical:.3g} median, {max(plain.values()):.3g} worst from f32), over "
-        f"{len(live)} leaves")
-    expect(all(np.isfinite(v) for v in m_on.values()), "train50: non-finite loss")
-    expect(max(loss_err.values()) <= loss_tol, f"train50: loss err {loss_err} > {loss_tol}")
+                  grad_err=kernel, grad_plain_vs_f32=plain, grad_kernel_vs_f32=kernel_f32,
+                  reference=reference, grad_kernel_vs_plain_path=kernel_plain,
+                  loss_kernel_vs_plain_path={k: abs(m_on[k] - m_off[k]) for k in m_32},
+                  ulp_runs=len(ulp), loss_ulp_floor=loss_floor, grad_ulp_floor=floor)
+    planted_report = {}
+    for name, module, attr, wrap, must_catch in faults:
+        m_w, g_w = run({}, module, attr, wrap)
+        losses = [k for k in m_32 if abs(m_w[k] - m_ref[k]) > loss_tol]
+        leaves = [k for k in live if max_err(g_w[k], g_ref[k]) / scale[k] > grad_tol[k]]
+        planted_report[name] = dict(losses_caught=losses, leaves_caught=len(leaves),
+                                    total_loss_err=abs(m_w["total_loss"] - m_ref["total_loss"]))
+        log(f"[{tag}] planted fault {name}: total loss err "
+            f"{planted_report[name]['total_loss_err']:.3g}; beyond tolerance in losses "
+            f"{losses}, {len(leaves)} gradient leaves")
+        expect(bool(losses or leaves) or not must_catch,
+               f"{tag}: planted fault {name} stayed within tolerance")
+    report["planted_faults"] = planted_report
+    details["train_compare" if tag == "train50" else f"{tag}_train_compare"] = report
+    against = ("K4's plain version in its place" if reference == "k4_plain"
+               else "plain attention path")
+    log(f"[{tag}] kernels on vs {against}, dropout and aug off: total loss "
+        f"{m_on['total_loss']:.5f} vs {m_ref['total_loss']:.5f} (plain attention path "
+        f"{m_off['total_loss']:.5f}, f32 {m_32['total_loss']:.5f}); largest loss err "
+        f"{max(loss_err.values()):.3g} (tol {loss_tol:.3g}); largest gradient err against its "
+        f"tolerance {kernel[worst]:.3g} of the leaf's largest gradient, at {worst} (tol "
+        f"{grad_tol[worst]:.3g}; the plain bf16 path is {typical:.3g} median, "
+        f"{max(plain.values()):.3g} worst from f32" + (
+            f"; {len(ulp)} one-ulp perturbations of K4's plain version move the loss by "
+            f"{loss_floor:.3g} and that leaf by {floor[worst]:.3g}" if ulp else "")
+        + f"), over {len(live)} leaves")
+    expect(all(np.isfinite(v) for v in m_on.values()), f"{tag}: non-finite loss")
+    expect(max(loss_err.values()) <= loss_tol, f"{tag}: loss err {loss_err} > {loss_tol}")
     bad = [k for k in live if kernel[k] > grad_tol[k]]
-    expect(not bad, f"train50: gradients beyond tolerance in {bad}")
+    expect(not bad, f"{tag}: gradients beyond tolerance in {bad}")
+
+
+ROUND5_CONFIG = os.path.join(HERE, "eval_artifacts", "open_jar", "train_dominant", "open_jar",
+                             "PERACT_BC", "seed0", "config.json")
+# the keys of round 5's method config that shape its model: Perceiver widths
+# and depth (latents 64 x 64, depth 2, heads of 32), the decoder's width, the
+# grid
+ROUND5_MODEL_KEYS = ("voxel_sizes", "num_latents", "latent_dim", "transformer_depth",
+                     "transformer_iterations", "cross_heads", "cross_dim_head", "latent_heads",
+                     "latent_dim_head", "final_dim", "voxel_patch_size", "voxel_patch_stride",
+                     "which_arm", "arm_pred_loss", "crop_target_obj_voxel", "crop_radius")
+
+
+def noise_padded_attention(_wrapper):
+    """K2 with its heads' zero pad replaced by noise (``noise_padded``): a
+    planted fault through the real kernel at heads below 64."""
+    from voxactb_tpu_torch.ops.cuda import flash_attention as K2
+
+    return lambda q, k, v, **kw: noise_padded(K2._launch, 64)(q, k, v, schedule=0)
+
+
+def noise_padded_attention_train(_wrapper):
+    """K4 with its heads' zero pad replaced by noise in the forward and the
+    backward (``noise_padded``): a planted fault through the real kernels at
+    heads below 64."""
+    import torch
+    from voxactb_tpu_torch.ops.cuda import flash_attention_train as K4
+
+    fwd = noise_padded(K4._launch_forward, 64, sliced=(0,))
+    bwd = noise_padded(K4._launch_backward, 64, n_operands=4, sliced=(0, 1, 2))
+
+    class Noisy(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, seed, dropout):
+            out, lse, bits = fwd(q, k, v, seed, dropout)
+            ctx.save_for_backward(q, k, v, lse)
+            ctx.bits, ctx.dropout = bits, dropout
+            return out
+
+        @staticmethod
+        def backward(ctx, d_out):
+            q, k, v, lse = ctx.saved_tensors
+            dq, dk, dv = bwd(q, k, v, d_out.to(q.dtype), lse, ctx.bits, ctx.dropout)
+            return dq, dk, dv, None, None
+
+    return lambda q, k, v, seed, *, dropout=0.0: Noisy.apply(
+        q, k, v, K4._seed_tensor(seed, q.device), float(dropout))
+
+
+ROUND5_ACT_FAULTS = (("attention_noise_pad", "voxactb_tpu_torch.ops.cuda.flash_attention",
+                      "flash_attention", noise_padded_attention, True),)
+ROUND5_TRAIN_FAULTS = (("attention_train_noise_pad",
+                        "voxactb_tpu_torch.ops.cuda.flash_attention_train",
+                        "flash_attention_train", noise_padded_attention_train, True),)
+
+
+def round5_model():
+    """Round 5's open_jar model (``eval_artifacts``' acting policy config)."""
+    with open(ROUND5_CONFIG) as f:
+        method = json.load(f)["method"]
+    return {k: method[k] for k in ROUND5_MODEL_KEYS}
+
+
+def round5(rng, details):
+    """Round 5's model (heads of 32) on the kernel path: one act with its
+    kernel flags held to the plain path by ``compare_paths``, and one train
+    step's losses and gradients with K4 held by ``compare_train_paths``, then
+    two steps whose launches must show K4 took their calls. Before the kernels
+    took head dims other than 64, both raised. The act launches K1 and K2 (4
+    calls at depth 2); K3's gate, the JAX package's ``tail_ok``, wants the
+    decoder's width equal to the voxel features' (64), and round 5's
+    ``final_dim`` is 16, so K3 runs in neither package there."""
+    import torch
+    from voxactb_tpu_torch.agents.qfunction import make_optimizer, make_train_step
+    from voxactb_tpu_torch.ops import cuda as kernels
+
+    model = round5_model()
+    expect(model["cross_dim_head"] == 32 and model["latent_dim_head"] == 32,
+           f"round 5's head dims: {model}")
+    depth = model["transformer_depth"]
+    cfg = act_config(model["voxel_sizes"][0],
+                     **{k: v for k, v in model.items() if k != "voxel_sizes"})
+    act = checked_act("round5_act", cfg, 0, CROP_BOUNDS, rng, details,
+                      want={"front_fused": 1, "flash_attention": depth + 2,
+                            "decoder_head": 0}, faults=ROUND5_ACT_FAULTS)
+    b = 4  # round 5's batch
+    tcfg = train_config(**model)
+    batch = train_batch(rng, tcfg, b)
+    compare_train_paths(batch, details, model=model, tag="round5_train", reference="k4_plain",
+                        faults=ROUND5_TRAIN_FAULTS)
+    dev = torch.device(DEVICE)
+    _, init_fn, step = make_train_step(tcfg, make_optimizer(tcfg, 100_000), TRAIN_CAMERAS,
+                                       device=DEVICE, seed=0)
+    device_batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = init_fn()
+    state, _ = step(state, device_batch, gen)  # warm
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    losses = []
+    for _ in range(2):
+        state, metrics = step(state, device_batch, gen)
+        losses.append(float(metrics["total_loss"]))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    expect(all(np.isfinite(losses)), f"round5_train: losses {losses}")
+    expect(counts["flash_attention_train_fwd"] == 2 * (depth + 2)
+           and counts["flash_attention_train_bwd"] == 2 * (depth + 2),
+           f"round5_train: launches {counts} in 2 steps")
+    log(f"[round5] train steps at round 5's model, batch {b}, SE(3) aug and dropout on: "
+        f"losses {losses}; launches: {counts}")
+    del state, step, init_fn
+    torch.cuda.empty_cache()
+    return act, dict(steps=2, launches=counts)
 
 
 def train50(rng, details, timings, n_steps=10, warm=2):
@@ -2964,6 +3401,7 @@ def protocol(details, timings):
 # ---------------------------------------------------------------------------
 
 PROTOCOL_EVAL_ITERS = 4  # with save_freq 2: checkpoints 0, 2 and 3
+PROTOCOL_EVAL_ROOT = os.path.join(HERE, "build", "protocol_eval")
 DISK_REPLAY_ITERS = 4
 FEED_BATCHES = 20
 TEARDOWN_ROUNDS = 5
@@ -3179,7 +3617,7 @@ def protocol_tool(timings):
     from voxactb_tpu_torch.sim.environment import BimanualTaskEnvironment
     from voxactb_tpu_torch.tools import run_protocol_eval as tool
 
-    root = os.path.join(HERE, "build", "protocol_eval")
+    root = PROTOCOL_EVAL_ROOT
     shutil.rmtree(root, ignore_errors=True)
     head = ["--tasks", PROTOCOL_TASK, "--iters", str(PROTOCOL_EVAL_ITERS), "--save-freq", "2",
             "--demos", "2", "--episodes", "2", "--out", root]
@@ -3365,10 +3803,118 @@ def protocol_tool(timings):
                                                        "train_step", "act", "sim_step")))
     log(f"[protocol_eval] train leg launches: {train_counts}")
     log(f"[protocol_eval] eval leg launches: {eval_counts}")
-    shutil.rmtree(root, ignore_errors=True)
+    # the seed dirs stay for the diagnose phase, which removes them
     torch.cuda.empty_cache()
     return (dict(launches=train_counts, steps=len(updates)),
-            dict(launches=eval_counts, acts=len(acts)))
+            dict(launches=eval_counts, acts=len(acts)), acting_dir)
+
+
+DIAGNOSE_STEP = PROTOCOL_EVAL_ITERS - 1  # the short leg's last checkpoint
+
+
+def diagnose(acting_dir, details, timings):
+    """The diagnosis probes on the checkpoints of ``protocol_tool``'s short
+    leg (open_jar at full width, bf16, kernel flags; its last step), then the
+    two profilers at small counts: ``profile_train --flash-ab-only --steps 2``
+    (K4 against the plain attention path) and ``profile_sam --frames 1``. Each
+    tool's printed output goes to ``chip_smoke.json``, its record to a line
+    of its own; the launches of the whole phase are returned."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+    from voxactb_tpu_torch.ops import cuda as kernels
+    from voxactb_tpu_torch.tools import (probe_hybrid_inputs, probe_input_diff,
+                                        probe_policy_open_loop, probe_replay_accuracy,
+                                        probe_replay_ambiguity, profile_sam, profile_train)
+
+    stab_dir = acting_dir.replace("train_dominant", "train_assistive")
+    step = str(DIAGNOSE_STEP)
+    pair = ["--acting-dir", acting_dir, "--stab-dir", stab_dir, "--ckpt-step", step]
+    runs = (
+        ("probe_replay_ambiguity", probe_replay_ambiguity.main,
+         ["--task", PROTOCOL_TASK, "--seed-dir", acting_dir]),
+        ("probe_replay_accuracy", probe_replay_accuracy.main,
+         ["--task", PROTOCOL_TASK, "--seed-dir", acting_dir, "--ckpt-step", step]),
+        ("probe_policy_open_loop", probe_policy_open_loop.main,
+         ["--task", PROTOCOL_TASK, *pair, "--episodes", "1", "--live"]),
+        ("probe_input_diff", probe_input_diff.main, ["--task", PROTOCOL_TASK]),
+        ("probe_hybrid_inputs", probe_hybrid_inputs.main,
+         ["--task", PROTOCOL_TASK, *pair, "--episodes", "1"]),
+        ("profile_train", profile_train.main, ["--flash-ab-only", "--steps", "2"]),
+        ("profile_sam", profile_sam.main, ["--frames", "1"]))
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    records, seconds, launches = {}, {}, {}
+    try:
+        for name, fn, argv in runs:
+            out = io.StringIO()
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                records[name] = fn(argv, device=DEVICE)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            launches[name] = {k: v - before[k] for k, v in kernels.launch_counts().items()
+                              if v != before[k]}
+            details.setdefault("diagnose", {})[name] = dict(argv=argv, stdout=out.getvalue(),
+                                                            seconds=seconds[name],
+                                                            launches=launches[name])
+            log(f"[diagnose] {name} {seconds[name]:.1f} s, launches {launches[name]}")
+    finally:
+        shutil.rmtree(PROTOCOL_EVAL_ROOT, ignore_errors=True)
+    counts = kernels.launch_counts()
+
+    amb, acc = records["probe_replay_ambiguity"], records["probe_replay_accuracy"]
+    expect(amb["samples"] > 0 and 0 <= amb["conflicting_pairs"] <= amb["near_duplicate_pairs"],
+           f"diagnose: ambiguity {amb}")
+    expect(acc["samples"] == amb["samples"] and 0.0 <= acc["trans_exact"] <= 1.0
+           and 0.0 <= acc["grip_exact"] <= 1.0, f"diagnose: replay accuracy {acc}")
+    (ol,) = records["probe_policy_open_loop"]["summary"]
+    expect(ol["keyframes"] > 0 and ol["live_steps"] > 0 and np.isfinite(ol["pos_err_cm_mean"]),
+           f"diagnose: open loop {ol}")
+    diff = records["probe_input_diff"]
+    expect(diff and all(np.isfinite(r[f"{c}_{k}"]["max"]) for r in diff
+                        for c in ("wrist", "wrist2") for k in ("rgb", "point_cloud")),
+           f"diagnose: input diff {diff[:1]}")
+    hyb = records["probe_hybrid_inputs"]
+    expect(hyb and all(v in r for r in hyb for v in probe_hybrid_inputs.VARIANTS),
+           f"diagnose: hybrid rows {hyb[:1]}")
+    pt = records["profile_train"]
+    expect(set(pt["all"]) == {"full", "full_flashtrain"}
+           and all(pt["all"][k] > 0 and pt["device_ms"][k] > 0 for k in pt["all"]),
+           f"diagnose: profile_train {pt}")
+    ps = records["profile_sam"]["all"]
+    expect(all(v > 0 for v in ps.values()), f"diagnose: profile_sam {ps}")
+    for name, want in (("probe_replay_accuracy", ("front_fused", "flash_attention",
+                                                  "decoder_head")),
+                       ("probe_policy_open_loop", ("front_fused", "flash_attention",
+                                                   "decoder_head")),
+                       ("probe_hybrid_inputs", ("flash_attention",)),
+                       ("profile_train", ("flash_attention_train_fwd",
+                                          "flash_attention_train_bwd")),
+                       ("profile_sam", ("sam_attention",))):
+        expect(all(launches[name].get(k, 0) > 0 for k in want),
+               f"diagnose: {name} launched {launches[name]}")
+    summary = dict(
+        probe_replay_ambiguity={k: amb[k] for k in ("samples", "near_duplicate_pairs",
+                                                    "conflicting_pairs")},
+        probe_replay_accuracy={k: acc[k] for k in ("samples", "trans_exact", "grip_exact")},
+        probe_policy_open_loop=ol,
+        probe_input_diff=dict(keyframes=len(diff), rgb_max=max(
+            r[f"{c}_rgb"]["max"] for r in diff for c in ("wrist", "wrist2"))),
+        probe_hybrid_inputs=dict(rows=len(hyb), first=hyb[0]),
+        profile_train=dict(ms=pt["all"], device_ms=pt["device_ms"]),
+        profile_sam=ps)
+    for name, rec in summary.items():
+        log(json.dumps({"diagnose": name, **rec}))
+    wall_s = time.perf_counter() - t_phase
+    timings["diagnose"] = dict(wall_s=wall_s, seconds=seconds, summary=summary)
+    log(f"[diagnose] {wall_s:.1f} s: " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
+    torch.cuda.empty_cache()
+    return dict(launches=counts, per_tool=launches)
 
 
 def main() -> int:
@@ -3419,6 +3965,8 @@ def main() -> int:
     # the VLM slice's phases draw from streams of their own, so that the
     # earlier phases keep their inputs
     sam_attn = check_sam_attention(np.random.default_rng(1), details)
+    # K2, K4 and K7 at head dims they are not built for: a stream of its own
+    head_dims = check_head_dims(np.random.default_rng(16), details)
     # the dense-grid slice's checks and phases draw from a stream of their own
     dense_rng = np.random.default_rng(3)
     for n in (50, 100):
@@ -3453,6 +4001,9 @@ def main() -> int:
     t0 = time.perf_counter()
     runs["train50"] = train50(rng, details, timings)
     log(f"[train50] took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    runs["round5_act"], runs["round5_train"] = round5(np.random.default_rng(17), details)
+    log(f"[round5] took {time.perf_counter() - t0:.1f} s")
     # the tools' phase draws from streams of its own (numpy seed 12, card
     # generator seeds 110-120, the tools' own seeds)
     t0 = time.perf_counter()
@@ -3461,8 +4012,9 @@ def main() -> int:
     runs["protocol_train"], runs["protocol_eval"] = protocol(details, timings)
     t0 = time.perf_counter()
     runs["disk_replay"] = disk_replay(timings)
-    runs["protocol_tool_train"], runs["protocol_tool_eval"] = protocol_tool(timings)
+    runs["protocol_tool_train"], runs["protocol_tool_eval"], acting_dir = protocol_tool(timings)
     log(f"[protocol_eval] took {time.perf_counter() - t0:.1f} s")
+    runs["diagnose"] = diagnose(acting_dir, details, timings)
 
     # phase 11: every kernel was launched on the main path that runs it
     act_kernels = ("front_fused", "flash_attention", "decoder_head", "decoder_tail_conv",
@@ -3471,6 +4023,8 @@ def main() -> int:
                      "decoder_tail_conv", "decoder_tail_trans_stats", "decoder_phase_gemm",
                      "front_patchify")
     path_kernels = {"train50": ("flash_attention_train_fwd", "flash_attention_train_bwd"),
+                    "round5_act": ("front_fused", "front_patchify", "flash_attention"),
+                    "round5_train": ("flash_attention_train_fwd", "flash_attention_train_bwd"),
                     "vlm_episode": act_kernels + ("sam_attention",),
                     "dense100": dense_kernels, "dense100_agent": dense_kernels,
                     "dense_two_head50": dense_kernels,
@@ -3480,6 +4034,8 @@ def main() -> int:
                     "disk_replay": ("flash_attention_train_fwd", "flash_attention_train_bwd"),
                     "protocol_tool_train": ("flash_attention_train_fwd",
                                             "flash_attention_train_bwd"),
+                    "diagnose": act_kernels + ("flash_attention_train_fwd",
+                                               "flash_attention_train_bwd", "sam_attention"),
                     "tools": TOOLS_KERNELS + ("front_fused", "front_patchify", "decoder_head",
                                               "decoder_tail_conv", "decoder_tail_trans_stats",
                                               "flash_attention")}
@@ -3627,6 +4183,15 @@ def main() -> int:
         for key, where in (("grid_copy", "tools/profile_stages.py:211"),
                            ("smem_scratch", "tools/probe_vmem.py:13"),
                            ("shifted_window", "tools/probe_vmem.py:36"))]}
+    # K2, K4 and K7 at the head dims their wrappers pad (device ms per call)
+    for name, key, rows_ in (("flash_attention", "device_ms", head_dims["flash_attention"]),
+                             ("flash_attention_train_fwd", "fwd_device_ms",
+                              head_dims["flash_attention_train"]),
+                             ("flash_attention_train_bwd", "bwd_device_ms",
+                              head_dims["flash_attention_train"]),
+                             ("sam_attention", "device_ms", head_dims["sam_attention"])):
+        next(k for k in kernels_line["kernels"] if k["name"] == name)["head_dim_device_ms"] = {
+            case: row[key] for case, row in rows_.items()}
     # K5's launches (the voxel pass, its combine) beside their bounds
     k5 = next(k for k in kernels_line["kernels"] if k["name"] == "encoder_stats")
     k5.update(device_ms=e100["device_ms"], launch_device_ms=e100["launch_device_ms"],

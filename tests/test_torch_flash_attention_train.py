@@ -183,8 +183,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 
 
 def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
-    q = torch.zeros(1, 8, 32, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim 64"):
+    q = torch.zeros(1, 8, 136, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="at most 128"):
         K4._check_operands(q, q, q)
     q = torch.zeros(1, 8, 64)
     with pytest.raises(ValueError, match="bf16"):

@@ -1,5 +1,5 @@
 // The inference attention forward for Hopper (sm_90a), instantiated by the act
-// path's attention (flash_attention.cu, head dim 64) and by SAM's rel-pos
+// path's attention (flash_attention.cu, head dim 64 or 128) and by SAM's rel-pos
 // attention (sam_attention.cu, head dim 64 or 80, with the rel_h / rel_w
 // bias): out = softmax(q k^T [+ rel_h + rel_w], keys past Tk masked) v.
 //
@@ -25,6 +25,14 @@
 // rows, 32-byte swizzle). q k^T takes four k16 steps on the first box and one
 // on the second; P v is an n64 wgmma on V's first box plus an n16 on the
 // second. Nothing is padded to 128 columns.
+//
+// Head dim 128 (the act path's heads of 65-128, zero-padded by the wrapper):
+// each operand is two 64-column boxes of one map (128-byte swizzle), loaded
+// at columns 0 and 64. q k^T sums both boxes' k16 steps into one
+// accumulator; P v is two n64 products, one per box of V. It runs at 64 rows
+// per block without a key split (its 64 KB stages leave no room for more)
+// and without the register hand-over: the consumers' two output halves need
+// more than the 128 registers of two blocks per SM, so it is built for one.
 //
 // Rel-pos bias (kBias): each block stages the rel_h [rows, kh] and rel_w
 // [rows, kw] f32 rows of its queries in shared memory once; the bias is added
@@ -59,12 +67,18 @@ constexpr int kExLd = 72;  // f32 row stride of the partial outputs a key split 
 // per-head-dim tile sizes: the 64-column box, and at head dim 80 the 16-column one
 template <int HD>
 struct Geo {
-  static_assert(HD == 64 || HD == 80, "head dim 64 or 80");
+  static_assert(HD == 64 || HD == 80 || HD == 128, "head dim 64, 80 or 128");
   static constexpr bool kNarrow = HD == 80;
-  static constexpr int kQ0Bytes = 64 * 128;
+  static constexpr bool kWide = HD == 128;  // two 64-column boxes per operand
+  static constexpr int kBoxes = kWide ? 2 : 1;
+  static constexpr int kQBox = 64 * 128;    // a 64-column box of 64 query rows
+  static constexpr int kKBox = kBn * 128;   // of a key tile
+  static constexpr int kQ0Bytes = kBoxes * kQBox;
   static constexpr int kQ1Bytes = kNarrow ? 64 * 32 : 0;
-  static constexpr int kK0Bytes = kBn * 128;
+  static constexpr int kK0Bytes = kBoxes * kKBox;
   static constexpr int kK1Bytes = kNarrow ? kBn * 32 : 0;
+  // accumulator floats per thread of the output columns past 64
+  static constexpr int kOut1 = kWide ? 32 : 8;
   // a ring stage: K box 0, V box 0, K box 1, V box 1
   static constexpr int kV0 = kK0Bytes;
   static constexpr int kK1 = 2 * kK0Bytes;
@@ -113,6 +127,8 @@ template <int HD>
 __device__ __forceinline__ void qk(float (&acc)[kBn / 2], uint32_t q0_tile, uint32_t q1_tile,
                                    uint32_t stage) {
   gemm_nt<kBn>(acc, q0_tile, stage);
+  if constexpr (Geo<HD>::kWide)
+    gemm_nt<kBn>(acc, q0_tile + Geo<HD>::kQBox, stage + Geo<HD>::kKBox, true);
   if constexpr (Geo<HD>::kNarrow)
     wgmma_ss<kBn>(acc, desc_sw32(q1_tile), desc_sw32(stage + Geo<HD>::kK1), 1);
 }
@@ -120,9 +136,10 @@ __device__ __forceinline__ void qk(float (&acc)[kBn / 2], uint32_t q0_tile, uint
 // issue out += P v over a tile: P as register fragments; the caller fences
 // before and commits and waits
 template <int HD>
-__device__ __forceinline__ void pv(float (&out0)[32], float (&out1)[8],
+__device__ __forceinline__ void pv(float (&out0)[32], float (&out1)[Geo<HD>::kOut1],
                                    const uint32_t (&a)[kBn / 16][4], uint32_t stage) {
   gemm_rs<kBn>(out0, a, stage + Geo<HD>::kV0);
+  if constexpr (Geo<HD>::kWide) gemm_rs<kBn>(out1, a, stage + Geo<HD>::kV0 + Geo<HD>::kKBox);
   if constexpr (Geo<HD>::kNarrow) {
     const uint64_t db = desc_sw32(stage + Geo<HD>::kV1);
 #pragma unroll
@@ -186,7 +203,7 @@ __device__ __forceinline__ void add_rel_bias(float (&acc)[kBn / 2], const float*
 }
 
 template <int HD, int NC, bool kBias>
-__global__ void __launch_bounds__(Roles<NC>::kThreads, Roles<NC>::kMinBlocks)
+__global__ void __launch_bounds__(Roles<NC>::kThreads, HD == 128 ? 1 : Roles<NC>::kMinBlocks)
 attention_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
               const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_q1,
               const __grid_constant__ CUtensorMap tm_k1,
@@ -202,7 +219,7 @@ attention_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
   const uint32_t q_full = base + P::bar(0), q_empty = base + P::bar(1 + 2 * kStages);
   const auto full = [&](int s) { return base + P::bar(1 + s); };
   const auto empty = [&](int s) { return base + P::bar(1 + kStages + s); };
-  const int S = kBias ? 1 : args.splits;
+  const int S = kBias || G::kWide ? 1 : args.splits;
   const int split = blockIdx.x % S;  // the CTA's rank in its cluster
   const int Tq = args.Tq, Tk = args.Tk;
   const int n_rb = (Tq + R - 1) / R, n_items = args.BH * n_rb;
@@ -223,7 +240,7 @@ attention_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
 
   if (wg == NC) {
     // producer: per item q, then K tiles (pass 1) and K, V tiles (pass 2)
-    setmaxnreg_dec<kProducerRegs>();
+    if constexpr (!G::kWide) setmaxnreg_dec<kProducerRegs>();
     int it = 0, n = 0;
     for (int item = blockIdx.x / S; item < n_items; item += stride, ++n) {
       const int bh = item / n_rb, q0 = item % n_rb * R;
@@ -235,6 +252,9 @@ attention_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
         mbar_arrive_expect_tx(q_full, NC * (G::kQ0Bytes + G::kQ1Bytes));
         for (int c = 0; c < NC; ++c) {
           tma_load_rows(base + c * G::kQ0Bytes, &tm_q, q_full, q0 + 64 * c, bh);
+          if constexpr (G::kWide)
+            tma_load_rows(base + c * G::kQ0Bytes + G::kQBox, &tm_q, q_full, q0 + 64 * c, bh,
+                          64);
           if constexpr (G::kNarrow)
             tma_load_rows(base + P::kQ1 + c * G::kQ1Bytes, &tm_q1, q_full, q0 + 64 * c, bh,
                           64);
@@ -246,10 +266,13 @@ attention_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
             mbar_wait(empty(s), Ring<kStages>::parity(it) ^ 1);
             mbar_arrive_expect_tx(full(s), (pass ? 2 : 1) * (G::kK0Bytes + G::kK1Bytes));
             tma_load_rows(st, &tm_k, full(s), t * kBn, bh);
+            if constexpr (G::kWide) tma_load_rows(st + G::kKBox, &tm_k, full(s), t * kBn, bh, 64);
             if constexpr (G::kNarrow)
               tma_load_rows(st + G::kK1, &tm_k1, full(s), t * kBn, bh, 64);
             if (pass) {
               tma_load_rows(st + G::kV0, &tm_v, full(s), t * kBn, bh);
+              if constexpr (G::kWide)
+                tma_load_rows(st + G::kV0 + G::kKBox, &tm_v, full(s), t * kBn, bh, 64);
               if constexpr (G::kNarrow)
                 tma_load_rows(st + G::kV1, &tm_v1, full(s), t * kBn, bh, 64);
             }
@@ -267,7 +290,7 @@ attention_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
     return;
   }
 
-  setmaxnreg_inc<Roles<NC>::kConsumerRegs>();
+  if constexpr (!G::kWide) setmaxnreg_inc<Roles<NC>::kConsumerRegs>();
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int g = lane / 4, qd = lane % 4;
   const int lr = 64 * wg + 16 * warp + g;  // the thread's rows in the item: lr, lr + 8
@@ -405,11 +428,11 @@ attention_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
     // q k^T, so its stage is released one tile later (hence three stages);
     // with one it follows at once (as in the trainable attention's forward).
     constexpr bool kPipelined = NC == 2;
-    float out[32], out1[8];
+    float out[32], out1[G::kOut1];
 #pragma unroll
     for (int i = 0; i < 32; ++i) out[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) out1[i] = 0.f;
+    for (int i = 0; i < G::kOut1; ++i) out1[i] = 0.f;
     uint32_t a[kBn / 16][4];
     for (int t = t0; t < t1; ++t, ++it) {
       const int st = Ring<kStages>::stage(it), prev = Ring<kStages>::stage(it - 1);
@@ -471,7 +494,7 @@ attention_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
     bf16* ob = args.o + (size_t)bh * Tq * HD;
     if (S == 1) {
       store_rows_bf16(out, ob, row, Tq, qd, HD);
-      if constexpr (G::kNarrow) store_rows_bf16(out1, ob + 64, row, Tq, qd, HD);
+      if constexpr (G::kNarrow || G::kWide) store_rows_bf16(out1, ob + 64, row, Tq, qd, HD);
       continue;
     }
     // key split: the partial outputs, summed in rank order over the cluster,

@@ -6,7 +6,11 @@
 // Replaces voxactb_tpu/ops/pallas/flash_attention.py::flash_attention_train
 // (TPU kernels `_train_fwd_kernel` and `_train_bwd_kernel`, mask `_hash_keep`),
 // the Perceiver trunk's cross, self and decoder attention of the BC train step
-// at bf16 with head dim 64. q arrives pre-scaled by 64^-1/2 (in bf16).
+// at bf16 with head dim 64, or 128 (the wrapper zero-pads heads of up to 64 to
+// 64 and of 65-128 to 128, which is exact: zero columns add nothing to q k^T
+// and give zero columns of O, dQ, dK and dV, and lse, the row term and the
+// keep mask do not depend on the head dim, as in the TPU kernel, which pads
+// to 128). q arrives pre-scaled by hd^-1/2 of the true head dim (in bf16).
 //
 // What bounds it on an H100: operations. One self attention of the train step
 // at batch 8 (64 heads of 2048 x 2048) is 69 GFLOP forward and 172 GFLOP
@@ -82,6 +86,14 @@
 // element (see row_key); at 64 x 2048 x 2048 it adds half to the forward's
 // time (measured on an H100: 416 us at dropout 0.1, 287 us at 0).
 // No float atomics: a step is reproducible.
+//
+// Head dim 128 (C = 2 boxes): every operand tile is two 64-column boxes of one
+// map (128-byte swizzle), loaded at columns 0 and 64, stored side by side. A
+// product over the head dim sums both boxes' k16 steps in one accumulator; a
+// product into the head dim is two n64 products, one per box. Every kernel
+// runs at NC = 1 there (the dK/dV kernel at 64 keys per block) and is built
+// for one block per SM without the register hand-over, so that its two output
+// halves fit in registers. These variants are made to be right, not fast.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -107,19 +119,67 @@ struct Plan {
   __host__ __device__ constexpr int bytes() const { return bar(1 + 2 * kStages) + 1024; }
 };
 
-template <int NC>
+// (C: 64-column boxes per operand row, 1 or 2)
+template <int NC, int C>
 __host__ __device__ constexpr Plan fwd_plan() {
-  return Plan{NC * kTile64Bytes, 2 * kFwdBn * kRowBytes};
+  return Plan{NC * C * kTile64Bytes, 2 * C * kFwdBn * kRowBytes};
 }
-template <int NC>
+template <int NC, int C>
 __host__ __device__ constexpr Plan dq_plan() {
-  return Plan{2 * NC * kTile64Bytes, 2 * kBwdBn * kRowBytes};
+  return Plan{2 * NC * C * kTile64Bytes, 2 * C * kBwdBn * kRowBytes};
 }
-// dK/dV (128 keys): k and v resident; a stage holds the q and dO tiles, then
-// lse * log2(e) and r of the 64 queries, then the mask words [4 key words][64
-// queries]
+// dK/dV (NC * 64 keys): k and v resident; a stage holds the q and dO tiles,
+// then lse * log2(e) and r of the 64 queries, then the mask words [2 NC key
+// words][64 queries]
+template <int NC, int C>
 __host__ __device__ constexpr Plan dkv_plan() {
-  return Plan{4 * kTile64Bytes, 2 * kBwdBn * kRowBytes + 3072};
+  return Plan{2 * NC * C * kTile64Bytes, 2 * C * kBwdBn * kRowBytes + 3072};
+}
+
+// no register hand-over at C = 2, whose kernels are built for one block per
+// SM (see the top)
+template <int C>
+__device__ __forceinline__ void producer_regs() {
+  if constexpr (C == 1) setmaxnreg_dec<kProducerRegs>();
+}
+template <int NC, int C>
+__device__ __forceinline__ void consumer_regs() {
+  if constexpr (C == 1) setmaxnreg_inc<Roles<NC>::kConsumerRegs>();
+}
+
+// issue d[64 x N] = A B^T over C 64-column boxes: box b of A at a_tile + b *
+// a_box, of B at b_tile + b * b_box
+template <int N, int C>
+__device__ __forceinline__ void gemm_nt_boxes(float (&d)[N / 2], uint32_t a_tile, uint32_t a_box,
+                                              uint32_t b_tile, uint32_t b_box) {
+#pragma unroll
+  for (int b = 0; b < C; ++b) gemm_nt<N>(d, a_tile + b * a_box, b_tile + b * b_box, b > 0);
+}
+// issue acc[b] += P B_b for the C boxes of B (box b at b_tile + b * b_box)
+template <int N, int C>
+__device__ __forceinline__ void gemm_rs_boxes(float (&acc)[C][32], const uint32_t (&a)[N / 16][4],
+                                              uint32_t b_tile, uint32_t b_box) {
+#pragma unroll
+  for (int b = 0; b < C; ++b) gemm_rs<N>(acc[b], a, b_tile + b * b_box);
+}
+template <int C>
+__device__ __forceinline__ void fence_boxes(float (&acc)[C][32]) {
+#pragma unroll
+  for (int b = 0; b < C; ++b) fence_regs(acc[b]);
+}
+template <int C>
+__device__ __forceinline__ void zero_boxes(float (&acc)[C][32]) {
+#pragma unroll
+  for (int b = 0; b < C; ++b)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[b][i] = 0.f;
+}
+// rows of 64 C values
+template <int C>
+__device__ __forceinline__ void store_boxes(const float (&acc)[C][32], bf16* dst, int row,
+                                            int rows_valid, int qd) {
+#pragma unroll
+  for (int b = 0; b < C; ++b) store_rows_bf16(acc[b], dst + 64 * b, row, rows_valid, qd, 64 * C);
 }
 
 // The TPU kernel's mask: keep element `index` where
@@ -146,14 +206,14 @@ __device__ __forceinline__ bool keep_after_mix(uint32_t x, uint32_t thr) {
 // forward
 // ---------------------------------------------------------------------------
 
-template <int NC>
-__global__ void __launch_bounds__(Roles<NC>::kThreads, Roles<NC>::kMinBlocks)
+template <int NC, int C>
+__global__ void __launch_bounds__(Roles<NC>::kThreads, C == 1 ? Roles<NC>::kMinBlocks : 1)
 train_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
           const __grid_constant__ CUtensorMap tm_v, const long long* __restrict__ seed_ptr,
           bf16* __restrict__ o, float* __restrict__ lse, uint32_t* __restrict__ bits, int Tq,
           int Tk, uint32_t thr, float scale, int tq_pad, int tk_pad) {
-  constexpr Plan P = fwd_plan<NC>();
-  constexpr uint32_t kKBytes = kFwdBn * kRowBytes;
+  constexpr Plan P = fwd_plan<NC, C>();
+  constexpr uint32_t kKBytes = kFwdBn * kRowBytes;  // a box of a key tile
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = align1024(smem_u32(smem_raw));
   const int bh = blockIdx.y, q0 = blockIdx.x * NC * 64;
@@ -171,28 +231,34 @@ train_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
 
   if (wg == NC) {
     // producer: Q once, then K tiles (pass 1) and K, V tiles (pass 2)
-    setmaxnreg_dec<kProducerRegs>();
+    producer_regs<C>();
     if (threadIdx.x == NC * 128) {
-      mbar_arrive_expect_tx(base + P.bar(0), NC * kTile64Bytes);
+      mbar_arrive_expect_tx(base + P.bar(0), NC * C * kTile64Bytes);
       for (int c = 0; c < NC; ++c)
-        tma_load_rows(base + c * kTile64Bytes, &tm_q, base + P.bar(0), q0 + 64 * c, bh);
+        for (int b = 0; b < C; ++b)
+          tma_load_rows(base + (c * C + b) * kTile64Bytes, &tm_q, base + P.bar(0), q0 + 64 * c,
+                        bh, 64 * b);
       int it = 0;
       for (int pass = 0; pass < 2; ++pass)
         for (int t = 0; t < n_tiles; ++t, ++it) {
           const int s = Ring<kStages>::stage(it);
           const uint32_t full = base + P.bar(1 + s);
           mbar_wait(base + P.bar(1 + kStages + s), Ring<kStages>::parity(it) ^ 1);
-          mbar_arrive_expect_tx(full, pass ? 2 * kKBytes : kKBytes);
-          tma_load_rows(base + P.stage(s), &tm_k, full, t * kFwdBn, bh);
-          if (pass) tma_load_rows(base + P.stage(s) + kKBytes, &tm_v, full, t * kFwdBn, bh);
+          mbar_arrive_expect_tx(full, (pass ? 2 : 1) * C * kKBytes);
+          for (int b = 0; b < C; ++b) {
+            tma_load_rows(base + P.stage(s) + b * kKBytes, &tm_k, full, t * kFwdBn, bh, 64 * b);
+            if (pass)
+              tma_load_rows(base + P.stage(s) + (C + b) * kKBytes, &tm_v, full, t * kFwdBn, bh,
+                            64 * b);
+          }
         }
     }
   } else {
-    setmaxnreg_inc<Roles<NC>::kConsumerRegs>();
+    consumer_regs<NC, C>();
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int g = lane / 4, qd = lane % 4;
     const int row = q0 + 64 * wg + 16 * warp + g;  // and row + 8
-    const uint32_t q_tile = base + wg * kTile64Bytes;
+    const uint32_t q_tile = base + wg * C * kTile64Bytes;
     const bool drop = thr != 0u;
     const int W = (Tk + 31) / 32;
     mbar_wait(base + P.bar(0), 0);
@@ -208,7 +274,7 @@ train_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
       const int st = Ring<kStages>::stage(it);
       mbar_wait(base + P.bar(1 + st), Ring<kStages>::parity(it));
       turns.take_turn();
-      gemm_nt<kFwdBn>(acc, q_tile, base + P.stage(st));
+      gemm_nt_boxes<kFwdBn, C>(acc, q_tile, kTile64Bytes, base + P.stage(st), kKBytes);
       wgmma_commit();
       turns.hand_over(false);
       wgmma_wait_all();
@@ -253,9 +319,8 @@ train_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
     // two blocks per SM, holding A across the next q k^T serialises the wgmma
     // (measured on an H100: 37 against 33 us at the decoder shape).
     constexpr bool kPipelined = NC == 2;
-    float out[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) out[i] = 0.f;
+    float out[C][32];
+    zero_boxes(out);
     uint32_t a[kFwdBn / 16][4];
     for (int t = 0; t < n_tiles; ++t, ++it) {
       const int st = Ring<kStages>::stage(it), prev = Ring<kStages>::stage(it - 1);
@@ -263,15 +328,15 @@ train_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
       turns.take_turn();
       if (kPipelined && t > 0) {
         wgmma_fence();
-        gemm_rs<kFwdBn>(out, a, base + P.stage(prev) + kKBytes);
+        gemm_rs_boxes<kFwdBn, C>(out, a, base + P.stage(prev) + C * kKBytes, kKBytes);
       }
-      gemm_nt<kFwdBn>(acc, q_tile, base + P.stage(st));
+      gemm_nt_boxes<kFwdBn, C>(acc, q_tile, kTile64Bytes, base + P.stage(st), kKBytes);
       wgmma_commit();
       turns.hand_over(t == n_tiles - 1);
       wgmma_wait_all();
       fence_regs(acc);
       if (kPipelined) {
-        fence_regs(out);
+        fence_boxes(out);
         fence_regs(a);
         if (t > 0 && lane == 0) mbar_arrive(base + P.bar(1 + kStages + prev));
       }
@@ -321,23 +386,24 @@ train_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
       a_fragments<kFwdBn>(acc, a);
       if (!kPipelined) {
         wgmma_fence();
-        gemm_rs<kFwdBn>(out, a, base + P.stage(st) + kKBytes);
+        gemm_rs_boxes<kFwdBn, C>(out, a, base + P.stage(st) + C * kKBytes, kKBytes);
         wgmma_commit();
         wgmma_wait_all();
-        fence_regs(out);
+        fence_boxes(out);
         fence_regs(a);
         if (lane == 0) mbar_arrive(base + P.bar(1 + kStages + st));
       }
     }
     if (kPipelined) {
       wgmma_fence();
-      gemm_rs<kFwdBn>(out, a, base + P.stage(Ring<kStages>::stage(it - 1)) + kKBytes);
+      gemm_rs_boxes<kFwdBn, C>(out, a, base + P.stage(Ring<kStages>::stage(it - 1)) + C * kKBytes,
+                               kKBytes);
       wgmma_commit();
       wgmma_wait_all();
-      fence_regs(out);
+      fence_boxes(out);
       fence_regs(a);
     }
-    store_rows_bf16(out, o + (size_t)bh * Tq * kHd, row, Tq, qd, kHd);
+    store_boxes(out, o + (size_t)bh * Tq * 64 * C, row, Tq, qd);
   }
 }
 
@@ -346,14 +412,14 @@ train_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
 // ---------------------------------------------------------------------------
 
 // dQ for NC * 64 query rows; also writes their row term r = sum_j P dP (`delta`)
-template <int NC>
-__global__ void __launch_bounds__(Roles<NC>::kThreads, Roles<NC>::kMinBlocks)
+template <int NC, int C>
+__global__ void __launch_bounds__(Roles<NC>::kThreads, C == 1 ? Roles<NC>::kMinBlocks : 1)
 train_bwd_dq(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
              const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
              const float* __restrict__ lse, const uint32_t* __restrict__ bits,
              bf16* __restrict__ dq, float* __restrict__ delta, int Tq, int Tk, float scale) {
-  constexpr Plan P = dq_plan<NC>();
-  constexpr uint32_t kKBytes = kBwdBn * kRowBytes;
+  constexpr Plan P = dq_plan<NC, C>();
+  constexpr uint32_t kKBytes = kBwdBn * kRowBytes;  // a box of a key tile
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = align1024(smem_u32(smem_raw));
   const int bh = blockIdx.y, q0 = blockIdx.x * NC * 64;
@@ -371,30 +437,35 @@ train_bwd_dq(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
 
   if (wg == NC) {
     // producer: Q and dO once, then K, V tiles twice over
-    setmaxnreg_dec<kProducerRegs>();
+    producer_regs<C>();
     if (threadIdx.x == NC * 128) {
-      mbar_arrive_expect_tx(base + P.bar(0), 2 * NC * kTile64Bytes);
-      for (int c = 0; c < NC; ++c) {
-        tma_load_rows(base + c * kTile64Bytes, &tm_q, base + P.bar(0), q0 + 64 * c, bh);
-        tma_load_rows(base + (NC + c) * kTile64Bytes, &tm_do, base + P.bar(0), q0 + 64 * c,
-                      bh);
-      }
+      mbar_arrive_expect_tx(base + P.bar(0), 2 * NC * C * kTile64Bytes);
+      for (int c = 0; c < NC; ++c)
+        for (int b = 0; b < C; ++b) {
+          tma_load_rows(base + (c * C + b) * kTile64Bytes, &tm_q, base + P.bar(0), q0 + 64 * c,
+                        bh, 64 * b);
+          tma_load_rows(base + ((NC + c) * C + b) * kTile64Bytes, &tm_do, base + P.bar(0),
+                        q0 + 64 * c, bh, 64 * b);
+        }
       for (int it = 0; it < 2 * n_tiles; ++it) {
         const int s = Ring<kStages>::stage(it), t = it % n_tiles;
         const uint32_t full = base + P.bar(1 + s);
         mbar_wait(base + P.bar(1 + kStages + s), Ring<kStages>::parity(it) ^ 1);
-        mbar_arrive_expect_tx(full, 2 * kKBytes);
-        tma_load_rows(base + P.stage(s), &tm_k, full, t * kBwdBn, bh);
-        tma_load_rows(base + P.stage(s) + kKBytes, &tm_v, full, t * kBwdBn, bh);
+        mbar_arrive_expect_tx(full, 2 * C * kKBytes);
+        for (int b = 0; b < C; ++b) {
+          tma_load_rows(base + P.stage(s) + b * kKBytes, &tm_k, full, t * kBwdBn, bh, 64 * b);
+          tma_load_rows(base + P.stage(s) + (C + b) * kKBytes, &tm_v, full, t * kBwdBn, bh,
+                        64 * b);
+        }
       }
     }
   } else {
-    setmaxnreg_inc<Roles<NC>::kConsumerRegs>();
+    consumer_regs<NC, C>();
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int g = lane / 4, qd = lane % 4;
     const int row = q0 + 64 * wg + 16 * warp + g;  // and row + 8
-    const uint32_t q_tile = base + wg * kTile64Bytes;
-    const uint32_t do_tile = base + (NC + wg) * kTile64Bytes;
+    const uint32_t q_tile = base + wg * C * kTile64Bytes;
+    const uint32_t do_tile = base + (NC + wg) * C * kTile64Bytes;
     const bool drop = bits != nullptr;
     const int W = (Tk + 31) / 32;
     float lb[2];
@@ -407,10 +478,9 @@ train_bwd_dq(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
     }
     mbar_wait(base + P.bar(0), 0);
 
-    float sacc[32], da[32], dqacc[32];
+    float sacc[32], da[32], dqacc[C][32];
     float rterm[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 32; ++i) dqacc[i] = 0.f;
+    zero_boxes(dqacc);
     uint32_t a[kBwdBn / 16][4];
     for (int it = 0; it < 2 * n_tiles; ++it) {
       const bool pass2 = it >= n_tiles;
@@ -427,8 +497,10 @@ train_bwd_dq(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
       }
       const int st = Ring<kStages>::stage(it);
       mbar_wait(base + P.bar(1 + st), Ring<kStages>::parity(it));
-      gemm_nt<kBwdBn>(sacc, q_tile, base + P.stage(st));       // l = q k^T
-      gemm_nt<kBwdBn>(da, do_tile, base + P.stage(st) + kKBytes);  // dA = dO v^T
+      // l = q k^T, dA = dO v^T
+      gemm_nt_boxes<kBwdBn, C>(sacc, q_tile, kTile64Bytes, base + P.stage(st), kKBytes);
+      gemm_nt_boxes<kBwdBn, C>(da, do_tile, kTile64Bytes, base + P.stage(st) + C * kKBytes,
+                               kKBytes);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(sacc);
@@ -472,28 +544,28 @@ train_bwd_dq(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
           }
       a_fragments<kBwdBn>(sacc, a);
       wgmma_fence();
-      gemm_rs<kBwdBn>(dqacc, a, base + P.stage(st));  // dQ += dS k
+      gemm_rs_boxes<kBwdBn, C>(dqacc, a, base + P.stage(st), kKBytes);  // dQ += dS k
       wgmma_commit();
       wgmma_wait_all();
-      fence_regs(dqacc);
+      fence_boxes(dqacc);
       fence_regs(a);
       if (lane == 0) mbar_arrive(base + P.bar(1 + kStages + st));
     }
-    store_rows_bf16(dqacc, dq + (size_t)bh * Tq * kHd, row, Tq, qd, kHd);
+    store_boxes(dqacc, dq + (size_t)bh * Tq * 64 * C, row, Tq, qd);
   }
 }
 
-// dK and dV for 128 keys (two consumer warpgroups): one pass over the query
+// dK and dV for NC * 64 keys (NC consumer warpgroups): one pass over the query
 // tiles with the transposed products
-__global__ void __launch_bounds__(Roles<2>::kThreads, Roles<2>::kMinBlocks)
+template <int NC, int C>
+__global__ void __launch_bounds__(Roles<NC>::kThreads, C == 1 ? Roles<NC>::kMinBlocks : 1)
 train_bwd_dkv(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
               const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
               const float* __restrict__ lse, const float* __restrict__ delta,
               const uint32_t* __restrict__ bits, bf16* __restrict__ dk, bf16* __restrict__ dv,
               int Tq, int Tk, float scale) {
-  constexpr int NC = 2;
-  constexpr Plan P = dkv_plan();
-  constexpr uint32_t kQBytes = kBwdBn * kRowBytes;
+  constexpr Plan P = dkv_plan<NC, C>();
+  constexpr uint32_t kQBytes = kBwdBn * kRowBytes;  // a box of a query tile
   constexpr int kWords = 2 * NC;  // key words of the block
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -516,28 +588,33 @@ train_bwd_dkv(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
   if (wg == NC) {
     // producer warp: K and V once, then per query tile q and dO (TMA) and
     // lse * log2(e), r and the mask words (lanes, plain loads)
-    setmaxnreg_dec<kProducerRegs>();
+    producer_regs<C>();
     if (threadIdx.x / 32 == NC * 4) {
       const int lane = threadIdx.x % 32;
       const int W = (Tk + 31) / 32;
       if (lane == 0) {
-        mbar_arrive_expect_tx(base + P.bar(0), 2 * NC * kTile64Bytes);
-        for (int c = 0; c < NC; ++c) {
-          tma_load_rows(base + c * kTile64Bytes, &tm_k, base + P.bar(0), k0 + 64 * c, bh);
-          tma_load_rows(base + (NC + c) * kTile64Bytes, &tm_v, base + P.bar(0), k0 + 64 * c,
-                        bh);
-        }
+        mbar_arrive_expect_tx(base + P.bar(0), 2 * NC * C * kTile64Bytes);
+        for (int c = 0; c < NC; ++c)
+          for (int b = 0; b < C; ++b) {
+            tma_load_rows(base + (c * C + b) * kTile64Bytes, &tm_k, base + P.bar(0), k0 + 64 * c,
+                          bh, 64 * b);
+            tma_load_rows(base + ((NC + c) * C + b) * kTile64Bytes, &tm_v, base + P.bar(0),
+                          k0 + 64 * c, bh, 64 * b);
+          }
       }
       for (int t = 0; t < n_tiles; ++t) {
         const int s = Ring<kStages>::stage(t);
         const uint32_t full = base + P.bar(1 + s);
         mbar_wait(base + P.bar(1 + kStages + s), Ring<kStages>::parity(t) ^ 1);
         if (lane == 0) {
-          mbar_arrive_expect_tx(full, 2 * kQBytes);
-          tma_load_rows(base + P.stage(s), &tm_q, full, t * kBwdBn, bh);
-          tma_load_rows(base + P.stage(s) + kQBytes, &tm_do, full, t * kBwdBn, bh);
+          mbar_arrive_expect_tx(full, 2 * C * kQBytes);
+          for (int b = 0; b < C; ++b) {
+            tma_load_rows(base + P.stage(s) + b * kQBytes, &tm_q, full, t * kBwdBn, bh, 64 * b);
+            tma_load_rows(base + P.stage(s) + (C + b) * kQBytes, &tm_do, full, t * kBwdBn, bh,
+                          64 * b);
+          }
         }
-        float* side = reinterpret_cast<float*>(smem + P.stage(s) + 2 * kQBytes);
+        float* side = reinterpret_cast<float*>(smem + P.stage(s) + 2 * C * kQBytes);
         uint32_t* words = reinterpret_cast<uint32_t*>(side + 2 * kBwdBn);
         for (int c = lane; c < kBwdBn; c += 32) {
           const int col = t * kBwdBn + c;
@@ -556,34 +633,35 @@ train_bwd_dkv(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
       }
     }
   } else {
-    setmaxnreg_inc<Roles<NC>::kConsumerRegs>();
+    consumer_regs<NC, C>();
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int g = lane / 4, qd = lane % 4;
     const int key = k0 + 64 * wg + 16 * warp + g;  // and key + 8
-    const uint32_t k_tile = base + wg * kTile64Bytes;
-    const uint32_t v_tile = base + (NC + wg) * kTile64Bytes;
+    const uint32_t k_tile = base + wg * C * kTile64Bytes;
+    const uint32_t v_tile = base + (NC + wg) * C * kTile64Bytes;
     // the block's key word of this warp's 16 keys, and their bits in it
     const int word_of_warp = 2 * wg + warp / 2;
     const int bit0 = 16 * (warp % 2) + g;  // key + 8: bit0 + 8
     mbar_wait(base + P.bar(0), 0);
 
-    float sacc[32], da[32], dkacc[32], dvacc[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) dkacc[i] = dvacc[i] = 0.f;
+    float sacc[32], da[32], dkacc[C][32], dvacc[C][32];
+    zero_boxes(dkacc);
+    zero_boxes(dvacc);
     uint32_t a_ds[kBwdBn / 16][4], a_p[kBwdBn / 16][4];
     for (int t = 0; t < n_tiles; ++t) {
       const int st = Ring<kStages>::stage(t);
       const int q0 = t * kBwdBn;
-      const uint32_t q_tile = base + P.stage(st), do_tile = q_tile + kQBytes;
+      const uint32_t q_tile = base + P.stage(st), do_tile = q_tile + C * kQBytes;
       mbar_wait(base + P.bar(1 + st), Ring<kStages>::parity(t));
-      gemm_nt<kBwdBn>(sacc, k_tile, q_tile);  // l^T = k q^T
-      gemm_nt<kBwdBn>(da, v_tile, do_tile);   // dA^T = v dO^T
+      gemm_nt_boxes<kBwdBn, C>(sacc, k_tile, kTile64Bytes, q_tile, kQBytes);  // l^T = k q^T
+      gemm_nt_boxes<kBwdBn, C>(da, v_tile, kTile64Bytes, do_tile, kQBytes);   // dA^T = v dO^T
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(sacc);
       fence_regs(da);
       if (q0 + kBwdBn > Tq) mask_columns(sacc, q0 + 2 * qd, Tq);
-      const float* side = reinterpret_cast<const float*>(smem + P.stage(st) + 2 * kQBytes);
+      const float* side =
+          reinterpret_cast<const float*>(smem + P.stage(st) + 2 * C * kQBytes);
       const uint32_t* words = reinterpret_cast<const uint32_t*>(side + 2 * kBwdBn);
 #pragma unroll
       for (int j = 0; j < kBwdBn / 8; ++j) {
@@ -607,18 +685,18 @@ train_bwd_dkv(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
       a_fragments<kBwdBn>(sacc, a_ds);
       a_fragments<kBwdBn>(da, a_p);
       wgmma_fence();
-      gemm_rs<kBwdBn>(dvacc, a_p, do_tile);  // dV += A^T dO
-      gemm_rs<kBwdBn>(dkacc, a_ds, q_tile);  // dK += dS^T q
+      gemm_rs_boxes<kBwdBn, C>(dvacc, a_p, do_tile, kQBytes);  // dV += A^T dO
+      gemm_rs_boxes<kBwdBn, C>(dkacc, a_ds, q_tile, kQBytes);  // dK += dS^T q
       wgmma_commit();
       wgmma_wait_all();
-      fence_regs(dkacc);
-      fence_regs(dvacc);
+      fence_boxes(dkacc);
+      fence_boxes(dvacc);
       fence_regs(a_ds);
       fence_regs(a_p);
       if (lane == 0) mbar_arrive(base + P.bar(1 + kStages + st));
     }
-    store_rows_bf16(dkacc, dk + (size_t)bh * Tk * kHd, key, Tk, qd, kHd);
-    store_rows_bf16(dvacc, dv + (size_t)bh * Tk * kHd, key, Tk, qd, kHd);
+    store_boxes(dkacc, dk + (size_t)bh * Tk * 64 * C, key, Tk, qd);
+    store_boxes(dvacc, dv + (size_t)bh * Tk * 64 * C, key, Tk, qd);
   }
 }
 
@@ -632,12 +710,16 @@ cudaError_t device_setup(int* sms) {
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!done[dev]) {
-    const void* kernels[5] = {(const void*)train_fwd<1>, (const void*)train_fwd<2>,
-                              (const void*)train_bwd_dq<1>, (const void*)train_bwd_dq<2>,
-                              (const void*)train_bwd_dkv};
-    const int bytes[5] = {fwd_plan<1>().bytes(), fwd_plan<2>().bytes(), dq_plan<1>().bytes(),
-                          dq_plan<2>().bytes(), dkv_plan().bytes()};
-    for (int i = 0; i < 5; ++i) {
+    const void* kernels[8] = {
+        (const void*)train_fwd<1, 1>,     (const void*)train_fwd<2, 1>,
+        (const void*)train_fwd<1, 2>,     (const void*)train_bwd_dq<1, 1>,
+        (const void*)train_bwd_dq<2, 1>,  (const void*)train_bwd_dq<1, 2>,
+        (const void*)train_bwd_dkv<2, 1>, (const void*)train_bwd_dkv<1, 2>};
+    const int bytes[8] = {fwd_plan<1, 1>().bytes(),    fwd_plan<2, 1>().bytes(),
+                          fwd_plan<1, 2>().bytes(),    dq_plan<1, 1>().bytes(),
+                          dq_plan<2, 1>().bytes(),     dq_plan<1, 2>().bytes(),
+                          dkv_plan<2, 1>().bytes(),    dkv_plan<1, 2>().bytes()};
+    for (int i = 0; i < 8; ++i) {
       err = cudaFuncSetAttribute(kernels[i], cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  bytes[i]);
       if (err != cudaSuccess) return err;
@@ -662,8 +744,9 @@ int consumer_groups(int BH, int T, int sms) {
 
 VX_EXPORT_ERROR_STRING(voxactb_flash_attention_train_error_string)
 
-// q [BH, Tq, 64], k, v [BH, Tk, 64] bf16 contiguous and 16-byte aligned; seed:
-// one int64 on the device holding a value below 2^32; o [BH, Tq, 64] bf16 and
+// q [BH, Tq, hd], k, v [BH, Tk, hd] bf16 contiguous and 16-byte aligned, hd 64
+// or 128; seed: one int64 on the device holding a value below 2^32; o [BH, Tq,
+// hd] bf16 and
 // lse [BH, Tq] f32 are written, and with thr != 0 the keep mask as bits
 // [BH, Tq, ceil(Tk / 32)] uint32 (else `bits` may be null).
 // thr = round(dropout * 2^32) or 0 without dropout, scale = 1 / (1 - dropout);
@@ -671,40 +754,46 @@ VX_EXPORT_ERROR_STRING(voxactb_flash_attention_train_error_string)
 extern "C" int voxactb_flash_attention_train_fwd(
     const void* q, const void* k, const void* v, const void* seed, void* o, void* lse,
     void* bits, int BH, int Tq, int Tk, unsigned int thr, float scale, int tq_pad,
-    int tk_pad, void* stream_ptr) {
+    int tk_pad, int hd, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (tk_pad % kFwdBn != 0) return (int)cudaErrorInvalidValue;  // see row_key
+  if (tk_pad % kFwdBn != 0 || (hd != 64 && hd != 128))  // tk_pad: see row_key
+    return (int)cudaErrorInvalidValue;
   int sms = 0;
   VX_CHECK(device_setup(&sms));
   CUtensorMap tq, tk, tv;
-  VX_CHECK(rows_map(&tq, q, BH, Tq, 64));
-  VX_CHECK(rows_map(&tk, k, BH, Tk, kFwdBn));
-  VX_CHECK(rows_map(&tv, v, BH, Tk, kFwdBn));
+  VX_CHECK(rows_map(&tq, q, BH, Tq, 64, hd));
+  VX_CHECK(rows_map(&tk, k, BH, Tk, kFwdBn, hd));
+  VX_CHECK(rows_map(&tv, v, BH, Tk, kFwdBn, hd));
   const long long* seedp = static_cast<const long long*>(seed);
   bf16* op = static_cast<bf16*>(o);
   float* lsep = static_cast<float*>(lse);
   uint32_t* bitsp = static_cast<uint32_t*>(bits);
-  if (consumer_groups(BH, Tq, sms) == 2) {
+  if (hd == 128) {
+    dim3 grid((Tq + 63) / 64, BH);
+    train_fwd<1, 2><<<grid, Roles<1>::kThreads, fwd_plan<1, 2>().bytes(), stream>>>(
+        tq, tk, tv, seedp, op, lsep, bitsp, Tq, Tk, thr, scale, tq_pad, tk_pad);
+  } else if (consumer_groups(BH, Tq, sms) == 2) {
     dim3 grid((Tq + 127) / 128, BH);
-    train_fwd<2><<<grid, Roles<2>::kThreads, fwd_plan<2>().bytes(), stream>>>(
+    train_fwd<2, 1><<<grid, Roles<2>::kThreads, fwd_plan<2, 1>().bytes(), stream>>>(
         tq, tk, tv, seedp, op, lsep, bitsp, Tq, Tk, thr, scale, tq_pad, tk_pad);
   } else {
     dim3 grid((Tq + 63) / 64, BH);
-    train_fwd<1><<<grid, Roles<1>::kThreads, fwd_plan<1>().bytes(), stream>>>(
+    train_fwd<1, 1><<<grid, Roles<1>::kThreads, fwd_plan<1, 1>().bytes(), stream>>>(
         tq, tk, tv, seedp, op, lsep, bitsp, Tq, Tk, thr, scale, tq_pad, tk_pad);
   }
   return (int)cudaGetLastError();
 }
 
 // The backward of the call above: lse is its output, d_o the cotangent of o
-// (bf16), bits its keep mask (null without dropout). dq [BH, Tq, 64], dk, dv
-// [BH, Tk, 64] bf16 and the scratch delta [BH, Tq] f32 (the row term) are
+// (bf16), bits its keep mask (null without dropout). dq [BH, Tq, hd], dk, dv
+// [BH, Tk, hd] bf16 and the scratch delta [BH, Tq] f32 (the row term) are
 // written. Two launches: dQ (which also forms delta), then dK/dV.
 extern "C" int voxactb_flash_attention_train_bwd(
     const void* q, const void* k, const void* v, const void* d_o, const void* lse,
     const void* bits, void* dq, void* dk, void* dv, void* delta, int BH, int Tq, int Tk,
-    float scale, void* stream_ptr) {
+    float scale, int hd, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (hd != 64 && hd != 128) return (int)cudaErrorInvalidValue;
   int sms = 0;
   VX_CHECK(device_setup(&sms));
   CUtensorMap tq, tk, tv, tdo;
@@ -712,27 +801,39 @@ extern "C" int voxactb_flash_attention_train_bwd(
   const uint32_t* bitsp = static_cast<const uint32_t*>(bits);
   float* deltap = static_cast<float*>(delta);
   // dQ: q and dO in 64-row boxes, k and v in key tiles
-  VX_CHECK(rows_map(&tq, q, BH, Tq, 64));
-  VX_CHECK(rows_map(&tdo, d_o, BH, Tq, 64));
-  VX_CHECK(rows_map(&tk, k, BH, Tk, kBwdBn));
-  VX_CHECK(rows_map(&tv, v, BH, Tk, kBwdBn));
-  if (consumer_groups(BH, Tq, sms) == 2) {
+  VX_CHECK(rows_map(&tq, q, BH, Tq, 64, hd));
+  VX_CHECK(rows_map(&tdo, d_o, BH, Tq, 64, hd));
+  VX_CHECK(rows_map(&tk, k, BH, Tk, kBwdBn, hd));
+  VX_CHECK(rows_map(&tv, v, BH, Tk, kBwdBn, hd));
+  bf16* dqp = static_cast<bf16*>(dq);
+  if (hd == 128) {
+    dim3 grid((Tq + 63) / 64, BH);
+    train_bwd_dq<1, 2><<<grid, Roles<1>::kThreads, dq_plan<1, 2>().bytes(), stream>>>(
+        tq, tk, tv, tdo, lsep, bitsp, dqp, deltap, Tq, Tk, scale);
+  } else if (consumer_groups(BH, Tq, sms) == 2) {
     dim3 grid((Tq + 127) / 128, BH);
-    train_bwd_dq<2><<<grid, Roles<2>::kThreads, dq_plan<2>().bytes(), stream>>>(
-        tq, tk, tv, tdo, lsep, bitsp, static_cast<bf16*>(dq), deltap, Tq, Tk, scale);
+    train_bwd_dq<2, 1><<<grid, Roles<2>::kThreads, dq_plan<2, 1>().bytes(), stream>>>(
+        tq, tk, tv, tdo, lsep, bitsp, dqp, deltap, Tq, Tk, scale);
   } else {
     dim3 grid((Tq + 63) / 64, BH);
-    train_bwd_dq<1><<<grid, Roles<1>::kThreads, dq_plan<1>().bytes(), stream>>>(
-        tq, tk, tv, tdo, lsep, bitsp, static_cast<bf16*>(dq), deltap, Tq, Tk, scale);
+    train_bwd_dq<1, 1><<<grid, Roles<1>::kThreads, dq_plan<1, 1>().bytes(), stream>>>(
+        tq, tk, tv, tdo, lsep, bitsp, dqp, deltap, Tq, Tk, scale);
   }
   VX_CHECK(cudaGetLastError());
   // dK/dV: k and v in 64-row boxes, q and dO in query tiles (all 64 rows);
-  // always 128 keys per block: at 64, under the 128 registers of two blocks
-  // per SM, the kernel spills and its wgmma serialise (measured on an H100:
-  // 68 us against 41 us at the cross shape)
-  dim3 grid_kv((Tk + 127) / 128, BH);
-  train_bwd_dkv<<<grid_kv, Roles<2>::kThreads, dkv_plan().bytes(), stream>>>(
-      tq, tk, tv, tdo, lsep, deltap, bitsp, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      Tq, Tk, scale);
+  // 128 keys per block at head dim 64: at 64, under the 128 registers of two
+  // blocks per SM, the kernel spills and its wgmma serialise (measured on an
+  // H100: 68 us against 41 us at the cross shape). Head dim 128: 64 keys per
+  // block, one block per SM.
+  bf16 *dkp = static_cast<bf16*>(dk), *dvp = static_cast<bf16*>(dv);
+  if (hd == 128) {
+    dim3 grid_kv((Tk + 63) / 64, BH);
+    train_bwd_dkv<1, 2><<<grid_kv, Roles<1>::kThreads, dkv_plan<1, 2>().bytes(), stream>>>(
+        tq, tk, tv, tdo, lsep, deltap, bitsp, dkp, dvp, Tq, Tk, scale);
+  } else {
+    dim3 grid_kv((Tk + 127) / 128, BH);
+    train_bwd_dkv<2, 1><<<grid_kv, Roles<2>::kThreads, dkv_plan<2, 1>().bytes(), stream>>>(
+        tq, tk, tv, tdo, lsep, deltap, bitsp, dkp, dvp, Tq, Tk, scale);
+  }
   return (int)cudaGetLastError();
 }

@@ -352,15 +352,18 @@ __device__ __forceinline__ void a_fragments(const float (&d)[N / 2], uint32_t (&
   }
 }
 
-// issue S[64 x N] = A B^T over the head dim (four k16 steps), both operands
-// K-major tiles; the caller commits and waits
+// issue S[64 x N] = A B^T over 64 columns of the head dim (four k16 steps),
+// both operands K-major tiles, or S += A B^T with `accumulate` (the second
+// 64-column box of a 128-wide head); the caller commits and waits
 template <int N>
-__device__ __forceinline__ void gemm_nt(float (&d)[N / 2], uint32_t a_tile, uint32_t b_tile) {
+__device__ __forceinline__ void gemm_nt(float (&d)[N / 2], uint32_t a_tile, uint32_t b_tile,
+                                        bool accumulate = false) {
   const uint64_t da = desc_sw128(a_tile), db = desc_sw128(b_tile);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kHd / 16; ++kk)
-    wgmma_ss<N>(d, da + kk * kDescKStepKMajor, db + kk * kDescKStepKMajor, kk > 0);
+    wgmma_ss<N>(d, da + kk * kDescKStepKMajor, db + kk * kDescKStepKMajor,
+                kk > 0 || accumulate);
 }
 
 // issue acc[64 x 64] += P[64 x N] B[N x 64]: P as register fragments, B an

@@ -144,16 +144,24 @@ class SamBlock(nn.Module):
 
 
 class SamImageEncoder(nn.Module):
-    """``[B, img, img, 3]`` normalised -> ``[B, g, g, out_chans]`` f32."""
+    """``[B, img, img, 3]`` normalised -> ``[B, g, g, out_chans]`` f32.
+
+    ``depth_limit`` (>= 0) runs only the first that many blocks and
+    ``skip_neck`` returns the trunk's ``[B, g, g, embed_dim]`` before the neck
+    (as f32): the profiler's depth-truncated encoders (``tools/profile_sam``).
+    Every block's weights exist either way."""
 
     def __init__(self, img_size: int = 1024, patch_size: int = 16, embed_dim: int = 1280,
                  depth: int = 32, num_heads: int = 16, window_size: int = 14,
                  global_attn_indexes: Sequence[int] = (7, 15, 23, 31), out_chans: int = 256,
                  fused_global: bool = True, fused_windowed: bool = False,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, depth_limit: int = -1,
+                 skip_neck: bool = False):
         super().__init__()
         self.depth = depth
+        self.depth_limit = depth_limit
+        self.skip_neck = skip_neck
         self.dtype = dtype
         g = img_size // patch_size
         self.patch_embed = Conv2D(3, embed_dim, patch_size, patch_size, dtype=dtype,
@@ -175,8 +183,10 @@ class SamImageEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.patch_embed(x) + self.pos_embed.to(self.dtype)
-        for i in range(self.depth):
+        for i in range(self.depth if self.depth_limit < 0 else self.depth_limit):
             x = getattr(self, f"block_{i}")(x)
+        if self.skip_neck:
+            return x.float()
         x = self.neck_ln1(self.neck_conv1(x))
         return self.neck_ln2(self.neck_conv2(x)).float()
 

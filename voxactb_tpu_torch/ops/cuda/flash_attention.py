@@ -1,4 +1,4 @@
-"""K2: inference attention softmax(q k^T + key mask) v, head dim 64.
+"""K2: inference attention softmax(q k^T + key mask) v, head dims up to 128.
 
 Replaces ``voxactb_tpu/ops/pallas/flash_attention.py::flash_attention``. The
 kernel (``csrc/flash_attention.cu`` on ``csrc/attention_fwd.cuh``) is bounded
@@ -13,6 +13,11 @@ on a bf16 rounding boundary can then round the other way.
 A schedule is ``(rows, splits)``: 64 or 128 query rows per block, and 1 to 8
 CTAs sharing a row block's key tiles. ``choose_schedule`` is the wrapper's
 choice from the shapes and the card's SM count.
+
+The kernel is built for head dims 64 and 128 (``HEAD_DIMS``); the wrapper
+zero-pads a head of at most 64 to 64 and one of 65-128 to 128
+(``head_dim.padded_call``, exact) and raises above 128. Head dim 128 takes
+the one schedule ``(64, 1)``.
 """
 
 from __future__ import annotations
@@ -23,8 +28,10 @@ from typing import List, Tuple, Union
 import torch
 
 from voxactb_tpu_torch.ops.cuda import LAUNCHES
+from voxactb_tpu_torch.ops.cuda.head_dim import kernel_head_dim, padded_call
 
-_HD = 64
+HEAD_DIMS = (64, 128)  # the kernel's head dims; narrower heads are zero-padded
+WIDE_SCHEDULE = (64, 1)  # the one schedule of head dim 128
 KEY_TILE = 128   # keys per tile of the kernel
 MAX_SPLITS = 8   # CTAs per cluster
 ROWS = (64, 128)
@@ -73,33 +80,44 @@ def all_schedules(tk: int) -> List[Tuple[int, int]]:
 
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_VP] * 4 + [_CI] * 5 + [_VP]
+_ARGS = [_VP] * 4 + [_CI] * 6 + [_VP]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     schedule: Union[int, Tuple[int, int]] = 0) -> torch.Tensor:
-    """``[BH, Tq, 64] x [BH, Tk, 64] -> [BH, Tq, 64]``; q must be PRE-SCALED
-    by ``dim_head ** -0.5``. CPU tensors take the plain version.
+    """``[BH, Tq, hd] x [BH, Tk, hd] -> [BH, Tq, hd]``, hd at most 128; q must
+    be PRE-SCALED by ``hd ** -0.5``. CPU tensors take the plain version.
 
     ``schedule`` is the kernel's ``(rows, splits)``, or 0 for
-    ``choose_schedule``'s."""
+    ``choose_schedule``'s (head dims above 64: ``WIDE_SCHEDULE``)."""
     if not q.is_cuda:
         return flash_attention_reference(q, k, v)
+    width = kernel_head_dim(q.shape[-1], HEAD_DIMS, "flash_attention")
+    return padded_call(_launch, (q, k, v), width, schedule=schedule)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            schedule: Union[int, Tuple[int, int]]) -> torch.Tensor:
+    """The kernel at a head dim of ``HEAD_DIMS``."""
     from voxactb_tpu_torch.ops.cuda.build import (check, entry, sm_count, stream_ptr,
                                                   tma_operand)
 
     bh, tq, hd = q.shape
     tk = k.shape[1]
-    if hd != _HD or k.shape != (bh, tk, hd) or v.shape != (bh, tk, hd):
-        raise ValueError(f"flash_attention kernel takes head dim 64 and matching "
-                         f"k/v; got q {tuple(q.shape)}, k {tuple(k.shape)}, "
+    if hd not in HEAD_DIMS or k.shape != (bh, tk, hd) or v.shape != (bh, tk, hd):
+        raise ValueError(f"flash_attention kernel takes head dims {HEAD_DIMS} and "
+                         f"matching k/v; got q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
     if v.dtype != torch.bfloat16:
         raise ValueError(f"flash_attention kernel takes bf16 operands, got {v.dtype}")
-    rows, splits = schedule or choose_schedule(bh, tq, tk, sm_count(q.device))
-    if rows not in ROWS or not 1 <= splits <= min(MAX_SPLITS, -(-tk // KEY_TILE)):
-        raise ValueError(f"flash_attention kernel: no schedule {schedule} for Tk = {tk}; "
-                         f"it takes {all_schedules(tk)}")
+    wide = hd == HEAD_DIMS[-1]
+    rows, splits = schedule or (WIDE_SCHEDULE if wide else
+                                choose_schedule(bh, tq, tk, sm_count(q.device)))
+    if rows not in ROWS or not 1 <= splits <= min(MAX_SPLITS, -(-tk // KEY_TILE)) or (
+            wide and (rows, splits) != WIDE_SCHEDULE):
+        raise ValueError(f"flash_attention kernel: no schedule {schedule} for Tk = {tk} "
+                         f"at head dim {hd}; it takes "
+                         f"{[WIDE_SCHEDULE] if wide else all_schedules(tk)}")
     bf = torch.bfloat16
     if q.dtype != bf or k.dtype != bf:
         q, k = q.to(bf), k.to(bf)
@@ -107,7 +125,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     lib, fn = entry("flash_attention", "voxactb_flash_attention", _ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, tq, tk, rows,
-             splits, stream_ptr(q.device))
+             splits, hd, stream_ptr(q.device))
     check(lib, "flash_attention", err)
     LAUNCHES["flash_attention"] += 1
     return out

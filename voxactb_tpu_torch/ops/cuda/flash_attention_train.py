@@ -1,4 +1,4 @@
-"""K4: trainable attention with saved log-sum-exp and hash dropout, head dim 64.
+"""K4: trainable attention with saved log-sum-exp and hash dropout, head dims up to 128.
 
 Replaces ``voxactb_tpu/ops/pallas/flash_attention.py::flash_attention_train``
 (TPU kernels ``_train_fwd_kernel`` / ``_train_bwd_kernel``). The kernels
@@ -23,6 +23,13 @@ which covers every shape in the repo (the largest, 64 heads of 2048 x 2048, is
 2^28). Beyond that the TPU kernel's uint32 index wraps and its mask repeats;
 here the index is 64 bits wide and its high word is mixed into the hash, so
 the mask stays decorrelated but no longer equals the TPU kernel's.
+
+The kernels are built for head dims 64 and 128 (``HEAD_DIMS``). The launchers
+zero-pad q, k, v and dO of a head of at most 64 to 64 and of 65-128 to 128
+(``head_dim.padded_call``) and slice out, dQ, dK and dV back: exact, since the
+log-sum-exp, the row term and the mask (indexed by the padded sequence
+extents, never the head dim) do not depend on the head dim. Above 128 they
+raise.
 """
 
 from __future__ import annotations
@@ -33,8 +40,9 @@ from typing import Tuple
 import torch
 
 from voxactb_tpu_torch.ops.cuda import LAUNCHES
+from voxactb_tpu_torch.ops.cuda.head_dim import kernel_head_dim, padded_call
 
-_HD = 64
+HEAD_DIMS = (64, 128)  # the kernels' head dims; narrower heads are zero-padded
 _M32 = 0xFFFFFFFF
 Q_BLOCK = 512  # the TPU kernel's default query block: part of the mask index
 
@@ -189,16 +197,18 @@ def _seed_tensor(seed, device) -> torch.Tensor:
 
 
 def _check_operands(q, k, v):
+    """``(bh, tq, tk, width)``: the shapes, and the kernels' head dim that q, k
+    and v are padded to; raises on what the kernels do not take."""
     bh, tq, hd = q.shape
     tk = k.shape[1]
-    if hd != _HD or k.shape != (bh, tk, hd) or v.shape != (bh, tk, hd):
-        raise ValueError(f"flash_attention_train kernel takes head dim 64 and matching "
-                         f"k/v; got q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}")
+    width = kernel_head_dim(hd, HEAD_DIMS, "flash_attention_train")
+    if k.shape != (bh, tk, hd) or v.shape != (bh, tk, hd):
+        raise ValueError(f"flash_attention_train kernel takes matching q/k/v; got q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise ValueError("flash_attention_train kernel takes bf16 operands, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    return bh, tq, tk
+    return bh, tq, tk, width
 
 
 def _entry(name: str, argtypes):
@@ -210,8 +220,9 @@ def _entry(name: str, argtypes):
 
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGS = [_VP] * 7 + [_CI, _CI, _CI, ctypes.c_uint32, ctypes.c_float, _CI, _CI, _VP]
-_BWD_ARGS = [_VP] * 10 + [_CI, _CI, _CI, ctypes.c_float, _VP]
+_FWD_ARGS = [_VP] * 7 + [_CI, _CI, _CI, ctypes.c_uint32, ctypes.c_float, _CI, _CI, _CI,
+                         _VP]
+_BWD_ARGS = [_VP] * 10 + [_CI, _CI, _CI, ctypes.c_float, _CI, _VP]
 
 
 def _mask_args(tq: int, tk: int, dropout: float):
@@ -221,17 +232,22 @@ def _mask_args(tq: int, tk: int, dropout: float):
 
 
 def flash_attention_train_forward(q, k, v, seed: torch.Tensor, dropout: float):
-    """Launch the forward kernel: ``(out bf16 [BH, Tq, 64], lse f32 [BH, Tq],
-    keep bits [BH, Tq, ceil(Tk / 32)] int32 or None without dropout)``. CPU
-    tensors take ``plain_forward`` and ``keep_bits``."""
+    """Launch the forward kernel: ``(out bf16 [BH, Tq, hd], lse f32 [BH, Tq],
+    keep bits [BH, Tq, ceil(Tk / 32)] int32 or None without dropout)``, hd at
+    most 128. CPU tensors take ``plain_forward`` and ``keep_bits``."""
     if not q.is_cuda:
         out, lse = plain_forward(q, k, v, seed, dropout)
         bits = (keep_bits(seed, q.shape[0], q.shape[1], k.shape[1], dropout)
                 if dropout > 0.0 else None)
         return out, lse, bits
+    width = _check_operands(q, k, v)[3]
+    return padded_call(_launch_forward, (q, k, v), width, seed, dropout, sliced=(0,))
+
+
+def _launch_forward(q, k, v, seed: torch.Tensor, dropout: float):
     from voxactb_tpu_torch.ops.cuda.build import check, stream_ptr, tma_operand
 
-    bh, tq, tk = _check_operands(q, k, v)
+    bh, tq, tk, hd = _check_operands(q, k, v)
     q, k, v = tma_operand(q), tma_operand(k), tma_operand(v)
     out = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
@@ -240,7 +256,7 @@ def flash_attention_train_forward(q, k, v, seed: torch.Tensor, dropout: float):
     lib, fn = _entry("fwd", _FWD_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), seed.data_ptr(), out.data_ptr(),
              lse.data_ptr(), None if bits is None else bits.data_ptr(), bh, tq, tk,
-             *_mask_args(tq, tk, dropout), stream_ptr(q.device))
+             *_mask_args(tq, tk, dropout), hd, stream_ptr(q.device))
     check(lib, "flash_attention_train", err)
     LAUNCHES["flash_attention_train_fwd"] += 1
     return out, lse, bits
@@ -248,23 +264,29 @@ def flash_attention_train_forward(q, k, v, seed: torch.Tensor, dropout: float):
 
 def flash_attention_train_backward(q, k, v, lse, d_out, bits, dropout: float):
     """Launch the backward kernels: ``(dq, dk, dv)`` in bf16, with the keep
-    mask read from the forward's ``bits`` (None without dropout). CPU tensors
-    take ``plain_backward``."""
+    mask read from the forward's ``bits`` (None without dropout), hd at most
+    128. CPU tensors take ``plain_backward``."""
     if (bits is None) != (dropout <= 0.0):
         raise ValueError("flash_attention_train backward takes keep bits exactly when "
                          f"dropout > 0 (dropout {dropout}, bits "
                          f"{'absent' if bits is None else 'given'})")
     if not q.is_cuda:
         return plain_backward(q, k, v, lse, d_out, None, dropout, bits=bits)
+    width = _check_operands(q, k, v)[3]
+    return padded_call(_launch_backward, (q, k, v, d_out.to(torch.bfloat16)), width, lse,
+                       bits, dropout, sliced=(0, 1, 2))
+
+
+def _launch_backward(q, k, v, d_out, lse, bits, dropout: float):
     from voxactb_tpu_torch.ops.cuda.build import check, stream_ptr, tma_operand
 
-    bh, tq, tk = _check_operands(q, k, v)
+    bh, tq, tk, hd = _check_operands(q, k, v)
     if bits is not None and (bits.shape != (bh, tq, -(-tk // 32))
                              or bits.dtype != torch.int32):
         raise ValueError(f"keep bits of shape {tuple(bits.shape)} and {bits.dtype} do "
                          f"not fit q {tuple(q.shape)}, k {tuple(k.shape)}")
     q, k, v = tma_operand(q), tma_operand(k), tma_operand(v)
-    d_out = tma_operand(d_out.to(torch.bfloat16))
+    d_out = tma_operand(d_out)
     lse = lse.contiguous()
     bits = None if bits is None else bits.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -273,7 +295,7 @@ def flash_attention_train_backward(q, k, v, lse, d_out, bits, dropout: float):
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(), lse.data_ptr(),
              None if bits is None else bits.data_ptr(), dq.data_ptr(), dk.data_ptr(),
              dv.data_ptr(), delta.data_ptr(), bh, tq, tk,
-             ctypes.c_float(1.0 / (1.0 - dropout)), stream_ptr(q.device))
+             ctypes.c_float(1.0 / (1.0 - dropout)), hd, stream_ptr(q.device))
     check(lib, "flash_attention_train", err)
     LAUNCHES["flash_attention_train_bwd"] += 1
     return dq, dk, dv
@@ -297,8 +319,8 @@ class _KernelTrainAttention(torch.autograd.Function):
 
 def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seed, *,
                           dropout: float = 0.0) -> torch.Tensor:
-    """Differentiable ``[BH, Tq, 64] x [BH, Tk, 64] -> [BH, Tq, 64]`` in bf16;
-    q must be PRE-SCALED by ``dim_head ** -0.5``. ``seed`` (an int, or an
+    """Differentiable ``[BH, Tq, hd] x [BH, Tk, hd] -> [BH, Tq, hd]`` in bf16,
+    hd at most 128; q must be PRE-SCALED by ``hd ** -0.5``. ``seed`` (an int, or an
     integer tensor holding a value below 2^32) derives the dropout mask and is
     ignored when ``dropout == 0``; gradients flow to q, k and v. CPU tensors
     take the plain version."""

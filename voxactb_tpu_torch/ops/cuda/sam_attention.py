@@ -8,6 +8,11 @@ to the f32 logits and normalises P over the whole row before its bf16 cast,
 as the plain version (``ops/sam_attention.global_rel_attention_plain``) does;
 its online row sum adds in another f32 order, so a P entry on a bf16 rounding
 boundary can round the other way.
+
+The kernel is built for head dims 64 (ViT-B, ViT-L) and 80 (ViT-H)
+(``HEAD_DIMS``); the wrapper zero-pads q, k and v of a narrower head to the
+next of them (``head_dim.padded_call``, exact; the rel terms do not depend on
+the head dim) and raises above 80.
 """
 
 from __future__ import annotations
@@ -17,9 +22,10 @@ import ctypes
 import torch
 
 from voxactb_tpu_torch.ops.cuda import LAUNCHES
+from voxactb_tpu_torch.ops.cuda.head_dim import kernel_head_dim, padded_call
 from voxactb_tpu_torch.ops.sam_attention import global_rel_attention_plain
 
-HEAD_DIMS = (64, 80)
+HEAD_DIMS = (64, 80)  # the kernel's head dims; narrower heads are zero-padded
 KEY_TILE = 128  # keys per tile of the kernel
 MAX_GRID = 64
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
@@ -31,10 +37,16 @@ def global_rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kh: int, kw: int) -> torch.Tensor:
     """``[BH, T, hd]`` bf16 q (pre-scaled by ``hd ** -0.5`` and rounded to
     bf16), k, v and f32 ``[BH, T, kh]`` / ``[BH, T, kw]`` rel terms ->
-    ``[BH, T, hd]`` bf16, over a ``kh x kw`` grid (``T = kh * kw``). CPU
-    tensors take the plain version."""
+    ``[BH, T, hd]`` bf16, over a ``kh x kw`` grid (``T = kh * kw``), hd at most
+    80. CPU tensors take the plain version."""
     if not q.is_cuda:
         return global_rel_attention_plain(q, k, v, rel_h_term, rel_w_term, kh=kh, kw=kw)
+    width = kernel_head_dim(q.shape[-1], HEAD_DIMS, "sam_attention")
+    return padded_call(_launch, (q, k, v), width, rel_h_term, rel_w_term, kh=kh, kw=kw)
+
+
+def _launch(q, k, v, rel_h_term, rel_w_term, *, kh: int, kw: int) -> torch.Tensor:
+    """The kernel at a head dim of ``HEAD_DIMS``."""
     from voxactb_tpu_torch.ops.cuda.build import check, entry, stream_ptr, tma_operand
 
     bh, t, hd = q.shape

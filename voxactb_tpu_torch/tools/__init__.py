@@ -8,12 +8,18 @@
 - ``roofline``: the card's measured memory and bf16 matmul rates;
 - ``cost_model``: analytic FLOPs and bytes at the H100's peaks;
 - ``probe_sweep``: variants of the copy and shifted-window probe kernels
-  (``csrc/probes.cu``) built and timed in turns on the card.
+  (``csrc/probes.cu``) built and timed in turns on the card;
+- the policy-diagnosis probes: ``probe_replay_ambiguity``,
+  ``probe_replay_accuracy``, ``probe_policy_open_loop``, ``probe_input_diff``
+  and ``probe_hybrid_inputs``;
+- ``profile_train`` and ``profile_sam``: the train step's and the SAM image
+  encoder's stages.
 
 The helpers below are what the timed tools share: inputs synthesized on the
 device from a seed, chains of steps that each read a fresh input slice and
-reduce their outputs to an f32 sum (the JAX tools' ``lax.scan``), and a
-timer that reads CUDA events on the card and the host clock elsewhere.
+reduce their outputs to an f32 sum (the JAX tools' ``lax.scan``), a timer
+that reads CUDA events on the card and the host clock elsewhere, and the
+profiler's device time per call.
 """
 
 from __future__ import annotations
@@ -82,6 +88,25 @@ def seconds(fn, dev: torch.device) -> float:
     t0 = time.perf_counter()
     fn()
     return time.perf_counter() - t0
+
+
+def device_ms(fn, calls: int, dev: torch.device):
+    """Device milliseconds per call of ``fn`` over ``calls`` calls: the sum of
+    every device-side activity (kernels, copies, memsets) that
+    ``torch.profiler`` records, per call; None off the card."""
+    if dev.type != "cuda":
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize(dev)
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / calls / 1e3
 
 
 def warm_seconds(fn, dev: torch.device) -> float:
