@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's act paths (fused front and dense grid), its
 VLM crop path, its BC train step, its measurement tools, its train and eval
-CLIs, its native disk replay, its protocol tool and its diagnosis probes and
-profilers on one NVIDIA H100 and check them.
+CLIs, its native disk replay, its protocol tool, its diagnosis probes and
+profilers and its weight import and export on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py
 
@@ -130,7 +130,27 @@ Phases:
                --frames 1``: each tool's record on a line of its own, its
                printed output in ``chip_smoke.json``; the acts launch K1-K3,
                the profilers K4 and K7.
- 12. report  - every kernel's launch count rose during its main-path run;
+ 12. weights - real weights in and out at the published widths: synthetic
+               checkpoints in the upstream layouts (OpenAI CLIP RN50, transformers
+               OWL-ViT B/32, segment-anything ViT-H, the reference's
+               QAttentionAgent_layer0.pt at PERACT_BC's widths) drawn on the
+               card into a temporary ``VOXACTB_WEIGHTS_DIR``, each file's size
+               and save and read seconds; the policy through
+               ``tools.port_torch_checkpoint`` into the JAX format, loaded by the
+               agent bit-equal to a direct mapping of the .pt (chunked too; a
+               byte-swapped leaf and a dropped chunk planted in the reader must
+               break it, a bf16 copy round trip bit-equal), one act on K1-K3
+               against the plain path by the act rule, ``cli.eval``'s
+               dual-policy episode on a seed directory of .msgpack files; two
+               K4 train steps, a JAX-format checkpoint with the optimizer state
+               read back bit-equal, one more plain-path step from it against the
+               in-memory state's under the train rule (fresh moments must fail
+               it), one K4 update of the restored agent;
+               ``TorchOwlVitSamDetector.from_pretrained`` and an f32 VLM pass,
+               the bf16 towers from the same trees held by SAM's rule and one
+               VLM pass with K7; CLIP RN50 at 224^2; the sim's language from
+               the checkpoint's text tower. The files are removed at the end.
+ 13. report  - every kernel's launch count rose during its main-path run;
                one ``{"kernels": [...]}`` line.
 Then the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -2261,7 +2281,7 @@ def sam_plain(seg, dtype):
     return SamSegmenter(enc.eval(), dec.eval(), VLM_TOWERS["sam"]["img_size"])
 
 
-def compare_sam_paths(seg, rgb, box, details):
+def compare_sam_paths(seg, rgb, box, details, tag="vlm_episode"):
     """SAM on the kernel path against the plain path at bf16 on the same
     weights, frame and box, under the act's rule: each group (the image
     embedding, the mask logits, the IoU predictions) within twice the plain
@@ -2280,7 +2300,7 @@ def compare_sam_paths(seg, rgb, box, details):
     report = {}
     for i, g in enumerate(groups):
         on, off, f32 = (outs[p][i].float() for p in ("kernel", "bfloat16", "float32"))
-        expect(bool(torch.isfinite(on).all()), f"vlm_episode: non-finite {g}")
+        expect(bool(torch.isfinite(on).all()), f"{tag}: non-finite {g}")
         report[g] = dict(max_abs_err=max_err(on, off), tol=2.0 * max_err(off, f32),
                          plain_vs_f32=max_err(off, f32), kernel_vs_f32=max_err(on, f32),
                          ref_max=float(off.abs().max()))
@@ -2299,8 +2319,8 @@ def compare_sam_paths(seg, rgb, box, details):
         differing=int(flipped.sum()),
         beyond_tolerance=int((flipped & (off_px.abs() > tol_px)).sum()),
         area=int((off_px > 0).sum()), frame=list(frame_hw))
-    details["vlm_compare"] = report
-    log("[vlm_episode] SAM kernel path vs plain path: " + ", ".join(
+    details["vlm_compare" if tag == "vlm_episode" else f"{tag}_compare"] = report
+    log(f"[{tag}] SAM kernel path vs plain path: " + ", ".join(
         f"{g} err {report[g]['max_abs_err']:.3g} (tol {report[g]['tol']:.3g}; plain bf16 "
         f"vs f32 {report[g]['plain_vs_f32']:.3g}, kernel vs f32 "
         f"{report[g]['kernel_vs_f32']:.3g}, largest {report[g]['ref_max']:.3g})"
@@ -2309,11 +2329,11 @@ def compare_sam_paths(seg, rgb, box, details):
         f"{report['mask_pixels']['area']} mask pixels differ, "
         f"{report['mask_pixels']['beyond_tolerance']} beyond the tolerance")
     bad = [g for g in groups if report[g]["max_abs_err"] > report[g]["tol"]]
-    expect(not bad, f"vlm_episode: kernel vs plain beyond tolerance in {bad}")
+    expect(not bad, f"{tag}: kernel vs plain beyond tolerance in {bad}")
     expect(best_on == best_off or gap <= report["iou"]["tol"],
-           f"vlm_episode: mask index {best_on} vs {best_off} with a top-two gap {gap}")
+           f"{tag}: mask index {best_on} vs {best_off} with a top-two gap {gap}")
     expect(report["mask_pixels"]["beyond_tolerance"] == 0,
-           "vlm_episode: mask pixels flipped beyond the tolerance")
+           f"{tag}: mask pixels flipped beyond the tolerance")
     del outs
     torch.cuda.empty_cache()
     return report
@@ -3917,6 +3937,550 @@ def diagnose(acting_dir, details, timings):
     return dict(launches=counts, per_tool=launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: real weights in and out (synthetic checkpoints at the published
+# widths, in the upstream layouts)
+# ---------------------------------------------------------------------------
+
+WEIGHTS_ROOT = os.path.join(HERE, "build", "weights_phase")
+# the upstream layouts' sizes (the key-shape functions' published defaults);
+# the policy is the reference's QAttentionAgent_layer0.pt at PERACT_BC's
+# widths on the 50^3 crop, the dominant policy with its arm head
+WEIGHTS_LAYOUTS = dict(clip={}, owl={}, sam={},
+                       policy=dict(depth=6, voxel_size=50, low_dim=7, latents=2048,
+                                   latent_dim=512, arm_pred=True))
+POLICY_FILE = "QAttentionAgent_layer0.pt"
+WEIGHTS_CHUNK = 2 ** 20  # the chunked-array check: leaves above 1 MiB in flat chunks
+
+
+def draw_state_dict(shapes, g):
+    """A synthetic checkpoint at ``shapes``, drawn on the card from ``g`` and
+    moved to the host: norm and BatchNorm scales near 1, biases and running
+    means small, running variances in [0.5, 1.5], ``logit_scale`` ln 100,
+    other weights N(0, 1 / fan-in), counters int64 zeros."""
+    import math
+
+    import torch
+
+    sd = {}
+    for key, shape in shapes.items():
+        if key.endswith("num_batches_tracked"):
+            sd[key] = torch.zeros((), dtype=torch.int64)
+            continue
+        x = torch.randn(shape, generator=g, device=DEVICE)
+        if key.endswith("running_var"):
+            x = 0.5 + torch.rand(shape, generator=g, device=DEVICE)
+        elif key.endswith("running_mean"):
+            x = 0.1 * x
+        elif len(shape) == 0:
+            x = torch.full((), math.log(100.0), device=DEVICE)
+        elif len(shape) == 1:
+            x = 1.0 + 0.1 * x if key.endswith("weight") else 0.02 * x
+        else:
+            x = x / math.sqrt(math.prod(shape[1:]))
+        sd[key] = x.cpu()
+    return sd
+
+
+def write_checkpoints(files):
+    """The four synthetic checkpoints: CLIP RN50, OWL-ViT B/32 and SAM ViT-H
+    into ``VOXACTB_WEIGHTS_DIR``'s names, the reference policy (keys under
+    ``_qnet.``, as the reference's QFunction saves them) beside them."""
+    import torch
+    from voxactb_tpu_torch.tools.port_torch_checkpoint import reference_key_shapes
+    from voxactb_tpu_torch.utils import pretrained as P
+
+    layouts = {"clip_rn50.pt": P.clip_rn50_key_shapes(**WEIGHTS_LAYOUTS["clip"]),
+               "owlvit_base.pt": P.owlvit_key_shapes(**WEIGHTS_LAYOUTS["owl"]),
+               "sam_vit_h.pth": P.sam_key_shapes(**WEIGHTS_LAYOUTS["sam"]),
+               POLICY_FILE: {"_qnet." + k: v for k, v in
+                             reference_key_shapes(**WEIGHTS_LAYOUTS["policy"]).items()}}
+    g = torch.Generator(device=DEVICE).manual_seed(130)
+    for name, shapes in layouts.items():
+        t0 = time.perf_counter()
+        sd = draw_state_dict(shapes, g)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        path = os.path.join(WEIGHTS_ROOT, "weights" if name != POLICY_FILE else "", name)
+        t0 = time.perf_counter()
+        torch.save(sd, path)
+        files[name] = dict(path=path, keys=len(sd), params=sum(v.numel() for v in sd.values()),
+                           bytes=os.path.getsize(path), draw_s=draw_s,
+                           save_s=time.perf_counter() - t0)
+        del sd
+    for name in layouts:
+        t0 = time.perf_counter()
+        P._torch_state_dict(files[name]["path"])
+        files[name]["load_s"] = time.perf_counter() - t0
+
+
+def codec_faults():
+    """Planted faults in the msgpack reader, each (name, wrapper module
+    attribute, wrap): a leaf read with its bytes swapped, and a chunked
+    array with one chunk dropped (its span left zero)."""
+    import torch
+
+    def byteswap(read):
+        def fn(data):
+            arr = read(data)
+            if isinstance(arr, torch.Tensor):  # bf16: swap the two bytes of each
+                return arr.view(torch.int16).numpy().byteswap().view(np.int16)
+            return arr.byteswap() if arr.size > 1 else arr
+        return fn
+
+    def dropped_chunk(unchunk):
+        def fn(d):
+            d = dict(d, chunks=dict(d["chunks"]))
+            last = str(len(d["chunks"]) - 1)
+            d["chunks"][last] = d["chunks"][last] * 0
+            return unchunk(d)
+        return fn
+
+    return (("byteswap", "_array_from_payload", byteswap),
+            ("dropped_chunk", "_unchunk", dropped_chunk))
+
+
+def weights_policy(files, rng, details, timings):
+    """The reference policy through the port's tool into the JAX format, read
+    by the agent bit-equal to a direct mapping of the .pt (planted codec
+    faults must break that), one act on the kernel path against the plain
+    path by the act rule, then ``cli.eval``'s dual-policy rollout on a seed
+    directory holding the .msgpack."""
+    import torch
+    from voxactb_tpu_torch.agents.qattention_agent import QAttentionBCAgent
+    from voxactb_tpu_torch.cli import eval as eval_cli
+    from voxactb_tpu_torch.cli import train as train_cli
+    from voxactb_tpu_torch.config import Config
+    from voxactb_tpu_torch.ops import cuda as kernels
+    from voxactb_tpu_torch.sim import environment as sim_env
+    from voxactb_tpu_torch.tools import port_torch_checkpoint as tool
+    from voxactb_tpu_torch.utils import msgpack_codec
+    from voxactb_tpu_torch.weights import flax_tree_to_tensors
+
+    depth = str(WEIGHTS_LAYOUTS["policy"]["depth"])
+    seed_dir = os.path.join(WEIGHTS_ROOT, PROTOCOL_TASK, "PERACT_BC", "seed0")
+    msg = os.path.join(seed_dir, "weights", "0", "QAttentionAgent_layer0.msgpack")
+    os.makedirs(os.path.dirname(msg))
+    t0 = time.perf_counter()
+    tool.main(["--ckpt", files[POLICY_FILE]["path"], "--out", msg, "--depth", depth,
+               "--arm-pred"])
+    files["QAttentionAgent_layer0.msgpack"] = dict(bytes=os.path.getsize(msg),
+                                                   convert_s=time.perf_counter() - t0)
+    cfg = act_config(50, which_arm="dominant", arm_pred_loss=True,
+                     crop_target_obj_voxel=True, crop_radius=0.3)
+    cams = ["wrist", "wrist2"]
+    agent = QAttentionBCAgent(cfg, cams, SCENE_BOUNDS, device=DEVICE, seed=0)
+    agent.build(training=False)
+    t0 = time.perf_counter()
+    agent.load_weight(msg)
+    torch.cuda.synchronize()
+    files["QAttentionAgent_layer0.msgpack"]["load_s"] = time.perf_counter() - t0
+    sd = torch.load(files[POLICY_FILE]["path"], map_location="cpu", weights_only=True)
+    direct = flax_tree_to_tensors(agent.params, tool.map_reference_qattention(
+        sd, int(depth), arm_pred=True))
+    del sd
+
+    def differing(path):
+        agent.load_weight(path)
+        return [k for k, p in agent.params.named_parameters()
+                if not torch.equal(p.detach().cpu(), direct[k])]
+
+    bad = differing(msg)
+    expect(not bad, f"weights: parameters of the loaded .msgpack differ from the .pt's: {bad}")
+    # the chunked path at full width, then the planted reader faults
+    chunked = os.path.join(WEIGHTS_ROOT, "chunked.msgpack")
+    with wrapped(msgpack_codec, "MAX_CHUNK_SIZE", lambda _: WEIGHTS_CHUNK):
+        msgpack_codec.save(chunked, msgpack_codec.load(msg))
+    def count_chunked(tree):
+        if msgpack_codec.CHUNKED in tree:
+            return 1
+        return sum(count_chunked(v) for v in tree.values() if isinstance(v, dict))
+
+    with open(chunked, "rb") as f:
+        n_chunked = count_chunked(msgpack_codec.unpackb(f.read()))
+    bad = differing(chunked)
+    expect(n_chunked > 0 and not bad,
+           f"weights: {n_chunked} chunked leaves; parameters differing {bad}")
+    # a bf16 copy of the policy through the codec
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            yield from (leaves(v, f"{prefix}{k}/") if isinstance(v, dict)
+                        else [(prefix + k, v)])
+
+    bf16 = {k: torch.as_tensor(v).to(torch.bfloat16)
+            for k, v in leaves(msgpack_codec.load(msg)["params"])}
+    bf16_path = os.path.join(WEIGHTS_ROOT, "bf16.msgpack")
+    msgpack_codec.save(bf16_path, bf16)
+
+    def bf16_differing():
+        back = msgpack_codec.load(bf16_path)
+        return [k for k, v in bf16.items()
+                if not torch.equal(torch.as_tensor(back[k]).view(torch.int16),
+                                   v.view(torch.int16))]
+
+    expect(not bf16_differing(), "weights: bf16 leaves changed through the codec")
+    planted_report = {}
+    for name, attr, wrap in codec_faults():
+        with wrapped(msgpack_codec, attr, wrap):
+            caught = differing(chunked) + (bf16_differing() if name == "byteswap" else [])
+        planted_report[name] = len(caught)
+        log(f"[weights] planted codec fault {name}: {len(caught)} leaves differ")
+        expect(bool(caught), f"weights: planted codec fault {name} was not seen")
+    expect(not differing(msg), "weights: reload after the planted faults")
+    details["weights_codec"] = dict(chunked_leaves=n_chunked, planted=planted_report,
+                                    bf16_leaves=len(bf16))
+
+    # one act on the kernel path against the plain path, by dual50's rule
+    refs = {d: reference_model(cfg, agent.params, d) for d in ("bfloat16", "float32")}
+    inputs = act_inputs(rng, 1, cfg.low_dim_size())
+    compare_paths(cfg, agent.params, refs, inputs, [CROP_BOUNDS], "weights_act", details)
+    del refs
+    rgbs, pcds = clouds(rng, 1)
+    obs = {"lang_goal_emb": rng.normal(size=(1024,)).astype(np.float32),
+           "lang_token_embs": rng.normal(size=(77, 512)).astype(np.float32)}
+    for c, r, p in zip(cams, rgbs, pcds):
+        obs[f"{c}_rgb"], obs[f"{c}_point_cloud"] = r[0], p[0]
+    for arm in ("left", "right"):
+        obs[f"low_dim_state_{arm}_arm"] = np.asarray([1.0, 0.02, 0.02, 0.5], np.float32)
+    agent.act(0, obs, which_arm="dominant", new_scene_bounds=CROP_BOUNDS,
+              dominant_assitive_policy=True)  # warm
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = agent.act(0, obs, which_arm="dominant", new_scene_bounds=CROP_BOUNDS,
+                    dominant_assitive_policy=True)
+    act_ms = (time.perf_counter() - t0) * 1e3
+    act_counts = kernels.launch_counts()
+    a = np.asarray(res.action)
+    expect(a.shape == (9,) and bool(np.isfinite(a).all()), f"weights: action {a}")
+    del agent, direct
+    torch.cuda.empty_cache()
+
+    # cli.eval on a seed directory of .msgpack checkpoints (the acting policy
+    # and, as the stabilizing one, the same file): one episode
+    cfg_run = Config().override(**train_cli.parse_overrides(
+        protocol_overrides("dominant", WEIGHTS_ROOT)))
+    cfg_run.save(os.path.join(seed_dir, "config.json"))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    # the sim's language from the checkpoint: the earlier phases cached the seeded tower
+    with wrapped(sim_env, "_LANG_ENC", lambda _: None), \
+            wrapped(sim_env, "_LANG_CACHE", lambda _: {}):
+        results = eval_cli.main([f"seed_dir={seed_dir}", "framework.eval_type=missing",
+                                 "framework.eval_episodes=1", "rlbench.episode_length=25",
+                                 f"framework.left_arm_ckpt={msg}"], device=DEVICE)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_counts = kernels.launch_counts()
+    expect(len(results) == 1 and results[0]["step"] == 0
+           and np.isfinite(results[0]["eval_envs/return"]),
+           f"weights: cli.eval on the .msgpack seed dir gave {results}")
+    timings["weights_policy"] = dict(act_ms=act_ms, eval_s=eval_s, eval=results[0])
+    log(f"[weights] policy: .pt -> .msgpack {files['QAttentionAgent_layer0.msgpack']['convert_s']:.2f}"
+        f" s, agent load {files['QAttentionAgent_layer0.msgpack']['load_s']:.2f} s, every "
+        f"parameter bit-equal to the .pt's; one act {act_ms:.3f} ms, launches {act_counts}; "
+        f"cli.eval one episode {eval_s:.1f} s: {results[0]}, launches {eval_counts}")
+    return act_counts, eval_counts
+
+
+def weights_resume(rng, details, timings):
+    """Two kernel-path train steps (K4), a JAX-format checkpoint with the
+    optimizer state written and read back bit-equal, one more step from it
+    on the plain path against the step from the in-memory state, and one
+    kernel-path update of the restored agent.
+
+    The resumed step (on a second batch, so that the moments of the first
+    two steps pull its update away from the new gradient's) is held by the
+    train rule on its losses and gradients (twice the plain bf16 path's
+    distance from f32, per leaf against its largest f32 gradient). Its
+    parameter update, which the restored moments shape, is held per leaf by
+    the L2 norm of the difference over the norm of the in-memory state's
+    update, within twice the same step's run-to-run spread from the
+    in-memory state: element by element, LAMB's normalised update of an
+    element whose gradient is rounding noise flips sign between runs (the
+    card's plain step spreads by 1.4x a leaf's largest update there), and
+    bf16 rounding moves the update by its own size, so neither the train
+    rule nor an element-wise bound could see a restore that lost the
+    optimizer state. A planted one (fresh moments) must fail."""
+    import torch
+    from voxactb_tpu_torch.agents.qattention_agent import QAttentionBCAgent
+    from voxactb_tpu_torch.agents.qfunction import make_optimizer, make_train_step
+    from voxactb_tpu_torch.ops import cuda as kernels
+    from voxactb_tpu_torch.optim import OptState
+
+    cfg = train_config()
+    batch, batch2 = train_batch(rng, cfg, 8), train_batch(rng, cfg, 8)
+
+    def agent():
+        a = QAttentionBCAgent(cfg, TRAIN_CAMERAS, SCENE_BOUNDS, batch_size=8,
+                              training_iterations=100_000, device=DEVICE, seed=0)
+        a.build(training=True)
+        return a
+
+    first = agent()
+    kernels.reset_launch_counts()
+    losses = [float(first.update(i, dict(batch))["total_loss"]) for i in range(2)]
+    torch.cuda.synchronize()
+    train_counts = kernels.launch_counts()
+    path = os.path.join(WEIGHTS_ROOT, "resume", "QAttentionAgent_layer0.msgpack")
+    os.makedirs(os.path.dirname(path))
+    t0 = time.perf_counter()
+    first.save_weight(path)
+    save_s = time.perf_counter() - t0
+    second = agent()
+    t0 = time.perf_counter()
+    second.load_weight(path)
+    second._ensure_state()  # the first update's restore, without the update
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    a, b = first._state, second._state
+    same = lambda x, y: [k for k in x if not torch.equal(x[k], y[k])]  # noqa: E731
+    diff = dict(params=same(a.params, b.params), mu=same(a.opt_state.mu, b.opt_state.mu),
+                nu=same(a.opt_state.nu, b.opt_state.nu))
+    expect(not any(diff.values()) and int(a.step) == int(b.step) == 2
+           and int(a.opt_state.count) == int(b.opt_state.count) == 2,
+           f"weights: restored state differs from the in-memory one: {diff}")
+
+    quiet = dict(apply_se3=False, input_dropout=0.0, attn_dropout=0.0)
+
+    def step_from(state, **kw):
+        """(update, losses, gradients) of one plain-path step from ``state``."""
+        cfg_ = train_config(**quiet, pallas_attention_train=False, **kw)
+        _, _, step = make_train_step(cfg_, make_optimizer(cfg_, 100_000), TRAIN_CAMERAS,
+                                     device=DEVICE, seed=0)
+        metrics, grads = step.loss_and_grads(state, batch2)
+        new, _ = step(state, batch2, torch.Generator(device=DEVICE).manual_seed(7))
+        torch.cuda.synchronize()
+        return ({k: v - state.params[k] for k, v in new.params.items()},
+                {k: float(v) for k, v in metrics.items()},
+                {k: v.float() for k, v in grads.items()})
+
+    zeros = lambda d: {k: torch.zeros_like(v) for k, v in d.items()}  # noqa: E731
+    fresh = b._replace(opt_state=OptState(torch.zeros_like(b.opt_state.count),
+                                          zeros(b.opt_state.mu), zeros(b.opt_state.nu)))
+    (d_a, m_a, g_a), (d_again, _, _) = step_from(a), step_from(a)
+    (d_b, m_b, g_b), (d_w, _, _) = step_from(b), step_from(fresh)
+    _, m_32, g_32 = step_from(a, compute_dtype="float32")
+    # the train rule on the losses and gradients
+    loss_tol = 2.0 * max(abs(m_a[k] - m_32[k]) for k in m_32)
+    loss_err = max(abs(m_b[k] - m_a[k]) for k in m_32)
+    gscale = {k: float(v.abs().max()) for k, v in g_32.items()}
+    live = [k for k in g_32 if gscale[k] > 0.0]
+    plain = {k: max_err(g_a[k], g_32[k]) / gscale[k] for k in live}
+    typical = statistics.median(plain.values())
+    grad_tol = {k: 2.0 * max(plain[k], typical) for k in live}
+    grad_err = {k: max_err(g_b[k], g_a[k]) / gscale[k] for k in live}
+    # the update against the step's own run-to-run spread, per leaf in L2
+    unorm = {k: float(v.norm()) for k, v in d_a.items()}
+    moved = [k for k in d_a if unorm[k] > 0.0]
+    rel = lambda d, k: float((d[k] - d_a[k]).norm()) / unorm[k]  # noqa: E731
+    spread = max(rel(d_again, k) for k in moved)
+    update_tol = 2.0 * max(spread, 2.0 ** -20)
+    update_err = {k: rel(d_b, k) for k in moved}
+    fault_err = {k: rel(d_w, k) for k in moved}
+    caught = [k for k in moved if fault_err[k] > update_tol]
+    worst = max(moved, key=update_err.get)
+    report = dict(losses_two_steps=losses, step=m_b, loss_err=loss_err, loss_tol=loss_tol,
+                  grad_err_worst=max(grad_err.values()),
+                  grads_beyond=[k for k in live if grad_err[k] > grad_tol[k]],
+                  grad_plain_vs_f32_median=typical, update_err_worst=update_err[worst],
+                  worst_leaf=worst, update_spread=spread, update_tol=update_tol,
+                  leaves=len(moved),
+                  fresh_moments_leaves_caught=len(caught),
+                  fresh_moments_err_median=statistics.median(fault_err.values()),
+                  save_s=save_s, load_s=load_s, bytes=os.path.getsize(path))
+    log(f"[weights] resume: two kernel-path steps (losses {losses}), launches {train_counts}; "
+        f".msgpack with the optimizer state {report['bytes'] / 2 ** 20:.1f} MiB, save "
+        f"{save_s:.2f} s, load {load_s:.2f} s, state bit-equal; one more plain step from it: "
+        f"loss err {loss_err:.3g} (tol {loss_tol:.3g}), gradient err {max(grad_err.values()):.3g}"
+        f" of a leaf's largest (the plain bf16 path's median {typical:.3g} from f32), update "
+        f"err {update_err[worst]:.3g} of its leaf's norm at {worst} (tol {update_tol:.3g}, "
+        f"run-to-run spread {spread:.3g}) over {len(moved)} leaves; fresh moments beyond it in "
+        f"{len(caught)} leaves (median {report['fresh_moments_err_median']:.3g})")
+    expect(all(np.isfinite(losses)), f"weights: resume losses {losses}")
+    expect(loss_err <= loss_tol, f"weights: resumed step's losses {loss_err} > {loss_tol}")
+    expect(not report["grads_beyond"],
+           f"weights: resumed step's gradients beyond the train rule: {report['grads_beyond']}")
+    expect(update_err[worst] <= update_tol, "weights: resumed step's update beyond tolerance")
+    expect(bool(caught), "weights: a restore without the optimizer state stayed within tolerance")
+    kernels.reset_launch_counts()
+    loss = float(second.update(2, dict(batch))["total_loss"])
+    torch.cuda.synchronize()
+    resume_counts = kernels.launch_counts()
+    expect(np.isfinite(loss) and int(second._state.step) == 3,
+           f"weights: restored agent's update: loss {loss}, step {int(second._state.step)}")
+    details["weights_resume"] = report
+    timings["weights_resume"] = dict(save_s=save_s, load_s=load_s, bytes=report["bytes"])
+    del first, second, a, b, fresh
+    torch.cuda.empty_cache()
+    return train_counts, resume_counts
+
+
+def weights_vlm(details, timings):
+    """``TorchOwlVitSamDetector.from_pretrained`` on the files and one f32 VLM
+    pass; the bf16 kernel-path towers from the same imported trees held by
+    ``compare_sam_paths``' rule, one VLM pass on them with K7; one CLIP RN50
+    forward; the sim's language encoder on the checkpoint."""
+    import torch
+    from voxactb_tpu_torch.models.clip_image import preprocess_clip_image
+    from voxactb_tpu_torch.models.owlvit import OwlViTPipeline, load_hf_owlvit_weights
+    from voxactb_tpu_torch.models.sam_decoder import (
+        SamSegmenter, load_torch_sam_decoder_weights)
+    from voxactb_tpu_torch.models.sam_encoder import load_torch_sam_weights
+    from voxactb_tpu_torch.ops import cuda as kernels
+    from voxactb_tpu_torch.sim import environment as sim_env
+    from voxactb_tpu_torch.utils import pretrained as P
+    from voxactb_tpu_torch.vlm.pipeline import VLM, TorchOwlVitSamDetector, task_queries
+
+    rgb, pcd = vlm_frame(np.random.default_rng(0))
+    t0 = time.perf_counter()
+    f32 = TorchOwlVitSamDetector.from_pretrained("vit_h", score_threshold=0.0, device=DEVICE)
+    torch.cuda.synchronize()
+    build_f32_s = time.perf_counter() - t0
+    vlm = VLM(f32)
+    vlm.get_target_object_world_coords(rgb, pcd, VLM_TASK)  # warm
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        point32, radius32 = vlm.get_target_object_world_coords(rgb, pcd, VLM_TASK)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    f32_ms = statistics.median(walls)
+    expect(bool(np.isfinite(point32).all()) and np.isfinite(radius32),
+           f"weights: f32 VLM pass {point32} {radius32}")
+    del vlm, f32
+    torch.cuda.empty_cache()
+
+    # the bf16 towers of the kernel path, from the same imported trees
+    bf = torch.bfloat16
+    t0 = time.perf_counter()
+    det_tree, text_tree = load_hf_owlvit_weights(P._torch_state_dict(P.find_weights("owlvit")))
+    sd = P._torch_state_dict(P.find_weights("sam_vit_h"))
+    enc_tree, dec_tree = load_torch_sam_weights(sd), load_torch_sam_decoder_weights(sd)
+    del sd
+    owl, text = P.owlvit_from(det_tree, text_tree, DEVICE, dtype=bf)
+    sam = P.sam_encoder_from(enc_tree, "vit_h", DEVICE, dtype=bf, fused_global=True,
+                             fused_windowed=True)
+    decoder = P.sam_decoder_from(dec_tree, DEVICE, dtype=bf, **VLM_TOWERS["decoder"])
+    torch.cuda.synchronize()
+    build_bf16_s = time.perf_counter() - t0
+    del det_tree, text_tree, enc_tree, dec_tree
+    pipeline = OwlViTPipeline(owl, text, img_size=owl.image_encoder.img_size)
+    seg = SamSegmenter(sam, decoder, VLM_TOWERS["sam"]["img_size"])
+    query = pipeline.embed_queries([task_queries(VLM_TASK)])
+    box, score = pipeline.detect(rgb, query, score_threshold=0.0)
+    compare_sam_paths(seg, rgb, box, details, tag="weights_vlm")
+    vlm = VLM(TorchOwlVitSamDetector(pipeline, seg, score_threshold=0.0))
+    vlm.get_target_object_world_coords(rgb, pcd, VLM_TASK)  # warm
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    point, radius = vlm.get_target_object_world_coords(rgb, pcd, VLM_TASK)
+    torch.cuda.synchronize()
+    walls = [(time.perf_counter() - t0) * 1e3]
+    counts = kernels.launch_counts()
+    expect(counts["sam_attention"] == VLM_TOWERS["sam"]["depth"],
+           f"weights: K7 launches {counts['sam_attention']} in one VLM pass")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        vlm.get_target_object_world_coords(rgb, pcd, VLM_TASK)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    bf16_ms = statistics.median(walls)
+    # stage times on the card (CUDA events), as vlm_episode takes them
+    from voxactb_tpu_torch.models.sam_encoder import preprocess_image
+
+    img = VLM_TOWERS["sam"]["img_size"]
+    x = preprocess_image(rgb, img, torch.device(DEVICE))
+    box_t = torch.as_tensor((np.asarray(box, np.float32)[None] * (img / max(rgb.shape[:2]))
+                             + 0.5) / img, device=DEVICE)
+    with torch.inference_mode():
+        emb = seg.encoder(x)
+        stage = dict(sam_encode_ms=time_ms(lambda: seg.encoder(x), reps=5),
+                     owl_detect_ms=time_ms(lambda: pipeline.detect(rgb, query, 0.0), reps=5),
+                     sam_decode_ms=time_ms(lambda: seg.decoder(emb, box_t), reps=5))
+    del emb, x
+    del vlm, seg, pipeline, owl, text, sam, decoder
+    torch.cuda.empty_cache()
+
+    # CLIP RN50's image tower at 224^2, and the sim's language on the checkpoint
+    t0 = time.perf_counter()
+    clip_img, _ = P.load_clip_image(device=DEVICE)
+    load_img_s = time.perf_counter() - t0
+    x = preprocess_clip_image(rgb, 224, DEVICE)
+    with torch.inference_mode():
+        emb = clip_img(x)
+        rn50_ms = time_ms(lambda: clip_img(x), reps=5)
+    expect(tuple(emb.shape) == (1, clip_img.attnpool.c_proj.weight.shape[0])
+           and bool(torch.isfinite(emb).all()), f"weights: RN50 embedding {tuple(emb.shape)}")
+    del clip_img
+    with wrapped(sim_env, "_LANG_ENC", lambda _: None), \
+            wrapped(sim_env, "_LANG_CACHE", lambda _: {}):
+        sent, tok = sim_env.default_sim_language_encoder()(VLM_DESCRIPTION)
+    want = sim_env._make_text_encoder(None, {}, model=P.load_clip_text(device="cpu")[0])(
+        VLM_DESCRIPTION)
+    seeded = sim_env._make_text_encoder(None, {})(VLM_DESCRIPTION)
+    expect(np.array_equal(sent, want[0]) and np.array_equal(tok, want[1])
+           and not np.allclose(sent, seeded[0]),
+           "weights: the sim's language is not the checkpoint's tower's")
+    random_ms = timings.get("vlm_episode", {}).get("vlm_pass_ms")
+    timings["weights_vlm"] = dict(
+        from_pretrained_s=build_f32_s, f32_vlm_pass_ms=f32_ms, bf16_towers_s=build_bf16_s,
+        bf16_vlm_pass_ms=bf16_ms, bf16_vlm_pass_walls_ms=walls, **stage,
+        random_weights_vlm_pass_ms=random_ms, rn50_ms=rn50_ms,
+        clip_image_load_s=load_img_s, crop_point=[float(v) for v in point], crop_radius=radius,
+        crop_point_f32=[float(v) for v in point32], crop_radius_f32=radius32,
+        owl_box=[float(v) for v in box], owl_score=score)
+    log(f"[weights] VLM on imported weights: from_pretrained (f32) {build_f32_s:.1f} s, f32 "
+        f"VLM pass {f32_ms:.3f} ms (crop radius {radius32:.4f}); bf16 towers {build_bf16_s:.1f}"
+        f" s, VLM pass with K7 {bf16_ms:.3f} ms (crop radius {radius:.4f}; the random-weight "
+        f"vlm phase's pass {random_ms} ms; SAM-H encode {stage['sam_encode_ms']:.3f} ms, OWL "
+        f"detect {stage['owl_detect_ms']:.3f} ms, SAM decode {stage['sam_decode_ms']:.3f} ms)"
+        f"; K7 launches {counts['sam_attention']}; RN50 at "
+        f"224^2 {rn50_ms:.3f} ms; the sim's 1024-d language from the checkpoint's tower")
+    return counts
+
+
+def weights(details, timings):
+    """Phase 12: synthetic checkpoints at the published widths in the
+    upstream layouts, written to a temporary ``VOXACTB_WEIGHTS_DIR`` and read
+    back through the port's importers, tool and codec; removed at the end."""
+    import shutil
+
+    import torch
+    from voxactb_tpu_torch.ops import cuda as kernels
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(WEIGHTS_ROOT, ignore_errors=True)
+    os.makedirs(os.path.join(WEIGHTS_ROOT, "weights"))
+    files = {}
+    before = os.environ.get("VOXACTB_WEIGHTS_DIR")
+    os.environ["VOXACTB_WEIGHTS_DIR"] = os.path.join(WEIGHTS_ROOT, "weights")
+    total = {k: 0 for k in kernels.LAUNCHES}
+    try:
+        write_checkpoints(files)
+        for name, f in files.items():
+            log(f"[weights] {name}: {f['keys']} keys, {f['params'] / 1e6:.1f}M values, "
+                f"{f['bytes'] / 2 ** 20:.1f} MiB; drawn on the card {f['draw_s']:.1f} s, "
+                f"saved {f['save_s']:.1f} s, read {f['load_s']:.1f} s")
+        rng = np.random.default_rng(18)  # the phase's own stream
+        runs = (weights_policy(files, rng, details, timings)
+                + weights_resume(rng, details, timings) + (weights_vlm(details, timings),))
+        for counts in runs:
+            for k, v in counts.items():
+                total[k] += v
+    finally:
+        if before is None:
+            os.environ.pop("VOXACTB_WEIGHTS_DIR", None)
+        else:
+            os.environ["VOXACTB_WEIGHTS_DIR"] = before
+        shutil.rmtree(WEIGHTS_ROOT, ignore_errors=True)
+    wall_s = time.perf_counter() - t_phase
+    timings["weights"] = dict(wall_s=wall_s, files={
+        k: {kk: vv for kk, vv in v.items() if kk != "path"} for k, v in files.items()})
+    log(f"[weights] {wall_s:.1f} s; launches {total}")
+    torch.cuda.empty_cache()
+    return dict(launches=total)
+
+
 def main() -> int:
     import torch
 
@@ -4015,8 +4579,11 @@ def main() -> int:
     runs["protocol_tool_train"], runs["protocol_tool_eval"], acting_dir = protocol_tool(timings)
     log(f"[protocol_eval] took {time.perf_counter() - t0:.1f} s")
     runs["diagnose"] = diagnose(acting_dir, details, timings)
+    # the weights phase draws from streams of its own (card generator seed
+    # 130, numpy seed 18)
+    runs["weights"] = weights(details, timings)
 
-    # phase 11: every kernel was launched on the main path that runs it
+    # phase 13: every kernel was launched on the main path that runs it
     act_kernels = ("front_fused", "flash_attention", "decoder_head", "decoder_tail_conv",
                    "decoder_tail_trans_stats", "front_patchify")
     dense_kernels = ("encoder_stats", "stats_head", "decoder_head_v3", "flash_attention",
@@ -4036,6 +4603,8 @@ def main() -> int:
                                             "flash_attention_train_bwd"),
                     "diagnose": act_kernels + ("flash_attention_train_fwd",
                                                "flash_attention_train_bwd", "sam_attention"),
+                    "weights": act_kernels + ("flash_attention_train_fwd",
+                                              "flash_attention_train_bwd", "sam_attention"),
                     "tools": TOOLS_KERNELS + ("front_fused", "front_patchify", "decoder_head",
                                               "decoder_tail_conv", "decoder_tail_trans_stats",
                                               "flash_attention")}

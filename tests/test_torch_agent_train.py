@@ -198,8 +198,18 @@ def test_what_the_agent_refuses(tmp_path):
     agent = _agent(training=False)
     with pytest.raises(RuntimeError, match="training=True"):
         agent.update(0, {})
-    with pytest.raises(NotImplementedError, match="msgpack"):
+    with pytest.raises(FileNotFoundError):
         agent.load_weight(str(tmp_path / "QAttentionAgent_layer0.msgpack"))
+    # a JAX-format checkpoint of another model: refused before a weight is written
+    from voxactb_tpu_torch.utils import msgpack_codec
+
+    before = {k: v.clone() for k, v in agent.params.state_dict().items()}
+    msgpack_codec.save(str(tmp_path / "other.msgpack"),
+                       {"params": {"params": {"latents": np.zeros((2, 2), np.float32)}},
+                        "step": 0})
+    with pytest.raises(ValueError, match="does not match"):
+        agent.load_weight(str(tmp_path / "other.msgpack"))
+    assert all(torch.equal(v, before[k]) for k, v in agent.params.state_dict().items())
     # an untrained agent saves its seeded weights, with step 0 and no optimizer state
     agent.save_weights(str(tmp_path))
     payload = torch.load(tmp_path / "QAttentionAgent_layer0.pt", weights_only=True)

@@ -225,8 +225,10 @@ def test_agent_act_dominant_assistive(dominant, which_arm):
 
 def test_agent_training_and_checkpoints_are_a_later_slice(tmp_path):
     """Training and the port's own checkpoints are in (tests/
-    test_torch_agent_train.py drives them); what still waits for a later slice
-    is reading the JAX package's msgpack checkpoints, and that raises."""
+    test_torch_agent_train.py drives them), and so is the JAX package's
+    msgpack format (tests/test_torch_checkpoint_interop.py holds it to the
+    JAX agent): a ``.msgpack`` the agent writes reads back to the same
+    weights, and a missing one raises."""
     agent = QAttentionBCAgent(MethodConfig(**TINY), ["wrist"], [0, 0, 0, 1, 1, 1],
                               device="cpu")
     with pytest.raises(RuntimeError, match="training=True"):
@@ -234,8 +236,14 @@ def test_agent_training_and_checkpoints_are_a_later_slice(tmp_path):
     agent.build(training=True)
     agent.save_weights(str(tmp_path))
     assert (tmp_path / "QAttentionAgent_layer0.pt").exists()
-    with pytest.raises(NotImplementedError, match="msgpack"):
+    with pytest.raises(FileNotFoundError):
         agent.load_weight(str(tmp_path / "QAttentionAgent_layer0.msgpack"))
+    agent.save_weight(str(tmp_path / "QAttentionAgent_layer0.msgpack"))
+    other = QAttentionBCAgent(MethodConfig(**TINY), ["wrist"], [0, 0, 0, 1, 1, 1],
+                              device="cpu", seed=1)
+    other.load_weight(str(tmp_path / "QAttentionAgent_layer0.msgpack"))
+    want = agent.params.state_dict()
+    assert all(torch.equal(v, want[k]) for k, v in other.params.state_dict().items())
 
 
 # the dense-grid act path's kernel flags (pallas_front off: voxelize builds the

@@ -1,5 +1,5 @@
 """The port stands alone: no module under voxactb_tpu_torch/ imports jax, flax,
-optax or the JAX package; importing it and running a small act on the CPU
+optax, msgpack, transformers or the JAX package; importing it and running a small act on the CPU
 loads none of them; and its entry points refuse to fall back to the CPU."""
 
 import ast
@@ -24,7 +24,9 @@ def _one_torch_thread():
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "voxactb_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "voxactb_tpu")
+# the card's machine has none of these: the port reads flax's msgpack and the
+# upstream checkpoints itself (utils/msgpack_codec, utils/pretrained)
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "transformers", "voxactb_tpu")
 
 
 def _imported_modules(path):
@@ -120,6 +122,14 @@ def test_import_and_cpu_act_load_no_jax():
         for i in range(2):
             loss = float(agent.update(i, batch)["total_loss"])
             assert np.isfinite(loss)
+
+        # the JAX format both ways, the importers and the reference-checkpoint tool
+        import tempfile
+        import voxactb_tpu_torch.utils.pretrained, voxactb_tpu_torch.models.clip_image
+        import voxactb_tpu_torch.tools.port_torch_checkpoint
+        with tempfile.TemporaryDirectory() as d:
+            agent.save_weight(os.path.join(d, "QAttentionAgent_layer0.msgpack"))
+            agent.load_weights(d)
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in %r)
         print("LOADED", loaded)

@@ -156,8 +156,12 @@ def test_ckpt_file_equals_the_jax_tool(tmp_path, jax_protocol):
         assert os.path.dirname(port) == os.path.dirname(jax_path)
         assert port.endswith(".pt") and jax_path.endswith(".msgpack")
     os.makedirs(os.path.join(seed_dir, "weights", "4"))
-    with pytest.raises(FileNotFoundError, match="no .pt in"):
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
         run_protocol_eval.ckpt_file(seed_dir)
+    # a JAX run's weights directory: the .msgpack the JAX tool picks
+    jax_ckpt = os.path.join(seed_dir, "weights", "4", "QAttentionAgent_layer0.msgpack")
+    open(jax_ckpt, "wb").close()
+    assert run_protocol_eval.ckpt_file(seed_dir) == jax_protocol.ckpt_file(seed_dir) == jax_ckpt
 
 
 def _write_csv(path, rows):

@@ -6,6 +6,9 @@ Counterpart of ``voxactb_tpu.agents.qattention_agent.QAttentionBCAgent``
 ``make_train_step``; the host work here is dict plumbing, the proprio
 selection by arm mode and the per-camera pixel projection. Checkpoints are the
 port's own: one ``torch.save`` file of parameters, optimizer state and step.
+The agent also reads the JAX package's ``.msgpack`` checkpoints (parameters,
+step and optax state in flax's format, through ``utils/msgpack_codec``) and
+writes that format on request (``save_weight`` to a ``.msgpack`` path).
 """
 
 from __future__ import annotations
@@ -225,36 +228,72 @@ class QAttentionBCAgent(Agent):
     def act_summaries(self) -> List[Summary]:
         return []
 
-    def _ckpt_path(self, savedir: str) -> str:
-        return os.path.join(savedir, f"{self._name}.pt")
+    def _ckpt_path(self, savedir: str, suffix: str = ".pt") -> str:
+        return os.path.join(savedir, f"{self._name}{suffix}")
 
     def save_weights(self, savedir: str) -> None:
         """One ``torch.save`` file: parameters, step and, once training has
         begun, the optimizer state (all as CPU tensors)."""
         os.makedirs(savedir, exist_ok=True)
+        self.save_weight(self._ckpt_path(savedir))
+
+    def save_weight(self, ckpt_file: str) -> None:
+        """Write the weights to ``ckpt_file``: the port's ``torch.save``
+        format, or, for a ``.msgpack`` path, the JAX agent's
+        (``{'params', 'step', 'opt_state'}`` in flax's msgpack, the optimizer
+        state as optax lays it out), which the JAX package reads."""
         if self._model is None:
             self.build(training=False)
         self._sync_model()
+        step = 0 if self._state is None else int(self._state.step)
+        if str(ckpt_file).endswith(".msgpack"):
+            from voxactb_tpu_torch.utils import msgpack_codec
+            from voxactb_tpu_torch.weights import optax_state_tree, tensors_to_flax_tree
+
+            payload = {"params": tensors_to_flax_tree(
+                self._model, dict(self._model.named_parameters())),
+                "step": np.asarray(step)}
+            if self._state is not None:
+                payload["opt_state"] = optax_state_tree(
+                    self._model, self._state.opt_state, self._cfg.optimizer,
+                    self._cfg.lr_scheduler)
+            msgpack_codec.save(ckpt_file, payload)
+            return
         payload = {"params": {k: v.detach().cpu()
                               for k, v in self._model.state_dict().items()},
-                   "step": 0 if self._state is None else int(self._state.step)}
+                   "step": step}
         if self._state is not None:
             payload["opt_state"] = state_to_cpu(self._state.opt_state)
-        torch.save(payload, self._ckpt_path(savedir))
+        torch.save(payload, ckpt_file)
 
     def load_weights(self, savedir: str) -> None:
-        self.load_weight(self._ckpt_path(savedir))
+        """The agent's checkpoint in ``savedir``: the port's ``.pt``, else the
+        JAX package's ``.msgpack`` of the same name (a JAX run's weights
+        directory)."""
+        path = self._ckpt_path(savedir)
+        if not os.path.exists(path) and os.path.exists(self._ckpt_path(savedir, ".msgpack")):
+            path = self._ckpt_path(savedir, ".msgpack")
+        self.load_weight(path)
 
     def load_weight(self, ckpt_file: str) -> None:
-        if str(ckpt_file).endswith(".msgpack"):
-            raise NotImplementedError(
-                "reading the JAX package's msgpack checkpoints is not ported yet (it "
-                "needs flax/msgpack); convert the tree to numpy and assign it to "
-                "`params`, or load a checkpoint written by this agent's save_weights")
-        payload = torch.load(ckpt_file, map_location="cpu", weights_only=True)
+        """Load a checkpoint: the port's ``.pt`` or the JAX package's
+        ``.msgpack``. In training, its optimizer state and step are restored
+        at the next update (right away when the agent already trains)."""
         if self._model is None:
             self.build(training=False)
-        self._model.load_state_dict(payload["params"])
+        if str(ckpt_file).endswith(".msgpack"):
+            from voxactb_tpu_torch.utils import msgpack_codec
+            from voxactb_tpu_torch.weights import load_flax_params, opt_state_from_flax
+
+            payload = msgpack_codec.load(ckpt_file)
+            load_flax_params(self._model, payload["params"])
+            if self._training and "opt_state" in payload:
+                payload["opt_state"] = state_to_cpu(
+                    opt_state_from_flax(self._model, payload["opt_state"]))
+            payload["step"] = int(np.asarray(payload.get("step", 0)))
+        else:
+            payload = torch.load(ckpt_file, map_location="cpu", weights_only=True)
+            self._model.load_state_dict(payload["params"])
         self._model_stale = False
         had_state = self._state is not None
         self._state = None  # rebuilt from the loaded weights

@@ -5,7 +5,9 @@ snapshot, rebuild the acting agent (and optionally an independently-checkpointed
 stabilizing agent, conf/eval.yaml ``framework.left_arm_ckpt``), sweep checkpoints per
 ``framework.eval_type`` and write eval CSVs. The agents run on one CUDA device
 (``device``: cuda unless the caller passes ``"cpu"``; it raises without CUDA).
-Checkpoints are the ``.pt`` files ``cli.train`` writes.
+Checkpoints are the ``.pt`` files ``cli.train`` writes; a JAX run's seed
+directory (``.msgpack`` checkpoints, ``config.json``) evaluates unchanged, and
+``framework.left_arm_ckpt`` may name a ``.msgpack`` file.
 
 Usage:
   python -m voxactb_tpu_torch.cli.eval seed_dir=/tmp/run1/open_jar/PERACT_BC/seed0 \\

@@ -4,7 +4,8 @@ Counterpart of peract/train.py:28-109 + run_seed_fn.py:26-174: assemble config f
 ``key=value`` overrides (hydra-style), snapshot it into the seed directory, fill the
 replay from stored demos, build the agent, run the offline train loop on one CUDA
 device (``device``: cuda unless the caller passes ``"cpu"``; it raises without
-CUDA). Checkpoints are ``weights/<step>/QAttentionAgent_layer0.pt``. The kernels
+CUDA). Checkpoints are ``weights/<step>/QAttentionAgent_layer0.pt``; a run resumes
+from its last one, or from a JAX run's ``.msgpack`` of that name. The kernels
 run only where the config's ``pallas_*`` flags are on (``method.pallas_front``,
 ``pallas_attention``, ``pallas_decoder``, ``pallas_attention_train``). With
 ``replay.use_disk=True`` the replay is the native mmap store at

@@ -6,7 +6,9 @@ the 1024-d sentence embedding (``ln_final`` output at the EOT position @
 ``text_projection``) and the 77x512 per-token embeddings (``ln_final`` output)
 that feed the Perceiver's language fusion. Parameters are stored in f32 under
 the flax names and cast to the compute ``dtype`` at use; ``weights.py`` loads
-a flax tree. ``ClipModel`` and the RN50 image tower are not ported yet.
+a flax tree, which ``load_torch_clip_weights`` makes from an OpenAI CLIP
+state_dict. ``ClipModel`` joins this tower and the RN50 image tower
+(``models/clip_image.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from torch import nn
 
 from voxactb_tpu_torch.device import resolve_device
 from voxactb_tpu_torch.models.blocks import Dense, LayerNorm, sigmoid
+from voxactb_tpu_torch.models.torch_port import make_port_helpers
 
 CONTEXT_LENGTH = 77
 VOCAB_SIZE = 49408
@@ -114,6 +117,43 @@ class ClipTextEncoder(nn.Module):
         return sentence.float(), x.float()
 
 
+def load_torch_clip_weights(state_dict) -> dict:
+    """Map an OpenAI CLIP state_dict's text tower onto ClipTextEncoder params.
+
+    Accepts a dict of numpy arrays or torch tensors keyed as in clip.py:311-365
+    (``transformer.resblocks.N.attn.in_proj_weight`` etc.).
+    """
+
+    a = make_port_helpers(state_dict)[0]
+
+    params = {
+        "token_embedding": a("token_embedding.weight"),
+        "positional_embedding": a("positional_embedding"),
+        "text_projection": a("text_projection"),
+        "ln_final": {"scale": a("ln_final.weight"), "bias": a("ln_final.bias")},
+    }
+    n_layers = max(
+        int(k.split(".")[2]) for k in state_dict
+        if k.startswith("transformer.resblocks.")
+    ) + 1
+    for i in range(n_layers):
+        p = f"transformer.resblocks.{i}"
+        params[f"resblock_{i}"] = {
+            "ln_1": {"scale": a(f"{p}.ln_1.weight"), "bias": a(f"{p}.ln_1.bias")},
+            "ln_2": {"scale": a(f"{p}.ln_2.weight"), "bias": a(f"{p}.ln_2.bias")},
+            # torch Linear stores [out, in]; flax Dense wants [in, out]
+            "attn_in": {"kernel": a(f"{p}.attn.in_proj_weight").T,
+                        "bias": a(f"{p}.attn.in_proj_bias")},
+            "attn_out": {"kernel": a(f"{p}.attn.out_proj.weight").T,
+                         "bias": a(f"{p}.attn.out_proj.bias")},
+            "mlp_fc": {"kernel": a(f"{p}.mlp.c_fc.weight").T,
+                       "bias": a(f"{p}.mlp.c_fc.bias")},
+            "mlp_proj": {"kernel": a(f"{p}.mlp.c_proj.weight").T,
+                         "bias": a(f"{p}.mlp.c_proj.bias")},
+        }
+    return {"params": params}
+
+
 class ClipLanguageEncoder:
     """Tokenizer + text encoder, the callable the agents' ``lang_encoder`` takes:
     token ids ``[77]`` -> (``[1, 1024]``, ``[1, 77, 512]``) f32 tensors on the
@@ -145,3 +185,38 @@ class ClipLanguageEncoder:
 
     def encode_text(self, texts):
         return self(self.tokenize(texts)[0])
+
+
+class ClipModel(nn.Module):
+    """Joint CLIP: image tower + text tower + temperature (clip.py:311-465),
+    the reference's contrastive interface: ``encode_image`` / ``encode_text``
+    / ``forward`` -> similarity logits. Images ``[B, H, W, 3]`` normalised
+    (``clip_image.preprocess_clip_image``), tokens ``[B, 77]``."""
+
+    def __init__(self, image_encoder: Optional[nn.Module] = None,
+                 text_encoder: Optional[ClipTextEncoder] = None,
+                 logit_scale: float = 100.0, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        from voxactb_tpu_torch.models.clip_image import ClipResNetImageEncoder
+
+        self.image_encoder = image_encoder or ClipResNetImageEncoder(generator=generator)
+        self.text_encoder = text_encoder or ClipTextEncoder(generator=generator)
+        self.logit_scale = logit_scale
+
+    def encode_image(self, images: torch.Tensor) -> torch.Tensor:
+        return self.image_encoder(images)
+
+    def encode_text(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.text_encoder(tokens)[0]
+
+    def encode_text_with_embeddings(self, tokens: torch.Tensor):
+        """The VoxAct-B entry point (clip.py:426-441)."""
+        return self.text_encoder(tokens)
+
+    def forward(self, images: torch.Tensor, tokens: torch.Tensor):
+        img = self.encode_image(images)
+        txt = self.encode_text(tokens)
+        img = img / torch.linalg.vector_norm(img, dim=-1, keepdim=True)
+        txt = txt / torch.linalg.vector_norm(txt, dim=-1, keepdim=True)
+        logits_per_image = self.logit_scale * img @ txt.T
+        return logits_per_image, logits_per_image.T

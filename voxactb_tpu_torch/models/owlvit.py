@@ -6,7 +6,9 @@ heads, a class head scoring each patch against text embeddings (scaled cosine
 logits with a learned shift) and a box head (MLP -> cxcywh, biased toward each
 token's grid cell). The text tower is the CLIP text transformer
 (``models/clip_text.py``). Channels-last, parameters in f32 under the flax
-names, cast to the compute ``dtype`` at use.
+names, cast to the compute ``dtype`` at use. ``load_hf_owlvit_weights`` maps a
+transformers ``OwlViTForObjectDetection`` state_dict onto the flax trees of
+both towers.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from torch import nn
 from voxactb_tpu_torch.models.blocks import Conv2D, Dense, LayerNorm, gelu_erf, sigmoid
 from voxactb_tpu_torch.models.clip_text import (
     ClipTextEncoder, attend, merge_heads, quick_gelu, split_heads)
+from voxactb_tpu_torch.models.torch_port import make_port_helpers
 from voxactb_tpu_torch.ops.resize import resize_linear
 
 
@@ -138,6 +141,78 @@ class OwlViTDetector(nn.Module):
         return logits.float(), boxes.float()
 
 
+def load_hf_owlvit_weights(state_dict):
+    """Map a transformers ``OwlViTForObjectDetection`` state_dict onto this stack.
+
+    Returns ``(detector_params, text_params)``: the first loads
+    :class:`OwlViTDetector` (vision tower + class/box heads), the second loads
+    ``models.clip_text.ClipTextEncoder`` configured with the
+    checkpoint's text dims (the OWL text tower is CLIP's, context length 16).
+    """
+    a, dense, ln, _, _ = make_port_helpers(state_dict)
+
+    def vit_blocks(prefix, names):
+        """Shared CLIP-style encoder-layer mapping (vision 'block_i'/text 'resblock_i')."""
+        out = {}
+        lp = prefix + "encoder.layers."
+        depth = max(int(k[len(lp):].split(".")[0]) for k in state_dict
+                    if k.startswith(lp)) + 1
+        for i in range(depth):
+            p = f"{prefix}encoder.layers.{i}."
+            qkv_w = np.concatenate(
+                [a(p + f"self_attn.{h}_proj.weight").T for h in ("q", "k", "v")],
+                axis=1)
+            qkv_b = np.concatenate(
+                [a(p + f"self_attn.{h}_proj.bias") for h in ("q", "k", "v")])
+            out[names["block"].format(i)] = {
+                names["ln1"]: ln(p + "layer_norm1"),
+                names["ln2"]: ln(p + "layer_norm2"),
+                names["qkv"]: {"kernel": qkv_w, "bias": qkv_b},
+                names["proj"]: dense(p + "self_attn.out_proj"),
+                names["fc1"]: dense(p + "mlp.fc1"),
+                names["fc2"]: dense(p + "mlp.fc2"),
+            }
+        return out
+
+    v = "owlvit.vision_model."
+    vision = {
+        "patch_embed": {
+            "kernel": a(v + "embeddings.patch_embedding.weight").transpose(
+                2, 3, 1, 0)},
+        "cls_token": a(v + "embeddings.class_embedding").reshape(1, 1, -1),
+        "pos_embed": a(v + "embeddings.position_embedding.weight")[None],
+        "pre_ln": ln(v + "pre_layernorm"),
+        "post_ln": ln(v + "post_layernorm"),
+    }
+    vision.update(vit_blocks(v, {"block": "block_{}", "ln1": "ln1", "ln2": "ln2",
+                                 "qkv": "qkv", "proj": "proj",
+                                 "fc1": "fc1", "fc2": "fc2"}))
+
+    det_params = {"params": {
+        "image_encoder": vision,
+        "merged_ln": ln("layer_norm"),
+        "class_proj": dense("class_head.dense0"),
+        "logit_shift": dense("class_head.logit_shift"),
+        "logit_scale_head": dense("class_head.logit_scale"),
+        "box_dense0": dense("box_head.dense0"),
+        "box_dense1": dense("box_head.dense1"),
+        "box_dense2": dense("box_head.dense2"),
+    }}
+
+    t = "owlvit.text_model."
+    text = {
+        "token_embedding": a(t + "embeddings.token_embedding.weight"),
+        "positional_embedding": a(t + "embeddings.position_embedding.weight"),
+        "ln_final": ln(t + "final_layer_norm"),
+        "text_projection": a("owlvit.text_projection.weight").T,
+    }
+    text.update(vit_blocks(t, {"block": "resblock_{}", "ln1": "ln_1",
+                               "ln2": "ln_2", "qkv": "attn_in",
+                               "proj": "attn_out", "fc1": "mlp_fc",
+                               "fc2": "mlp_proj"}))
+    return det_params, {"params": text}
+
+
 class OwlViTPipeline:
     """Text query -> best box (``get_bounding_box_using_owl_vit``); the box
     source of ``SamSegmenter``. The modules hold their weights and sit on the
@@ -162,7 +237,10 @@ class OwlViTPipeline:
             from voxactb_tpu_torch.utils.bpe import SimpleTokenizer
 
             self._tokenizer = SimpleTokenizer()
-        tokens = torch.as_tensor(self._tokenizer.tokenize(list(queries)), device=self.device)
+        # the text tower's own context (16 in OWL-ViT's checkpoints, 77 in CLIP's)
+        ctx = self._text.positional_embedding.shape[0]
+        tokens = torch.as_tensor(self._tokenizer.tokenize(list(queries), context_length=ctx),
+                                 device=self.device)
         with torch.inference_mode():
             sent, _ = self._text(tokens)
         return sent

@@ -9,6 +9,9 @@ the queries (no residual), the block LayerNorms use eps 1e-6 while the final
 attention's keeps 1e-5, the upscaling LayerNorm uses 1e-6, and every GELU is
 the exact erf form. Channels-last, parameters in f32 under the flax names
 (auto-named submodules keep flax's ``Dense_i`` / ``LayerNorm_i``).
+``load_torch_sam_decoder_weights`` (a segment-anything checkpoint's
+``prompt_encoder.*`` / ``mask_decoder.*``) and ``load_hf_sam_decoder_weights``
+(transformers' ``SamModel``) map upstream state_dicts onto the flax tree.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from torch import nn
 from voxactb_tpu_torch.models.blocks import (
     ConvTranspose2D, Dense, LayerNorm, gelu_erf, sigmoid)
 from voxactb_tpu_torch.models.clip_text import attend, merge_heads, split_heads
+from voxactb_tpu_torch.models.torch_port import make_port_helpers
 from voxactb_tpu_torch.ops.resize import resize_linear
 
 
@@ -181,6 +185,116 @@ class SamMaskDecoder(nn.Module):
                              for i in range(self.num_masks)], 1)  # [B, M, dim / 8]
         masks = torch.einsum("bmc,bhwc->bmhw", hyper.float(), img.float())
         return masks, self.iou_head(iou_out).float()
+
+
+def load_hf_sam_decoder_weights(state_dict) -> dict:
+    """Map a transformers ``SamModel`` prompt-encoder + mask-decoder state_dict onto
+    ``SamMaskDecoder``.
+
+    The HF model has TWO SamPositionalEmbedding instances (``shared_image_embedding``
+    for the image grid and ``prompt_encoder.shared_embedding`` for prompts) that are
+    equal in converted checkpoints; this module follows the original segment-anything
+    design with ONE pe layer, loaded from the prompt encoder's copy.
+    """
+
+    a, dense, ln, sam_attn, conv_t = make_port_helpers(state_dict)
+
+    def feed_forward(key, layers=3):
+        out = {"Dense_0": dense(key + ".proj_in")}
+        for i in range(layers - 2):
+            out[f"Dense_{i + 1}"] = dense(f"{key}.layers.{i}")
+        out[f"Dense_{layers - 1}"] = dense(key + ".proj_out")
+        return out
+
+    md = "mask_decoder."
+    params = {
+        "pe": {"gaussian_matrix":
+               a("prompt_encoder.shared_embedding.positional_embedding")},
+        "corner_embed": np.concatenate(
+            [a("prompt_encoder.point_embed.2.weight"),
+             a("prompt_encoder.point_embed.3.weight")], axis=0),
+        "no_mask_embed": a("prompt_encoder.no_mask_embed.weight"),
+        "iou_token": a(md + "iou_token.weight"),
+        "mask_tokens": a(md + "mask_tokens.weight"),
+        "up1": conv_t(md + "upscale_conv1"),
+        "up2": conv_t(md + "upscale_conv2"),
+        "LayerNorm_1": ln(md + "upscale_layer_norm"),
+        "final_t2i": sam_attn(md + "transformer.final_attn_token_to_image"),
+        "LayerNorm_0": ln(md + "transformer.layer_norm_final_attn"),
+        "iou_head": feed_forward(md + "iou_prediction_head"),
+    }
+    lp = md + "transformer.layers."
+    depth = max(int(k[len(lp):].split(".")[0]) for k in state_dict
+                if k.startswith(lp)) + 1
+    for i in range(depth):
+        p = f"{md}transformer.layers.{i}."
+        params[f"block_{i}"] = {
+            "self_attn": sam_attn(p + "self_attn"),
+            "cross_t2i": sam_attn(p + "cross_attn_token_to_image"),
+            "cross_i2t": sam_attn(p + "cross_attn_image_to_token"),
+            "LayerNorm_0": ln(p + "layer_norm1"),
+            "LayerNorm_1": ln(p + "layer_norm2"),
+            "LayerNorm_2": ln(p + "layer_norm3"),
+            "LayerNorm_3": ln(p + "layer_norm4"),
+            "Dense_0": dense(p + "mlp.lin1"),
+            "Dense_1": dense(p + "mlp.lin2"),
+        }
+    n_masks = a(md + "mask_tokens.weight").shape[0]
+    for i in range(n_masks):
+        params[f"hyper_{i}"] = feed_forward(
+            f"{md}output_hypernetworks_mlps.{i}")
+    return {"params": params}
+
+
+def load_torch_sam_decoder_weights(state_dict) -> dict:
+    """Map a facebook segment-anything checkpoint's prompt-encoder + mask-decoder
+    (``prompt_encoder.*`` / ``mask_decoder.*`` keys, original naming: norm1..4,
+    mlp.lin1/lin2, output_upscaling.0/1/3, MLP ``layers.N``) onto
+    ``SamMaskDecoder`` — the companion of ``load_torch_sam_weights`` so a
+    single sam_vit_*.pth loads the whole segmentation path."""
+
+    a, dense, ln, sam_attn, conv_t = make_port_helpers(state_dict)
+
+    def mlp3(key):  # facebook SamFeedForward equivalent: MLP with layers.0..2
+        return {f"Dense_{i}": dense(f"{key}.layers.{i}") for i in range(3)}
+
+    md = "mask_decoder."
+    params = {
+        "pe": {"gaussian_matrix":
+               a("prompt_encoder.pe_layer.positional_encoding_gaussian_matrix")},
+        "corner_embed": np.concatenate(
+            [a("prompt_encoder.point_embeddings.2.weight"),
+             a("prompt_encoder.point_embeddings.3.weight")], axis=0),
+        "no_mask_embed": a("prompt_encoder.no_mask_embed.weight"),
+        "iou_token": a(md + "iou_token.weight"),
+        "mask_tokens": a(md + "mask_tokens.weight"),
+        "up1": conv_t(md + "output_upscaling.0"),
+        "up2": conv_t(md + "output_upscaling.3"),
+        "LayerNorm_1": ln(md + "output_upscaling.1"),
+        "final_t2i": sam_attn(md + "transformer.final_attn_token_to_image"),
+        "LayerNorm_0": ln(md + "transformer.norm_final_attn"),
+        "iou_head": mlp3(md + "iou_prediction_head"),
+    }
+    lp = md + "transformer.layers."
+    depth = max(int(k[len(lp):].split(".")[0]) for k in state_dict
+                if k.startswith(lp)) + 1
+    for i in range(depth):
+        p = f"{lp}{i}."
+        params[f"block_{i}"] = {
+            "self_attn": sam_attn(p + "self_attn"),
+            "cross_t2i": sam_attn(p + "cross_attn_token_to_image"),
+            "cross_i2t": sam_attn(p + "cross_attn_image_to_token"),
+            "LayerNorm_0": ln(p + "norm1"),
+            "LayerNorm_1": ln(p + "norm2"),
+            "LayerNorm_2": ln(p + "norm3"),
+            "LayerNorm_3": ln(p + "norm4"),
+            "Dense_0": dense(p + "mlp.lin1"),
+            "Dense_1": dense(p + "mlp.lin2"),
+        }
+    n_masks = a(md + "mask_tokens.weight").shape[0]
+    for i in range(n_masks):
+        params[f"hyper_{i}"] = mlp3(f"{md}output_hypernetworks_mlps.{i}")
+    return {"params": params}
 
 
 class SamSegmenter:

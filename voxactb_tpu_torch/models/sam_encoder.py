@@ -11,6 +11,10 @@ kernel on a CUDA tensor) where the JAX package takes its Pallas kernel: at
 bf16, with rel-pos, in the global blocks (``fused_global``, on by default)
 and, with ``fused_windowed``, in the windowed ones. Elsewhere it is the plain
 formulation (``ops/sam_attention``), which is also K7's plain version.
+
+``load_torch_sam_weights`` (a segment-anything checkpoint's
+``image_encoder.*``) and ``load_hf_sam_vision_weights`` (transformers'
+``vision_encoder.*``) map upstream state_dicts onto the flax tree.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from voxactb_tpu_torch.models.blocks import Conv2D, Dense, LayerNorm, gelu_erf
+from voxactb_tpu_torch.models.torch_port import make_port_helpers
 from voxactb_tpu_torch.ops.resize import resize_linear
 
 
@@ -224,3 +229,93 @@ def preprocess_image(rgb: np.ndarray, img_size: int = 1024, device=None) -> torc
     out = x.new_zeros(img_size, img_size, 3)
     out[:nh, :nw] = x
     return out[None]
+
+
+def load_hf_sam_vision_weights(state_dict) -> dict:
+    """Map a transformers ``SamModel`` / ``SamVisionModel`` vision-encoder
+    state_dict (``vision_encoder.*`` keys, modeling_sam.py naming) onto
+    ``SamImageEncoder``. Same math as the facebook layout importer below —
+    only the key names differ (``patch_embed.projection`` vs ``patch_embed.proj``,
+    ``layers.N.layer_norm1`` vs ``blocks.N.norm1``, ``neck.layer_norm1`` vs
+    ``neck.1`` ...)."""
+
+    a = make_port_helpers(state_dict)[0]
+
+    p = "vision_encoder."
+    params = {
+        "patch_embed": {
+            "kernel": a(p + "patch_embed.projection.weight").transpose(2, 3, 1, 0),
+            "bias": a(p + "patch_embed.projection.bias"),
+        },
+        "pos_embed": a(p + "pos_embed"),
+        "neck_conv1": {"kernel": a(p + "neck.conv1.weight").transpose(2, 3, 1, 0)},
+        "neck_ln1": {"scale": a(p + "neck.layer_norm1.weight"),
+                     "bias": a(p + "neck.layer_norm1.bias")},
+        "neck_conv2": {"kernel": a(p + "neck.conv2.weight").transpose(2, 3, 1, 0)},
+        "neck_ln2": {"scale": a(p + "neck.layer_norm2.weight"),
+                     "bias": a(p + "neck.layer_norm2.bias")},
+    }
+    depth = max(int(k.split(".")[2]) for k in state_dict
+                if k.startswith(p + "layers.")) + 1
+    for i in range(depth):
+        b = f"{p}layers.{i}."
+        params[f"block_{i}"] = {
+            "norm1": {"scale": a(b + "layer_norm1.weight"),
+                      "bias": a(b + "layer_norm1.bias")},
+            "norm2": {"scale": a(b + "layer_norm2.weight"),
+                      "bias": a(b + "layer_norm2.bias")},
+            "attn": {
+                "qkv": {"kernel": a(b + "attn.qkv.weight").T,
+                        "bias": a(b + "attn.qkv.bias")},
+                "proj": {"kernel": a(b + "attn.proj.weight").T,
+                         "bias": a(b + "attn.proj.bias")},
+                "rel_pos_h": a(b + "attn.rel_pos_h"),
+                "rel_pos_w": a(b + "attn.rel_pos_w"),
+            },
+            "mlp_fc1": {"kernel": a(b + "mlp.lin1.weight").T,
+                        "bias": a(b + "mlp.lin1.bias")},
+            "mlp_fc2": {"kernel": a(b + "mlp.lin2.weight").T,
+                        "bias": a(b + "mlp.lin2.bias")},
+        }
+    return {"params": params}
+
+
+def load_torch_sam_weights(state_dict) -> dict:
+    """Map a segment-anything ``image_encoder.*`` state_dict onto SamImageEncoder."""
+
+    a = make_port_helpers(state_dict)[0]
+
+    p = "image_encoder."
+    params = {
+        "patch_embed": {
+            # torch conv [out,in,kh,kw] -> flax [kh,kw,in,out]
+            "kernel": a(p + "patch_embed.proj.weight").transpose(2, 3, 1, 0),
+            "bias": a(p + "patch_embed.proj.bias"),
+        },
+        "pos_embed": a(p + "pos_embed"),
+        "neck_conv1": {"kernel": a(p + "neck.0.weight").transpose(2, 3, 1, 0)},
+        "neck_ln1": {"scale": a(p + "neck.1.weight"), "bias": a(p + "neck.1.bias")},
+        "neck_conv2": {"kernel": a(p + "neck.2.weight").transpose(2, 3, 1, 0)},
+        "neck_ln2": {"scale": a(p + "neck.3.weight"), "bias": a(p + "neck.3.bias")},
+    }
+    depth = max(int(k.split(".")[2]) for k in state_dict
+                if k.startswith(p + "blocks.")) + 1
+    for i in range(depth):
+        b = f"{p}blocks.{i}."
+        params[f"block_{i}"] = {
+            "norm1": {"scale": a(b + "norm1.weight"), "bias": a(b + "norm1.bias")},
+            "norm2": {"scale": a(b + "norm2.weight"), "bias": a(b + "norm2.bias")},
+            "attn": {
+                "qkv": {"kernel": a(b + "attn.qkv.weight").T,
+                        "bias": a(b + "attn.qkv.bias")},
+                "proj": {"kernel": a(b + "attn.proj.weight").T,
+                         "bias": a(b + "attn.proj.bias")},
+                "rel_pos_h": a(b + "attn.rel_pos_h"),
+                "rel_pos_w": a(b + "attn.rel_pos_w"),
+            },
+            "mlp_fc1": {"kernel": a(b + "mlp.lin1.weight").T,
+                        "bias": a(b + "mlp.lin1.bias")},
+            "mlp_fc2": {"kernel": a(b + "mlp.lin2.weight").T,
+                        "bias": a(b + "mlp.lin2.bias")},
+        }
+    return {"params": params}

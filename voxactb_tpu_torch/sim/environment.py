@@ -264,13 +264,16 @@ def default_sim_language_encoder():
     Reference behavior: launch_utils.py:384-400 CLIP-encodes every
     description with pretrained RN50.
 
-    Weights: this port loads no pretrained checkpoint, so the encoder is a
-    RANDOM-INIT 2-layer ``ClipTextEncoder`` (real BPE tokenizer + transformer,
-    so different descriptions map to different embeddings, but NOT
-    semantically meaningful CLIP space), initialised from
+    Weights: when a CLIP checkpoint is on disk
+    (``$VOXACTB_WEIGHTS_DIR/clip_rn50.pt``, ``utils/pretrained``), its full
+    text tower, as the JAX package's sim does. An unreadable checkpoint
+    raises here, where the JAX sim falls back to random weights. Otherwise a
+    RANDOM-INIT 2-layer ``ClipTextEncoder`` (real BPE tokenizer +
+    transformer, so different descriptions map to different embeddings, but
+    NOT semantically meaningful CLIP space), initialised from
     ``torch.Generator().manual_seed(0)``. The JAX package's sim takes the
-    same random-init branch where no checkpoint is present, but draws its
-    weights from ``jax.random.key(0)``: the two packages' embeddings differ.
+    same random-init branch, but draws its weights from ``jax.random.key(0)``:
+    the two packages' random-init embeddings differ.
 
     The tower runs on the CPU: it encodes each description once per process
     and its outputs go into the numpy observation dicts the sim hands out.
@@ -279,27 +282,33 @@ def default_sim_language_encoder():
         global _LANG_ENC
         if text not in _LANG_CACHE:
             if _LANG_ENC is None:
-                _LANG_ENC = _make_text_encoder(None, _LANG_CACHE)
+                from voxactb_tpu_torch.utils.pretrained import load_clip_text
+
+                loaded = load_clip_text(device="cpu")
+                _LANG_ENC = _make_text_encoder(None, _LANG_CACHE,
+                                               model=None if loaded is None else loaded[0])
             return _LANG_ENC(text)
         return _LANG_CACHE[text]
 
     return encode
 
 
-def _make_text_encoder(params, cache: Dict[str, tuple]):
-    """The 2-layer tower as a cached description -> numpy (sentence, tokens)
-    encoder; ``params``, a flax parameter tree of numpy arrays, replaces the
-    seeded weights (``weights.load_flax_params``)."""
+def _make_text_encoder(params, cache: Dict[str, tuple], model=None):
+    """A text tower as a cached description -> numpy (sentence, tokens)
+    encoder: ``model`` (a loaded ``ClipTextEncoder`` on the CPU), else the
+    seeded 2-layer tower, whose weights ``params`` (a flax parameter tree of
+    numpy arrays) replaces (``weights.load_flax_params``)."""
     import torch
 
     from voxactb_tpu_torch.models.clip_text import ClipTextEncoder
     from voxactb_tpu_torch.utils.bpe import SimpleTokenizer
 
-    model = ClipTextEncoder(layers=2, generator=torch.Generator().manual_seed(0))
-    if params is not None:
-        from voxactb_tpu_torch.weights import load_flax_params
+    if model is None:
+        model = ClipTextEncoder(layers=2, generator=torch.Generator().manual_seed(0))
+        if params is not None:
+            from voxactb_tpu_torch.weights import load_flax_params
 
-        load_flax_params(model, params)
+            load_flax_params(model, params)
     model.eval()
     tok = SimpleTokenizer()
 

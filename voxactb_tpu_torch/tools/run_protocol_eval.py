@@ -12,7 +12,7 @@ Run:  python3 -m voxactb_tpu_torch.tools.run_protocol_eval --out build/protocol 
 The agents train and act on one CUDA device unless ``--device`` names another
 (``--device cpu`` runs the plain PyTorch versions); without CUDA and without
 ``--device`` the tool raises. Checkpoints are the ``.pt`` files ``cli.train``
-writes. ``summary.json`` and the CSVs go under ``--out`` only.
+writes, or a JAX run's ``.msgpack`` ones. ``summary.json`` and the CSVs go under ``--out`` only.
 
 The model is a small-but-structured config: voxel 50^3 with the VoxAct-B VLM
 crop (radius 0.3 -> 1.2 cm voxels — the reference operating point, and the
@@ -34,7 +34,7 @@ import os
 import time
 
 TASKS = ["open_jar", "open_drawer", "put_item_in_drawer", "hand_over_item"]
-CKPT_SUFFIX = ".pt"
+CKPT_SUFFIXES = (".pt", ".msgpack")  # the port's, and a JAX run's
 
 COMMON = [
     "rlbench.demo_path=sim",
@@ -97,7 +97,7 @@ def train_policy(task: str, arm: str, out_root: str, iters: int, demos: int,
     prior = os.path.join(out_root, f"train_{arm}", task, "PERACT_BC", "seed0")
     final_w = os.path.join(prior, "weights", str(iters - 1))
     if os.path.isdir(final_w) and any(
-            f.endswith(CKPT_SUFFIX) for f in os.listdir(final_w)):
+            f.endswith(CKPT_SUFFIXES) for f in os.listdir(final_w)):
         print(f"[{task}/{arm}] already trained to {iters - 1} -> {prior} "
               f"(skipping train)", flush=True)
         return prior
@@ -118,7 +118,8 @@ def train_policy(task: str, arm: str, out_root: str, iters: int, demos: int,
 
 
 def ckpt_file(seed_dir: str, step: int = None) -> str:
-    """Path of the ``.pt`` checkpoint at ``step`` (default: newest)."""
+    """Path of the checkpoint at ``step`` (default: newest): the port's
+    ``.pt`` or a JAX run's ``.msgpack``."""
     from voxactb_tpu_torch.runners.eval_runner import existing_weight_steps
 
     wd = os.path.join(seed_dir, "weights")
@@ -129,10 +130,11 @@ def ckpt_file(seed_dir: str, step: int = None) -> str:
                                 "its first save?")
     step = steps[-1] if step is None else step
     final = os.path.join(wd, str(step))
-    files = [f for f in os.listdir(final) if f.endswith(CKPT_SUFFIX)]
+    files = sorted(f for f in os.listdir(final) if f.endswith(CKPT_SUFFIXES))
     if not files:
-        raise FileNotFoundError(f"no {CKPT_SUFFIX} in {final}")
-    return os.path.join(final, files[0])
+        raise FileNotFoundError(f"no checkpoint ({' or '.join(CKPT_SUFFIXES)}) in {final}")
+    pt = [f for f in files if f.endswith(".pt")]
+    return os.path.join(final, (pt or files)[0])
 
 
 def make_runner(task: str, acting_dir: str, stab_ckpt, episodes: int,

@@ -13,8 +13,9 @@ radius is auto-derived from the object's extent plus 5cm padding.
 - ``VLM``: the user-facing class with the reference's entry point
   ``get_target_object_world_coords``.
 
-The transformers-based ``OwlVitSamDetector`` and the checkpoint loaders wait
-until checkpoint files are in the repository.
+``TorchOwlVitSamDetector.from_pretrained`` builds the towers from local
+checkpoints (``utils/pretrained``). The transformers-based
+``OwlVitSamDetector`` is not ported: the card has no transformers.
 """
 
 from __future__ import annotations
@@ -105,6 +106,36 @@ class TorchOwlVitSamDetector:
         self._sam = sam_segmenter
         self._threshold = score_threshold
         self._query_cache = {}
+
+    @classmethod
+    def from_pretrained(cls, sam_size: str = "vit_h", score_threshold: float = 0.1,
+                        device=None):
+        """Build from local checkpoints (``utils/pretrained``:
+        ``$VOXACTB_WEIGHTS_DIR`` with ``owlvit_base.pt`` and
+        ``sam_{size}.pth``): f32 towers at the checkpoints' dims on ``device``
+        (CUDA unless the caller passes ``"cpu"``). Raises
+        ``FileNotFoundError`` when weights are absent; callers fall back to
+        ``MaskLocalizer`` / ``GroundTruthLocalizer``."""
+        from voxactb_tpu_torch.models.owlvit import OwlViTPipeline, load_hf_owlvit_weights
+        from voxactb_tpu_torch.models.sam_decoder import (
+            SamSegmenter, load_torch_sam_decoder_weights)
+        from voxactb_tpu_torch.models.sam_encoder import load_torch_sam_weights
+        from voxactb_tpu_torch.utils import pretrained
+
+        owl_path = pretrained.find_weights("owlvit")
+        sam_path = pretrained.find_weights(f"sam_{sam_size}")
+        if owl_path is None or sam_path is None:
+            raise FileNotFoundError(
+                f"no OWL-ViT / SAM checkpoints under {pretrained.weights_dir()} (need "
+                f"owlvit_base.pt and sam_{sam_size}.pth)")
+        det, text = pretrained.owlvit_from(
+            *load_hf_owlvit_weights(pretrained._torch_state_dict(owl_path)), device)
+        sd = pretrained._torch_state_dict(sam_path)  # read once for both towers
+        encoder = pretrained.sam_encoder_from(load_torch_sam_weights(sd), sam_size, device)
+        decoder = pretrained.sam_decoder_from(load_torch_sam_decoder_weights(sd), device)
+        del sd
+        pipeline = OwlViTPipeline(det, text, img_size=det.image_encoder.img_size)
+        return cls(pipeline, SamSegmenter(encoder, decoder), score_threshold)
 
     def __call__(self, rgb: np.ndarray, query: str) -> np.ndarray:
         if query not in self._query_cache:

@@ -24,6 +24,19 @@ The same mapping carries anything laid out like the parameters:
 flax layout as numpy, ``to_k | to_v`` re-fused), and ``opt_state_from_optax``
 builds the port's optimizer state from ``optax.lamb``'s ``count``, ``mu`` and
 ``nu``, so a test can start both packages from one state.
+
+BatchNorm (the CLIP RN50 image tower's): flax keeps ``scale`` / ``bias`` in
+``params`` and the running ``mean`` / ``var`` in the ``batch_stats``
+collection; ``load_flax_params`` takes ``{'params': ..., 'batch_stats':
+...}`` and fills the module's ``running_mean`` / ``running_var`` buffers,
+``batch_stats_tree`` gives them back. A torch ``nn.Conv2d`` maps as the
+port's ``Conv2D`` does.
+
+Optimizer state in a JAX checkpoint: ``opt_state_from_flax`` reads the
+``to_state_dict`` of ``optax.lamb``'s state (``count`` / ``mu`` / ``nu``
+under ``'0'``) or of the Adam chain's (under ``'1'``), and
+``optax_state_tree`` writes the port's state back in that layout, with the
+learning-rate schedule's own ``count`` where the optimizer has a schedule.
 """
 
 from __future__ import annotations
@@ -38,6 +51,7 @@ from voxactb_tpu_torch.models.blocks import (
     Conv2D, Conv3D, ConvTranspose2D, Dense, LayerNorm)
 from voxactb_tpu_torch.models.perceiver import Attention
 
+_BatchNorm = nn.modules.batchnorm._BatchNorm
 Path = Tuple[str, ...]
 Target = Tuple[nn.Parameter, Callable[[np.ndarray], np.ndarray]]
 
@@ -104,12 +118,12 @@ def flax_targets(module: nn.Module) -> Dict[Path, List[Target]]:
             if mod.bias is not None:
                 add(prefix + ("bias",), mod.bias, _identity)
             return
-        if isinstance(mod, LayerNorm):
+        if isinstance(mod, (LayerNorm, _BatchNorm)):  # BatchNorm's statistics: _stat_targets
             add(prefix + ("scale",), mod.weight, _identity)
             add(prefix + ("bias",), mod.bias, _identity)
             return
-        if isinstance(mod, (Conv3D, Conv2D, ConvTranspose2D)):
-            fn = {Conv3D: _dhwio_to_oidhw, Conv2D: _hwio_to_oihw,
+        if isinstance(mod, (Conv3D, Conv2D, ConvTranspose2D, nn.Conv2d)):
+            fn = {Conv3D: _dhwio_to_oidhw, Conv2D: _hwio_to_oihw, nn.Conv2d: _hwio_to_oihw,
                   ConvTranspose2D: _flax_to_torch_transposed}[type(mod)]
             add(prefix + ("kernel",), mod.weight, fn)
             if mod.bias is not None:
@@ -147,13 +161,21 @@ def _param_names(module: nn.Module) -> Dict[int, str]:
     return {id(p): name for name, p in module.named_parameters()}
 
 
+def _split_variables(tree: Mapping):
+    """``(params, batch_stats or None)`` of a flax variables dict, or
+    ``(tree, None)`` for a bare parameter tree."""
+    if "params" in tree and set(tree.keys()) <= {"params", "batch_stats"}:
+        return tree["params"], tree.get("batch_stats")
+    return tree, None
+
+
 def flax_tree_to_tensors(module: nn.Module, tree: Mapping) -> Dict[str, torch.Tensor]:
-    """A flax-layout tree (``{'params': {...}}`` or the inner dict) as the
+    """A flax-layout tree (``{'params': {...}}`` or the inner dict; a
+    ``batch_stats`` collection beside ``params`` is not read here) as the
     port's ``parameter name -> f32 CPU tensor``. Raises ``ValueError`` on an
     unexpected, missing or misshapen leaf, and on a torch parameter the tree
     does not set."""
-    if set(tree.keys()) == {"params"}:
-        tree = tree["params"]
+    tree, _ = _split_variables(tree)
     leaves = _flatten(tree)
     targets = flax_targets(module)
     names = _param_names(module)
@@ -182,15 +204,71 @@ def flax_tree_to_tensors(module: nn.Module, tree: Mapping) -> Dict[str, torch.Te
     return out
 
 
+def _stat_targets(module: nn.Module) -> Dict[Path, Tuple[str, torch.Tensor]]:
+    """flax ``batch_stats`` leaf path -> (buffer name, the BatchNorm buffer
+    it fills)."""
+    targets: Dict[Path, Tuple[str, torch.Tensor]] = {}
+    for name, mod in module.named_modules():
+        if isinstance(mod, _BatchNorm):
+            prefix = tuple(name.split(".")) if name else ()
+            for leaf, buf in (("mean", "running_mean"), ("var", "running_var")):
+                full = f"{name}.{buf}" if name else buf
+                targets[prefix + (leaf,)] = (full, getattr(mod, buf))
+    return targets
+
+
+def batch_stats_to_tensors(module: nn.Module, stats: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``batch_stats`` tree as ``buffer name -> f32 CPU tensor`` of the
+    module's BatchNorm running statistics; strict as ``flax_tree_to_tensors``."""
+    leaves = _flatten(stats)
+    targets = _stat_targets(module)
+    errors = [f"unexpected batch_stats leaf {'/'.join(p)}"
+              for p in sorted(set(leaves) - set(targets))]
+    errors += [f"missing batch_stats leaf {'/'.join(p)}"
+               for p in sorted(set(targets) - set(leaves))]
+    out: Dict[str, torch.Tensor] = {}
+    for path in sorted(set(leaves) & set(targets)):
+        name, buf = targets[path]
+        value = np.ascontiguousarray(leaves[path])
+        if tuple(value.shape) != tuple(buf.shape):
+            errors.append(f"shape of batch_stats {'/'.join(path)}: flax "
+                          f"{tuple(value.shape)}, torch {tuple(buf.shape)}")
+            continue
+        out[name] = torch.tensor(value, dtype=buf.dtype)
+    if errors:
+        raise ValueError("batch_stats do not match the module:\n  " + "\n  ".join(errors))
+    return out
+
+
 def load_flax_params(module: nn.Module, tree: Mapping) -> None:
-    """Fill ``module`` from a flax parameter tree. Strict as
-    ``flax_tree_to_tensors``: any mismatch raises before a single parameter is
-    written."""
-    values = flax_tree_to_tensors(module, tree)
+    """Fill ``module`` from a flax parameter tree, or from ``{'params': ...,
+    'batch_stats': ...}`` (a module with BatchNorm needs the statistics).
+    Strict as ``flax_tree_to_tensors``: any mismatch raises before a single
+    parameter or buffer is written."""
+    params_tree, stats = _split_variables(tree)
+    values = flax_tree_to_tensors(module, params_tree)
+    stat_values = {}
+    if stats is not None or _stat_targets(module):
+        stat_values = batch_stats_to_tensors(module, stats or {})
     params = dict(module.named_parameters())
+    buffers = dict(module.named_buffers())
     with torch.no_grad():
         for name, value in values.items():
             params[name].copy_(value)
+        for name, value in stat_values.items():
+            buffers[name].copy_(value)
+
+
+def batch_stats_tree(module: nn.Module) -> dict:
+    """The module's BatchNorm running statistics as a flax ``batch_stats``
+    tree of numpy arrays (the inverse of ``batch_stats_to_tensors``)."""
+    tree: dict = {}
+    for path, (_, buf) in _stat_targets(module).items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = buf.detach().cpu().float().numpy().copy()
+    return tree
 
 
 def tensors_to_flax_tree(module: nn.Module, tensors: Mapping[str, torch.Tensor]) -> dict:
@@ -234,3 +312,39 @@ def opt_state_from_optax(module: nn.Module, count, mu: Mapping, nu: Mapping,
     return OptState(torch.tensor(int(count), dtype=torch.int64, device=device),
                     move(flax_tree_to_tensors(module, mu)),
                     move(flax_tree_to_tensors(module, nu)))
+
+
+def _adam_entry(opt_state: Mapping) -> Mapping:
+    """The ``scale_by_adam`` state (``count``, ``mu``, ``nu``) inside the
+    ``to_state_dict`` of an optax chain's state."""
+    entries = [v for v in opt_state.values()
+               if isinstance(v, Mapping) and {"count", "mu", "nu"} <= set(v)]
+    if len(entries) != 1:
+        raise ValueError(f"no single scale_by_adam state in the optimizer state "
+                         f"(entries {sorted(opt_state)})")
+    return entries[0]
+
+
+def opt_state_from_flax(module: nn.Module, opt_state: Mapping, device=None):
+    """The port's ``OptState`` from a JAX checkpoint's ``opt_state``
+    (``to_state_dict`` of ``optax.lamb``'s state, whose ``'0'`` holds the
+    Adam moments, or of the Adam chain's, whose ``'1'`` does)."""
+    adam = _adam_entry(opt_state)
+    return opt_state_from_optax(module, np.asarray(adam["count"]), adam["mu"], adam["nu"],
+                                device)
+
+
+def optax_state_tree(module: nn.Module, state, kind: str, scheduled: bool) -> dict:
+    """The port's ``OptState`` as the ``to_state_dict`` of the JAX agent's
+    optimizer state, numpy leaves: ``optax.lamb`` (``'0'`` Adam moments,
+    ``'1'``-``'3'`` empty but the schedule's count in ``'3'``) or the Adam
+    chain (``'0'`` empty, ``'1'`` moments, ``'2'`` the schedule's count)."""
+    count = np.asarray(int(state.count), np.int32)
+    adam = {"count": count, "mu": tensors_to_flax_tree(module, state.mu),
+            "nu": tensors_to_flax_tree(module, state.nu)}
+    sched = {"count": count.copy()} if scheduled else {}
+    if kind == "lamb":
+        return {"0": adam, "1": {}, "2": {}, "3": sched}
+    if kind == "adam":
+        return {"0": {}, "1": adam, "2": sched}
+    raise ValueError(f"Unknown optimizer type {kind!r}")
