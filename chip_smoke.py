@@ -2,7 +2,9 @@
 """Drive the PyTorch/CUDA port's act paths (fused front and dense grid), its
 VLM crop path, its BC train step, its measurement tools, its train and eval
 CLIs, its native disk replay, its protocol tool, its diagnosis probes and
-profilers and its weight import and export on one NVIDIA H100 and check them.
+profilers, its weight import and export, its baseline policies, VoxPoser's
+planner in the rollout and the real-robot path on one NVIDIA H100 and check
+them.
 
     python3 chip_smoke.py
 
@@ -150,8 +152,32 @@ Phases:
                the bf16 towers from the same trees held by SAM's rule and one
                VLM pass with K7; CLIP RN50 at 224^2; the sim's language from
                the checkpoint's text tower. The files are removed at the end.
- 13. report  - every kernel's launch count rose during its main-path run;
-               one ``{"kernels": [...]}`` line.
+ 13. baselines - the paper's comparison policies, plain PyTorch (no TPU
+               kernel computes their functions; every launch count stays 0):
+               ``BCLangAgent`` with the CNN and the ViT at the JAX modules'
+               default widths, f32, two 128^2 cameras, batch 8: the card
+               against the CPU from one state (forward, gradients, one Adam
+               update; a planted fault, symmetric padding for the CNN and an
+               unscaled query for the ViT, must fail the forward), 20 updates
+               on one batch (the loss falls), the ``{name}.msgpack``
+               checkpoint bit-equal through save and load (a flipped byte
+               must break it), acts; ``LingUNetQNet`` (base 16, 2 levels) on a
+               [1, 48^3, 10] grid, forward and backward against the CPU.
+ 14. voxposer_robot - at full width with two seeded policies at 50^3 and the
+               kernel flags: an open_jar sim episode whose VoxPoser prologue
+               (``VoxPoserPlanner`` on a scripted LLM program, 100^3 value
+               maps) is bit-equal to a CPU run (a map 1 cm off must differ),
+               then dual-policy acts (K1-K3) and a ``voxposer_only`` episode;
+               a real-robot episode (``RealRobotEnv`` over ``BimanualURRobot``
+               and two loopback UR controllers, seeded RGB-D cameras, the VLM
+               crop with K7 at full width): the URScript each controller
+               received equals the actions after the hand-eye extrinsics and
+               the gimbal guard (without the extrinsics it must differ);
+               ``select_best_checkpoint`` over three checkpoints (one in the
+               JAX format) on held-out acting transitions picks the step a
+               CPU run picks, writes its CSV, and follows swapped files.
+ 15. report  - every kernel's launch count rose during its main-path run;
+               one ``{"kernels": [...]}`` line; the command's total time.
 Then the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
 Bulk details go to ``chiprun_out/chip_smoke.json``.
@@ -174,6 +200,7 @@ from voxactb_tpu_torch.tools.cost_model import (
     H100_HBM_BW as PEAK_BYTES, H100_PEAK_BF16_FLOPS as PEAK_BF16_FLOPS,
     H100_PEAK_F32_FLOPS as PEAK_F32_FLOPS)
 
+T_START = time.perf_counter()
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 
@@ -4102,13 +4129,8 @@ def weights_policy(files, rng, details, timings):
     expect(n_chunked > 0 and not bad,
            f"weights: {n_chunked} chunked leaves; parameters differing {bad}")
     # a bf16 copy of the policy through the codec
-    def leaves(tree, prefix=""):
-        for k, v in tree.items():
-            yield from (leaves(v, f"{prefix}{k}/") if isinstance(v, dict)
-                        else [(prefix + k, v)])
-
     bf16 = {k: torch.as_tensor(v).to(torch.bfloat16)
-            for k, v in leaves(msgpack_codec.load(msg)["params"])}
+            for k, v in flat_tree(msgpack_codec.load(msg)["params"]).items()}
     bf16_path = os.path.join(WEIGHTS_ROOT, "bf16.msgpack")
     msgpack_codec.save(bf16_path, bf16)
 
@@ -4481,6 +4503,823 @@ def weights(details, timings):
     return dict(launches=total)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the baseline zoo
+# ---------------------------------------------------------------------------
+
+BASELINE_CAMERAS = ["wrist", "wrist2"]
+BASELINE_BATCH = 8
+BASELINE_UPDATES = 20
+BASELINE_LR = 1e-3  # BCLangAgent's default
+# the card against the CPU in f32 (TF32 off), the same port module from the
+# same state: outputs, losses and gradients within BASELINE_TOL of the
+# largest value compared; one Adam update within 1% of the learning rate
+# wherever a gradient is clear of that tolerance times 100 (where it is not,
+# Adam's sign is rounding noise: there only its step bound holds)
+BASELINE_TOL = 1e-4
+LINGUNET_GRID = 48  # a multiple of 2^levels: at 50^3 the skip concat fails
+LINGUNET_KW = dict(base_channels=16, levels=2)
+
+
+def baseline_batch(rng, b):
+    """A replay batch as ``BCLangAgent.update`` reads it: two 128^2 cameras,
+    proprio 4, language 1024, a pose in the crop with a unit quaternion and a
+    gripper bit."""
+    pose = rng.normal(size=(b, 7)).astype(np.float32)
+    pose[:, :3] = rng.uniform(CROP_BOUNDS[:3], CROP_BOUNDS[3:], (b, 3))
+    pose[:, 3:] /= np.linalg.norm(pose[:, 3:], axis=-1, keepdims=True)
+    idx = rng.integers(0, 72, (b, 4)).astype(np.int32)
+    idx[:, 3] = rng.integers(0, 2, b)
+    batch = {"low_dim_state": rng.normal(size=(b, 4)).astype(np.float32),
+             "lang_goal_emb": rng.normal(size=(b, 1024)).astype(np.float32),
+             "gripper_pose": pose, "rot_grip_action_indicies": idx}
+    rgbs, pcds = clouds(rng, b)
+    for c, r, p in zip(BASELINE_CAMERAS, rgbs, pcds):
+        batch[f"{c}_rgb"], batch[f"{c}_point_cloud"] = r, p
+    return batch
+
+
+def baseline_grads(agent, batch):
+    """The MSE loss and its gradients (flax layout, numpy) of ``agent``'s
+    network on ``batch``, without an update."""
+    import torch
+    from voxactb_tpu_torch.weights import baseline_flax_tree
+
+    net = agent.network
+    rgbs, pcds = agent._inputs(batch)
+    t = lambda k: agent._tensor(batch[k])  # noqa: E731
+    target = torch.cat([t("gripper_pose"), t("rot_grip_action_indicies")[:, 3:4]], -1)
+    params = dict(net.named_parameters())
+    loss = torch.mean((net(rgbs, pcds, t("low_dim_state"), t("lang_goal_emb")) - target) ** 2)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return float(loss.detach()), flat_tree(baseline_flax_tree(net, dict(zip(params, grads))))
+
+
+def flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def baseline_params(agent):
+    from voxactb_tpu_torch.weights import baseline_flax_tree
+
+    return flat_tree(baseline_flax_tree(agent.network))
+
+
+def update_errors(before, after_a, after_b, grads, lr=BASELINE_LR):
+    """The largest difference of two agents' Adam updates from one state
+    where the gradient is clear of noise, and the largest step anywhere
+    beyond Adam's bound (lr, plus the rounding of p1 - p0)."""
+    largest = max(float(np.abs(g).max()) for g in grads.values())
+    worst, beyond = 0.0, 0.0
+    for k, g in grads.items():
+        da, db = after_a[k] - before[k], after_b[k] - before[k]
+        sure = np.abs(g) > 100 * BASELINE_TOL * largest
+        if sure.any():
+            worst = max(worst, float(np.abs(da[sure] - db[sure]).max()))
+        ulps = 4 * np.finfo(np.float32).eps * float(np.abs(before[k]).max())
+        beyond = max(beyond, float(np.abs(da).max()) - lr * (1 + 1e-5) - ulps)
+    return worst, beyond
+
+
+def baseline_outputs(agent, batch):
+    import torch
+
+    rgbs, pcds = agent._inputs(batch)
+    with torch.inference_mode():
+        return agent.network(rgbs, pcds, agent._tensor(batch["low_dim_state"]),
+                             agent._tensor(batch["lang_goal_emb"])).float().cpu()
+
+
+def query_unscaled(net):
+    """The ViT's attention with its query left unscaled (``head_dim`` 1 in
+    the scale): a layout fault of flax's MultiHeadDotProductAttention. A
+    planted fault."""
+    from voxactb_tpu_torch.models.baselines import MultiHeadDotProductAttention
+
+    mods = [m for m in net.modules() if isinstance(m, MultiHeadDotProductAttention)]
+
+    @contextlib.contextmanager
+    def ctx():
+        before = [m.head_dim for m in mods]
+        for m in mods:
+            m.head_dim = 1
+        try:
+            yield
+        finally:
+            for m, hd in zip(mods, before):
+                m.head_dim = hd
+    return ctx()
+
+
+def symmetric_same_padding(_net):
+    """The CNN's flax ``"SAME"`` pads replaced by PyTorch's symmetric
+    ``padding=1``. A planted fault."""
+    import torch.nn.functional as F
+
+    return planted("voxactb_tpu_torch.models.baselines", "pad_same_nhwc",
+                   lambda _fn: lambda x, k, s: F.pad(x, (0, 0, 1, 1, 1, 1)))
+
+
+BASELINE_FAULTS = {"cnn": ("symmetric_same_padding", symmetric_same_padding),
+                   "vit": ("query_unscaled", query_unscaled)}
+
+
+def flipped_leaf_file(src, dst, leaf):
+    """A copy of the checkpoint ``src`` with one byte of ``leaf``'s data
+    flipped. A planted fault."""
+    data = bytearray(open(src, "rb").read())
+    raw = np.ascontiguousarray(leaf).tobytes()
+    at = bytes(data).find(raw)
+    expect(at >= 0, "checkpoint fault: the leaf's bytes are not in the file")
+    data[at + len(raw) // 2] ^= 0x40
+    with open(dst, "wb") as f:
+        f.write(bytes(data))
+
+
+def baseline_agent_phase(network, rng, root, details):
+    """One baseline agent at the JAX module's default widths, f32: the card
+    against the CPU from one state (forward, gradients, one update; the
+    planted fault must fail the forward), 20 updates on one batch (the loss
+    falls), the msgpack checkpoint bit-equal through save and load (a
+    flipped byte must break it), acts."""
+    import shutil
+
+    import torch
+    from voxactb_tpu_torch.agents.baseline_agents import BCLangAgent
+
+    batch = baseline_batch(rng, BASELINE_BATCH)
+    obs = {k: v[:1] for k, v in batch.items()}
+    card = BCLangAgent(BASELINE_CAMERAS, network=network, device=DEVICE, seed=0)
+    host = BCLangAgent(BASELINE_CAMERAS, network=network, device="cpu", seed=0)
+    for agent in (card, host):
+        agent.build(training=True)
+        agent.act(0, obs)  # sizes the network from the sample (CPU generator, seed 0)
+    p0 = baseline_params(host)
+    expect(all(np.array_equal(v, p0[k]) for k, v in baseline_params(card).items()),
+           f"baselines {network}: the card's initial weights differ from the CPU's")
+    row = dict(parameters=int(sum(v.size for v in p0.values())))
+
+    out_card, out_host = baseline_outputs(card, batch), baseline_outputs(host, batch)
+    tol = BASELINE_TOL * float(out_host.abs().max())
+    row["forward"] = dict(max_abs_err=max_err(out_card, out_host), tol=tol)
+    name, fault = BASELINE_FAULTS[network]
+    with fault(card.network):
+        row["forward"][f"fault_{name}"] = max_err(baseline_outputs(card, batch), out_host)
+    expect(row["forward"]["max_abs_err"] <= tol,
+           f"baselines {network}: card vs CPU forward {row['forward']}")
+    expect(row["forward"][f"fault_{name}"] > tol,
+           f"baselines {network}: the planted {name} passed the forward check")
+
+    loss_card, g_card = baseline_grads(card, batch)
+    loss_host, g_host = baseline_grads(host, batch)
+    g_largest = max(float(np.abs(g).max()) for g in g_host.values())
+    g_err = max(float(np.abs(g_card[k] - g_host[k]).max()) for k in g_host)
+    l_card = float(card.update(0, batch)["total_loss"])
+    l_host = float(host.update(0, batch)["total_loss"])
+    worst, beyond = update_errors(p0, baseline_params(card), baseline_params(host), g_host)
+    row["step"] = dict(loss_card=l_card, loss_cpu=l_host, grad_err=g_err,
+                       grad_tol=BASELINE_TOL * g_largest, update_err=worst,
+                       update_tol=1e-2 * BASELINE_LR, beyond_adam_bound=beyond)
+    expect(abs(l_card - l_host) <= BASELINE_TOL * abs(l_host)
+           and abs(loss_card - loss_host) <= BASELINE_TOL * abs(loss_host),
+           f"baselines {network}: card vs CPU loss {row['step']}")
+    expect(g_err <= BASELINE_TOL * g_largest, f"baselines {network}: gradients {row['step']}")
+    expect(worst <= 1e-2 * BASELINE_LR and beyond <= 0,
+           f"baselines {network}: one update {row['step']}")
+
+    # 20 updates on one batch: the loss falls; ms per update
+    losses, walls = [], []
+    for i in range(BASELINE_UPDATES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(card.update(1 + i, batch)["total_loss"]))  # float() syncs
+        walls.append((time.perf_counter() - t0) * 1e3)
+    expect(all(np.isfinite(losses)) and losses[-1] < losses[0],
+           f"baselines {network}: the loss did not fall: {losses}")
+    row.update(loss_first=losses[0], loss_last=losses[-1],
+               ms_per_update=statistics.median(walls[1:]))
+
+    # acts: 9 values, a unit quaternion, the collision bit 1
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        action = np.asarray(card.act(0, obs).action)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    expect(action.shape == (9,) and bool(np.isfinite(action).all()) and action[8] == 1.0
+           and abs(float(np.linalg.norm(action[3:7])) - 1.0) < 1e-5,
+           f"baselines {network}: act returned {action}")
+    row["ms_per_act"] = statistics.median(walls[2:])
+
+    # the checkpoint: saved, loaded into a fresh agent bit-equal, and saved
+    # back byte for byte; a byte flipped in one leaf's data must break it
+    d = os.path.join(root, network)
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    card.save_weights(os.path.join(d, "saved"))
+    save_s = time.perf_counter() - t0
+    saved = baseline_params(card)
+    fresh = BCLangAgent(BASELINE_CAMERAS, network=network, device=DEVICE, seed=9)
+    t0 = time.perf_counter()
+    fresh.load_weights(os.path.join(d, "saved"))
+    fresh.act(0, obs)
+    load_s = time.perf_counter() - t0
+    same = lambda a: all(np.array_equal(a[k], v) for k, v in saved.items())  # noqa: E731
+    expect(same(baseline_params(fresh)), f"baselines {network}: the loaded weights differ")
+    fresh.save_weights(os.path.join(d, "again"))
+    path = lambda sub: os.path.join(d, sub, "BCLangAgent.msgpack")  # noqa: E731
+    expect(open(path("saved"), "rb").read() == open(path("again"), "rb").read(),
+           f"baselines {network}: the checkpoint's bytes changed through load and save")
+    leaf = max(saved, key=lambda k: saved[k].size)
+    os.makedirs(os.path.join(d, "flipped"))
+    flipped_leaf_file(path("saved"), path("flipped"), saved[leaf])
+    bad = BCLangAgent(BASELINE_CAMERAS, network=network, device=DEVICE, seed=9)
+    bad.load_weights(os.path.join(d, "flipped"))
+    bad.act(0, obs)
+    expect(not same(baseline_params(bad)),
+           f"baselines {network}: a flipped byte in {leaf} was not seen")
+    row.update(checkpoint_bytes=os.path.getsize(path("saved")), save_s=save_s, load_s=load_s,
+               flipped_leaf=leaf)
+    details.setdefault("baselines", {})[network] = row
+    del card, host, fresh, bad
+    return row
+
+
+def lingunet_phase(rng, details):
+    """``LingUNetQNet`` at base 16 and 2 levels on a [1, 48^3, 10] grid: a
+    forward and a backward on the card against the same module on the CPU."""
+    import copy
+
+    import torch
+    from voxactb_tpu_torch.models.baselines import LingUNetQNet
+
+    n = LINGUNET_GRID
+    host = LingUNetQNet(10, 4, 1024, generator=torch.Generator().manual_seed(0),
+                        **LINGUNET_KW)
+    card = copy.deepcopy(host).to(DEVICE)
+    inputs = (rng.normal(size=(1, n, n, n, 10)).astype(np.float32),
+              rng.normal(size=(1, 4)).astype(np.float32),
+              rng.normal(size=(1, 1024)).astype(np.float32))
+    outs, grads, walls = {}, {}, {}
+    for tag, model in (("card", card), ("cpu", host)):
+        dev = next(model.parameters()).device
+        x = [torch.from_numpy(a).to(dev) for a in inputs]
+        for _ in range(2 if tag == "card" else 1):  # the card's second pass is timed
+            model.zero_grad(set_to_none=True)
+            if tag == "card":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model(*x)
+            loss = sum(out[k].square().mean() for k in sorted(out))
+            loss.backward()
+            if tag == "card":
+                torch.cuda.synchronize()
+            walls[tag] = (time.perf_counter() - t0) * 1e3
+        outs[tag] = {k: v.detach().float().cpu() for k, v in out.items()}
+        grads[tag] = {k: p.grad.float().cpu() for k, p in model.named_parameters()}
+    row = {"ms_card": walls["card"], "ms_cpu": walls["cpu"]}
+    for k in outs["cpu"]:
+        row[k] = dict(max_abs_err=max_err(outs["card"][k], outs["cpu"][k]),
+                      tol=BASELINE_TOL * float(outs["cpu"][k].abs().max()))
+    g_largest = max(float(g.abs().max()) for g in grads["cpu"].values())
+    row["grads"] = dict(max_abs_err=max(max_err(grads["card"][k], g)
+                                        for k, g in grads["cpu"].items()),
+                        tol=BASELINE_TOL * g_largest)
+    expect(outs["card"]["trans"].shape == (1, n, n, n, 1), "lingunet: trans shape")
+    bad = [k for k, v in row.items() if isinstance(v, dict) and v["max_abs_err"] > v["tol"]]
+    expect(not bad, f"lingunet: card vs CPU beyond tolerance in {bad}: {row}")
+    details.setdefault("baselines", {})["lingunet"] = row
+    return row
+
+
+def baselines(details, timings):
+    """Phase 13: the baseline zoo (CNN and ViT BC-lang, LingUNet) on the
+    card, plain PyTorch: no TPU kernel computes their functions."""
+    import shutil
+
+    import torch
+    from voxactb_tpu_torch.ops import cuda as kernels
+
+    t_phase = time.perf_counter()
+    root = os.path.join(HERE, "build", "baselines")
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(19)  # the phase's own stream
+    kernels.reset_launch_counts()
+    rows = {net: baseline_agent_phase(net, rng, root, details) for net in ("cnn", "vit")}
+    lingunet = lingunet_phase(rng, details)
+    counts = kernels.launch_counts()
+    expect(not any(counts.values()), f"baselines: a TPU kernel's port ran: {counts}")
+    shutil.rmtree(root, ignore_errors=True)
+    wall_s = time.perf_counter() - t_phase
+    card = nvidia_smi_line()
+    timings["baselines"] = dict(wall_s=wall_s, card=card, lingunet_ms=lingunet["ms_card"], **{
+        net: {k: r[k] for k in ("ms_per_update", "ms_per_act", "loss_first", "loss_last",
+                                "parameters")} for net, r in rows.items()})
+    for net, r in rows.items():
+        log(f"[baselines] {net}: {r['parameters'] / 1e6:.2f}M parameters, batch "
+            f"{BASELINE_BATCH}: {r['ms_per_update']:.3f} ms/update, {r['ms_per_act']:.3f} "
+            f"ms/act; loss {r['loss_first']:.4f} -> {r['loss_last']:.4f} over "
+            f"{BASELINE_UPDATES} updates; card vs CPU forward {r['forward']['max_abs_err']:.3g} "
+            f"(tol {r['forward']['tol']:.3g}; the planted fault "
+            f"{[v for k, v in r['forward'].items() if k.startswith('fault')][0]:.3g}), "
+            f"gradients {r['step']['grad_err']:.3g} (tol {r['step']['grad_tol']:.3g}), update "
+            f"{r['step']['update_err']:.3g} (tol {r['step']['update_tol']:.3g}); checkpoint "
+            f"{r['checkpoint_bytes']} bytes bit-equal through save and load, a flipped byte "
+            f"in {r['flipped_leaf']} caught; {card}")
+    log(f"[baselines] lingunet [1,{LINGUNET_GRID}^3,10] forward+backward {lingunet['ms_card']:.3f}"
+        f" ms on the card ({lingunet['ms_cpu']:.1f} ms on the CPU), card vs CPU: " + ", ".join(
+            f"{k} {v['max_abs_err']:.3g} (tol {v['tol']:.3g})" for k, v in lingunet.items()
+            if isinstance(v, dict)) + f"; no TPU kernel runs in this phase (launches {counts}); "
+        f"{wall_s:.1f} s")
+    torch.cuda.empty_cache()
+    return dict(launches=counts)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: VoxPoser's planner in the rollout, the real-robot episode and the
+# offline checkpoint selection
+# ---------------------------------------------------------------------------
+
+VOXPOSER_PROGRAM = (
+    "obj = detect('jar')\n"
+    "aff = get_empty_affordance_map()\n"
+    "set_voxel_by_radius(aff, pointat2index(obj.position), 4, 1.0)\n"
+    "ret_val = execute('ee', aff)\n")
+VOXPOSER_MAP = 100  # the planner's map resolution (the JAX package's default)
+VOXPOSER_EPISODE = 6  # policy steps after the prologue
+PREPOSITION_STEPS = 10
+REAL_EPISODE = 6
+# hand-eye extrinsics (policy frame -> each robot's base), offsets of a few cm
+REAL_EXTRINSICS = {"right": [0.05, -0.30, -0.02], "left": [-0.04, 0.30, 0.01]}
+SELECT_STEPS = (0, 100, 200)  # 200 is written in the JAX format
+SELECT_VAL = 2  # held-out acting transitions
+
+
+class FakeURController:
+    """A UR controller on loopback: serves the secondary (30002-style) robot
+    state stream and the realtime (30003-style) stream, records the URScript
+    lines it receives and executes ``movel`` / ``movej`` by teleporting."""
+
+    def __init__(self):
+        import socket
+        import struct
+        import threading
+
+        self._socket, self._struct = socket, struct
+        self.q = np.zeros(6)
+        self.tcp = np.array([0.3, 0.0, 0.4, 0.0, 3.14, 0.0])
+        self.programs = []
+        self._stop = threading.Event()
+        self._lock = threading.Lock()
+        self.sec_srv = socket.create_server(("127.0.0.1", 0))
+        self.rt_srv = socket.create_server(("127.0.0.1", 0))
+        self.sec_port = self.sec_srv.getsockname()[1]
+        self.rt_port = self.rt_srv.getsockname()[1]
+        self._threads = [threading.Thread(target=f, daemon=True)
+                         for f in (self._sec_loop, self._rt_loop)]
+        for t in self._threads:
+            t.start()
+
+    def _state_packet(self) -> bytes:
+        pack = self._struct.pack
+        with self._lock:
+            q, tcp = self.q.copy(), self.tcp.copy()
+        mode = pack(">Q", 0) + bytes([1, 1, 1, 0, 0, 1, 0, 7])
+        jd = b"".join(pack(">ddd", q[j], q[j], 0.0) + bytes(17) for j in range(6))
+        ci = pack(">6d", *tcp)
+        payload = bytes([16]) + b"".join(pack(">i", 5 + len(body)) + bytes([sub]) + body
+                                         for sub, body in ((0, mode), (1, jd), (4, ci)))
+        return pack(">i", 4 + len(payload)) + payload
+
+    def _rt_packet(self) -> bytes:
+        with self._lock:
+            q, tcp = self.q.copy(), self.tcp.copy()
+        doubles = np.zeros(131)
+        doubles[0] = time.time() % 1e6
+        doubles[31:37] = q  # the documented layout: time + 5 six-vectors before q
+        doubles[55:61] = tcp
+        payload = self._struct.pack(f">{len(doubles)}d", *doubles)
+        return self._struct.pack(">i", 4 + len(payload)) + payload
+
+    def _sec_loop(self):
+        try:
+            conn, _ = self.sec_srv.accept()
+        except OSError:
+            return
+        conn.settimeout(0.01)
+        buf = b""
+        with conn:
+            while not self._stop.is_set():
+                try:
+                    conn.sendall(self._state_packet())
+                    data = conn.recv(65536)
+                    buf += data
+                    while b"\n" in buf:
+                        line, buf = buf.split(b"\n", 1)
+                        self._execute(line.decode())
+                except self._socket.timeout:
+                    pass
+                except OSError:
+                    return
+                time.sleep(0.005)
+
+    def _execute(self, line: str) -> None:
+        self.programs.append(line)
+        for prefix, attr in (("movel(p[", "tcp"), ("movej([", "q")):
+            if line.startswith(prefix):
+                vals = [float(v) for v in line.split("[")[1].split("]")[0].split(",")]
+                with self._lock:
+                    setattr(self, attr, np.array(vals))
+
+    def _rt_loop(self):
+        try:
+            conn, _ = self.rt_srv.accept()
+        except OSError:
+            return
+        with conn:
+            while not self._stop.is_set():
+                try:
+                    conn.sendall(self._rt_packet())
+                except OSError:
+                    return
+                time.sleep(0.005)
+
+    def stop(self):
+        self._stop.set()
+        self.sec_srv.close()
+        self.rt_srv.close()
+        for t in self._threads:
+            t.join(timeout=2.0)
+
+
+def voxposer_agents(cams, **kw):
+    """The acting (dominant, arm head) and stabilizing (assistive) policies
+    at full width on the 50^3 crop with ``bench.py``'s kernel flags."""
+    from voxactb_tpu_torch.agents.qattention_agent import QAttentionBCAgent
+
+    acting = QAttentionBCAgent(act_config(50, which_arm="dominant", arm_pred_loss=True,
+                                          crop_target_obj_voxel=True, crop_radius=0.3),
+                               cams, SCENE_BOUNDS, device=DEVICE, seed=0, **kw)
+    stabilizing = QAttentionBCAgent(act_config(50, which_arm="assistive",
+                                               crop_target_obj_voxel=True, crop_radius=0.3),
+                                    cams, SCENE_BOUNDS, device=DEVICE, seed=1, **kw)
+    acting.build(training=False)
+    stabilizing.build(training=False)
+    return acting, stabilizing
+
+
+def voxposer_env(seed, lang):
+    from voxactb_tpu_torch.sim.environment import BimanualTaskEnvironment
+    from voxactb_tpu_torch.sim.tasks import TASK_REGISTRY
+
+    env = BimanualTaskEnvironment(TASK_REGISTRY[PROTOCOL_TASK], cameras=PROTOCOL_CAMERAS,
+                                  image_size=IMG, episode_length=25, seed=seed,
+                                  lang_encoder=lang)
+    env.launch()
+    return env
+
+
+def voxposer_planner(env, cache_dir, bounds=SCENE_BOUNDS):
+    from voxactb_tpu_torch.voxposer.interface import VoxPoserPlanner, make_sim_object_lookup
+    from voxactb_tpu_torch.voxposer.lmp import ScriptedBackend
+    from voxactb_tpu_torch.voxposer.value_maps import VoxelMapSpec
+
+    return VoxPoserPlanner(ScriptedBackend({"hand": VOXPOSER_PROGRAM}),
+                           VoxelMapSpec(bounds, VOXPOSER_MAP), make_sim_object_lookup(env),
+                           cache_dir=cache_dir)
+
+
+def cpu_prologue(seed, lang, cache_dir, bounds=SCENE_BOUNDS):
+    """The prologue's motions from a CPU run: the same planner on a fresh sim
+    of the same seed, nothing on the card."""
+    from voxactb_tpu_torch.runners.rollout import RolloutGenerator
+
+    env = voxposer_env(seed, lang)
+    record = []
+    step = env.preposition_step
+    env.preposition_step = lambda a, arm: record.append((np.asarray(a).copy(), arm)) or step(
+        a, arm)
+    RolloutGenerator()._voxposer_preposition(env, voxposer_planner(env, cache_dir, bounds),
+                                             env.reset(), PREPOSITION_STEPS)
+    return record
+
+
+def voxposer_sim(acting, stabilizing, lang, root, stages):
+    """(a) An open_jar episode on the kinematic sim: VoxPoser's prologue,
+    then the dual-policy acts on K1-K3; the prologue bit-equal to a CPU run
+    (a planner on a map 1 cm off must differ); then a voxposer_only episode."""
+    from voxactb_tpu_torch.ops import cuda as kernels
+    from voxactb_tpu_torch.runners.rollout import RolloutGenerator
+
+    seed = 21
+    t0 = time.perf_counter()
+    env = voxposer_env(seed, lang)
+    planner = voxposer_planner(env, os.path.join(root, "llm_cache"))
+    prologue = []
+    step = env.preposition_step
+    env.preposition_step = lambda a, arm: prologue.append((np.asarray(a).copy(), arm)) or step(
+        a, arm)
+    kernels.reset_launch_counts()
+    ts = list(RolloutGenerator().generator(
+        env, acting, VOXPOSER_EPISODE, eval=True, left_arm_agent=stabilizing,
+        which_arm="dominant_assistive", crop_target_obj_voxel=True, crop_radius=0.3,
+        no_voxposer=False, planner=planner, max_preposition_steps=PREPOSITION_STEPS))
+    counts = kernels.launch_counts()
+    stages["sim_episode_s"] = time.perf_counter() - t0
+    expect(len(prologue) > 0 and {arm for _, arm in prologue} <= {"left", "right"},
+           f"voxposer_robot: no prologue motions ({len(prologue)})")
+    # a random policy's step may end the episode (an invalid action), as in
+    # the protocol phases; the acts after the prologue must run
+    expect(1 <= len(ts) <= VOXPOSER_EPISODE, f"voxposer_robot: {len(ts)} policy steps")
+    for t in ts:
+        a = np.asarray(t.action)
+        expect(a.shape == (9,) and bool(np.isfinite(a).all()), "voxposer_robot: action")
+
+    t0 = time.perf_counter()
+    on_cpu = cpu_prologue(seed, lang, os.path.join(root, "llm_cache_cpu"))
+    shifted = [b + d for b, d in zip(SCENE_BOUNDS, (0.01, 0.0, 0.0, 0.01, 0.0, 0.0))]
+    off = cpu_prologue(seed, lang, os.path.join(root, "llm_cache_off"), shifted)
+    stages["cpu_prologue_s"] = time.perf_counter() - t0
+    same = lambda xs, ys: len(xs) == len(ys) and all(  # noqa: E731
+        a.dtype == b.dtype and np.array_equal(a, b) and s == r
+        for (a, s), (b, r) in zip(xs, ys))
+    expect(same(prologue, on_cpu), "voxposer_robot: the prologue differs from the CPU run")
+    expect(not same(off, on_cpu), "voxposer_robot: a map 1 cm off gave the same prologue")
+
+    t0 = time.perf_counter()
+    only_env = voxposer_env(seed + 1, lang)
+    kernels.reset_launch_counts()
+    only = list(RolloutGenerator().generator(
+        only_env, None, 25, voxposer_only_eval=True,
+        planner=voxposer_planner(only_env, os.path.join(root, "llm_cache"))))
+    only_counts = kernels.launch_counts()
+    stages["voxposer_only_s"] = time.perf_counter() - t0
+    expect(len(only) > 0 and all(np.isfinite(np.asarray(t.action)).all() for t in only),
+           f"voxposer_robot: voxposer_only gave {len(only)} steps")
+    expect(not any(only_counts.values()),
+           f"voxposer_robot: the voxposer_only episode launched kernels {only_counts}")
+    return dict(launches=counts, prologue=len(prologue), policy_steps=len(ts),
+                voxposer_only_steps=len(only),
+                voxposer_only_return=float(sum(t.reward for t in only)))
+
+
+def real_cameras(rng):
+    """Seeded RGB-D frames at 128^2 with a pinhole K: the front camera sees
+    the task's colour on a patch at about 0.9 m, the wrist cameras a
+    cloud in front of them."""
+    from voxactb_tpu_torch.vlm.pipeline import TASK_COLORS
+
+    K = np.array([[110.0, 0, IMG / 2], [0, 110.0, IMG / 2], [0, 0, 1]], np.float32)
+    frames = {}
+    for name in PROTOCOL_CAMERAS:
+        rgb = rng.integers(0, 60, (IMG, IMG, 3)).astype(np.uint8)
+        depth = rng.uniform(0.6, 1.4, (IMG, IMG)).astype(np.float32)
+        if name == "front":  # a patch of a third of the frame's side
+            patch = (slice(IMG // 3, 2 * IMG // 3),) * 2
+            rgb[patch] = TASK_COLORS[PROTOCOL_TASK].astype(np.uint8)
+            depth[patch] = 0.9 + rng.uniform(-0.02, 0.02, depth[patch].shape)
+        frames[name] = (rgb, depth, K)
+    cam_ext = {name: np.eye(4) for name in PROTOCOL_CAMERAS}
+    for i, name in enumerate(PROTOCOL_CAMERAS):
+        cam_ext[name][:3, 3] = [0.2 * i - 0.2, 0.0, 0.1]
+    return {name: (lambda f=f: f) for name, f in frames.items()}, cam_ext
+
+
+def expected_programs(steps, extrinsics, robots, dominant):
+    """What each controller must have received for the env's ``steps``:
+    per step the ``movel`` of the action's position through the hand-eye
+    extrinsics with its quaternion after ``guard_gimbal_lock`` (axis-angle,
+    in the robot's base), then the gripper program."""
+    from voxactb_tpu_torch.realrobot import urscript as urs
+    from voxactb_tpu_torch.realrobot.robot import quat_to_axis_angle
+    from voxactb_tpu_torch.realrobot.robot_env import guard_gimbal_lock
+
+    lines = {"right": [], "left": []}
+    for action, which in steps:
+        a = np.asarray(action, np.float64)
+        arm = {"dominant": dominant,
+               "assistive": "left" if dominant == "right" else "right"}.get(which, which)
+        pos = (extrinsics[arm] @ np.concatenate([a[:3], [1.0]]))[:3]
+        pose = robots.arm(arm)._to_base(np.concatenate([pos, quat_to_axis_angle(
+            guard_gimbal_lock(a[3:7]))]))
+        grip = int(round((1.0 - float(np.clip(float(a[7]), 0, 1))) * 255))
+        for prog in (urs.movel(pose, 0.1, 0.1), urs.robotiq_set_position(grip)):
+            lines[arm] += prog.strip().split("\n")
+    return lines
+
+
+def real_robot(acting, stabilizing, lang, rng, stages):
+    """(b) A real-robot episode: ``RealRobotEnv`` over ``BimanualURRobot``
+    and two loopback UR controllers, seeded RGB-D cameras, the VLM crop on
+    the front camera (K7), dual-policy acts (K1-K3); the commands the
+    controllers received, parsed back, are the actions after the extrinsics
+    and the gimbal guard (without the extrinsics they must differ)."""
+    from voxactb_tpu_torch.models.owlvit import OwlViTPipeline
+    from voxactb_tpu_torch.models.sam_decoder import SamSegmenter
+    from voxactb_tpu_torch.ops import cuda as kernels
+    from voxactb_tpu_torch.ops.geometry import scene_bounds_from_crop
+    from voxactb_tpu_torch.realrobot.robot import (
+        BimanualURRobot, URRobot, axis_angle_to_quat)
+    from voxactb_tpu_torch.realrobot.robot_env import RealRobotEnv, guard_gimbal_lock
+    from voxactb_tpu_torch.runners.rollout import RolloutGenerator
+    from voxactb_tpu_torch.vlm.pipeline import VLM, TorchOwlVitSamDetector
+
+    t0 = time.perf_counter()
+    towers = vlm_towers(seed=22)
+    owl = OwlViTPipeline(towers["owl"], towers["owl_text"], img_size=VLM_TOWERS["owl"]["img_size"])
+    seg = SamSegmenter(towers["sam"], towers["decoder"], VLM_TOWERS["sam"]["img_size"])
+    vlm = VLM(TorchOwlVitSamDetector(owl, seg, score_threshold=0.0))
+    stages["vlm_build_s"] = time.perf_counter() - t0
+    extrinsics = {}
+    for arm, offset in REAL_EXTRINSICS.items():
+        extrinsics[arm] = np.eye(4)
+        extrinsics[arm][:3, 3] = offset
+    cameras, cam_ext = real_cameras(rng)
+    controllers = {arm: FakeURController() for arm in ("right", "left")}
+    robots = None
+    try:
+        robots = BimanualURRobot(*(URRobot("127.0.0.1", controllers[a].sec_port,
+                                           controllers[a].rt_port) for a in ("right", "left")))
+        env = RealRobotEnv(robots, cameras, extrinsics, cam_extrinsics=cam_ext, vlm=vlm,
+                           task_name=PROTOCOL_TASK, episode_length=REAL_EPISODE,
+                           dominant_arm="right", lang_encoder=lang)
+        steps = []
+        step = env.step
+        env.step = lambda a, arm: steps.append((np.asarray(a).copy(), arm)) or step(a, arm)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        ts = list(RolloutGenerator().generator(
+            env, acting, REAL_EPISODE, eval=True, left_arm_agent=stabilizing,
+            which_arm="dominant_assistive", crop_target_obj_voxel=True, crop_radius=0.3,
+            no_voxposer=True))
+        counts = kernels.launch_counts()
+        stages["real_episode_s"] = time.perf_counter() - t0
+        n_lines = {arm: len(v) for arm, v in
+                   expected_programs(steps, extrinsics, robots, "right").items()}
+        deadline = time.time() + 10
+        while time.time() < deadline and any(
+                len(controllers[a].programs) < n for a, n in n_lines.items()):
+            time.sleep(0.01)
+        got = {arm: list(c.programs) for arm, c in controllers.items()}
+        want = expected_programs(steps, extrinsics, robots, "right")
+        no_ext = expected_programs(steps, {a: np.eye(4) for a in extrinsics}, robots, "right")
+        expect(got == want, "real_robot: the controllers' programs differ from the actions "
+               f"after the extrinsics and the gimbal guard: {got} vs {want}")
+        expect(got != no_ext, "real_robot: the programs ignore the hand-eye extrinsics")
+        # the movel lines parsed back: positions to 1e-6, orientations as the
+        # guarded quaternions (up to sign)
+        worst_pos, worst_quat = 0.0, 0.0
+        by_arm = {"right": iter([l for l in got["right"] if l.startswith("movel")]),
+                  "left": iter([l for l in got["left"] if l.startswith("movel")])}
+        for action, which in steps:
+            arm = {"dominant": "right", "assistive": "left"}.get(which, which)
+            vals = np.array([float(v) for v in next(by_arm[arm]).split("[")[1].split("]")[0]
+                             .split(",")])
+            a = np.asarray(action, np.float64)
+            pos = (extrinsics[arm] @ np.concatenate([a[:3], [1.0]]))[:3]
+            q = guard_gimbal_lock(a[3:7])
+            worst_pos = max(worst_pos, float(np.abs(vals[:3] - pos).max()))
+            worst_quat = max(worst_quat, 1.0 - abs(float(np.dot(axis_angle_to_quat(vals[3:]), q))))
+        expect(worst_pos <= 1e-6 and worst_quat <= 1e-6,
+               f"real_robot: parsed commands {worst_pos} m, 1 - |q.q'| {worst_quat}")
+        crop = env.target_object_world_coords()
+        bounds = scene_bounds_from_crop(crop, 0.3).tolist()
+        expect(len(ts) == REAL_EPISODE and bool(np.isfinite(crop).all()),
+               f"real_robot: {len(ts)} steps, crop {crop}")
+    finally:
+        if robots is not None:
+            robots.close()
+        for c in controllers.values():
+            c.stop()
+    del towers, owl, seg, vlm
+    return dict(launches=counts, steps=len(ts), lines={a: len(v) for a, v in got.items()},
+                crop=[float(v) for v in crop], crop_radius=float(env.auto_crop_radius()),
+                parsed_pos_err=worst_pos, parsed_quat_err=worst_quat), ts, bounds
+
+
+def write_select_checkpoints(weights_dir, cams, val_obs, act_kw):
+    """Three checkpoints of the acting policy's config, written by the port's
+    agent: the acting policy's own at 0 and a seed-2 policy's at 100 as .pt,
+    a seed-3 policy's at 200 in the JAX format. The held-out actions are the
+    seed-3 policy's acts on the card, so step 200 is the one to pick."""
+    from voxactb_tpu_torch.agents.qattention_agent import QAttentionBCAgent
+
+    cfg = act_config(50, which_arm="dominant", arm_pred_loss=True,
+                     crop_target_obj_voxel=True, crop_radius=0.3)
+    actions = None
+    for step, seed in zip(SELECT_STEPS, (0, 2, 3)):
+        agent = QAttentionBCAgent(cfg, cams, SCENE_BOUNDS, device=DEVICE, seed=seed)
+        agent.build(training=False)
+        d = os.path.join(weights_dir, str(step))
+        os.makedirs(d)
+        if step == SELECT_STEPS[-1]:
+            agent.save_weight(os.path.join(d, "QAttentionAgent_layer0.msgpack"))
+            actions = [np.asarray(agent.act(0, dict(o), which_arm="right", **act_kw).action)
+                       for o in val_obs]
+        else:
+            agent.save_weights(d)
+        del agent
+    return actions
+
+
+def select_checkpoint(acting, ts, bounds, root, stages):
+    """(c) ``select_best_checkpoint`` on three checkpoints (one JAX-format)
+    and held-out acting transitions of the real-robot episode: the card picks
+    the step a CPU run of the port picks from the same files, the CSV has a
+    row per step; with two checkpoints' files swapped the pick follows."""
+    import csv
+    import shutil
+
+    from voxactb_tpu_torch.agents.qattention_agent import QAttentionBCAgent
+    from voxactb_tpu_torch.ops import cuda as kernels
+    from voxactb_tpu_torch.realrobot.robot_env import select_best_checkpoint
+
+    cams = PROTOCOL_CAMERAS
+    act_kw = dict(new_scene_bounds=bounds, dominant_assitive_policy=True, deterministic=True)
+    val_obs = [t.observation for i, t in enumerate(ts) if i % 2 == 1][:SELECT_VAL]
+    weights_dir = os.path.join(root, "weights")
+    t0 = time.perf_counter()
+    gt = write_select_checkpoints(weights_dir, cams, val_obs, act_kw)
+    stages["select_write_s"] = time.perf_counter() - t0
+    val = [{"observation": o, "action": a} for o, a in zip(val_obs, gt)]
+    csv_path = os.path.join(root, "real_eval.csv")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    best, row = select_best_checkpoint(acting, weights_dir, val, "right", csv_path=csv_path,
+                                       **act_kw)
+    counts = kernels.launch_counts()
+    stages["select_card_s"] = time.perf_counter() - t0
+    with open(csv_path, newline="") as f:
+        steps = [int(r["step"]) for r in csv.DictReader(f)]
+    expect(steps == list(SELECT_STEPS), f"select_checkpoint: CSV steps {steps}")
+
+    t0 = time.perf_counter()
+    host = QAttentionBCAgent(acting._cfg, cams, SCENE_BOUNDS, device="cpu", seed=0)
+    host.build(training=False)
+    best_cpu, row_cpu = select_best_checkpoint(host, weights_dir, val, "right", **act_kw)
+    stages["select_cpu_s"] = time.perf_counter() - t0
+    expect(best == best_cpu == SELECT_STEPS[-1],
+           f"select_checkpoint: the card picked {best}, the CPU {best_cpu}")
+
+    # the planted fault: 100's and 200's files swapped, the pick must follow
+    swap = os.path.join(root, "swap")
+    for a, b in ((100, 200), (200, 100)):
+        shutil.copytree(os.path.join(weights_dir, str(a)), os.path.join(swap, str(b)))
+    shutil.copytree(os.path.join(weights_dir, "0"), os.path.join(swap, "0"))
+    best_swapped, _ = select_best_checkpoint(acting, swap, val, "right", **act_kw)
+    expect(best_swapped == 100, f"select_checkpoint: swapped files, still picked {best_swapped}")
+    del host
+    return dict(launches=counts, best=best, best_cpu=best_cpu, row=row, row_cpu=row_cpu,
+                csv_steps=steps, best_swapped=best_swapped)
+
+
+def voxposer_robot(details, timings):
+    """Phase 14: VoxPoser's prologue and voxposer_only episode on the sim,
+    the real-robot episode with its VLM crop, and the offline checkpoint
+    selection, at full width (PERACT_BC, depth 6, bf16, the kernel flags)."""
+    import shutil
+
+    import torch
+    from voxactb_tpu_torch.sim.environment import default_sim_language_encoder
+
+    t_phase = time.perf_counter()
+    root = os.path.join(HERE, "build", "voxposer_robot")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    stages = {}
+    lang = default_sim_language_encoder()
+    acting, stabilizing = voxposer_agents(PROTOCOL_CAMERAS)
+    try:
+        sim = voxposer_sim(acting, stabilizing, lang, root, stages)
+        real, ts, bounds = real_robot(acting, stabilizing, lang, np.random.default_rng(20),
+                                      stages)
+        select = select_checkpoint(acting, ts, bounds, root, stages)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall_s = time.perf_counter() - t_phase
+    timings["voxposer_robot"] = dict(wall_s=wall_s, **stages)
+    details["voxposer_robot"] = dict(sim=sim, real_robot=real, select=select)
+    k = ("front_fused", "flash_attention", "decoder_head", "sam_attention")
+    log(f"[voxposer_robot] prologue {sim['prologue']} planner motions bit-equal to the CPU "
+        f"run (a map 1 cm off differs), {sim['policy_steps']} policy steps; voxposer_only "
+        f"{sim['voxposer_only_steps']} steps; real robot: crop {np.round(real['crop'], 3).tolist()}"
+        f", {real['steps']} steps, controller lines {real['lines']} equal to the actions "
+        f"after the extrinsics and the gimbal guard (parsed back within "
+        f"{real['parsed_pos_err']:.2g} m); select_best_checkpoint: card {select['best']}, CPU "
+        f"{select['best_cpu']}, swapped files {select['best_swapped']}; launches K1/K2/K3/K7: "
+        f"sim {[sim['launches'][x] for x in k]}, real {[real['launches'][x] for x in k]}, "
+        f"select {[select['launches'][x] for x in k]}; stages "
+        + ", ".join(f"{s} {v:.1f}" for s, v in stages.items()) + f"; {wall_s:.1f} s")
+    del acting, stabilizing
+    torch.cuda.empty_cache()
+    return {"voxposer_sim": sim, "real_robot": real, "select_checkpoint": select}
+
+
 def main() -> int:
     import torch
 
@@ -4582,6 +5421,10 @@ def main() -> int:
     # the weights phase draws from streams of its own (card generator seed
     # 130, numpy seed 18)
     runs["weights"] = weights(details, timings)
+    # the baseline zoo (numpy seed 19) and the VoxPoser / real-robot phase
+    # (numpy seed 20, sim seeds 21-22, VLM weights from card seed 22)
+    runs["baselines"] = baselines(details, timings)
+    runs.update(voxposer_robot(details, timings))
 
     # phase 13: every kernel was launched on the main path that runs it
     act_kernels = ("front_fused", "flash_attention", "decoder_head", "decoder_tail_conv",
@@ -4605,6 +5448,9 @@ def main() -> int:
                                                "flash_attention_train_bwd", "sam_attention"),
                     "weights": act_kernels + ("flash_attention_train_fwd",
                                               "flash_attention_train_bwd", "sam_attention"),
+                    # plain PyTorch by design: its own check holds every count at 0
+                    "baselines": (),
+                    "real_robot": act_kernels + ("sam_attention",),
                     "tools": TOOLS_KERNELS + ("front_fused", "front_patchify", "decoder_head",
                                               "decoder_tail_conv", "decoder_tail_trans_stats",
                                               "flash_attention")}
@@ -4778,6 +5624,7 @@ def main() -> int:
     details["card"] = card
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(details, f, indent=1)
+    log(f"[total] {time.perf_counter() - T_START:.1f} s of command time")
     log(json.dumps(kernels_line))
     log(card)
     print(json.dumps({"ok": True, "device": {

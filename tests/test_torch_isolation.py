@@ -8,6 +8,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -163,6 +164,29 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     # the caller may ask for the CPU
     QAttentionBCAgent(cfg, ["wrist"], [0, 0, 0, 1, 1, 1], device="cpu").build(training=True)
 
+    # the baseline zoo's agent: build, and update / act (which build when
+    # build was not called)
+    from voxactb_tpu_torch.agents.baseline_agents import BCLangAgent
+
+    rng = np.random.default_rng(0)
+    sample = {"wrist_rgb": rng.integers(0, 255, (1, 8, 8, 3)),
+              "wrist_point_cloud": rng.normal(size=(1, 8, 8, 3)),
+              "low_dim_state": rng.normal(size=(1, 4)),
+              "lang_goal_emb": rng.normal(size=(1, 1024)),
+              "gripper_pose": rng.normal(size=(1, 7)),
+              "rot_grip_action_indicies": np.zeros((1, 4), np.int64)}
+    for network in ("cnn", "vit"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            BCLangAgent(["wrist"], network=network).build(training=True)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            BCLangAgent(["wrist"], network=network).update(0, sample)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            BCLangAgent(["wrist"], network=network).act(0, sample)
+        agent = BCLangAgent(["wrist"], network=network, device="cpu")
+        agent.update(0, sample)
+        assert agent.act(0, sample).action.shape == (9,)
+        assert next(agent.network.parameters()).device.type == "cpu"
+
 
 def test_host_modules_load_no_jax():
     """The slices' host modules (sim, replay, data, runners, CLIs, the native
@@ -193,6 +217,18 @@ def test_host_modules_load_no_jax():
         import voxactb_tpu_torch.tools.task_builder, voxactb_tpu_torch.tools.dataset_generator
         import voxactb_tpu_torch.tools.make_synthetic_dataset
         import voxactb_tpu_torch.envs.gym_adapter
+        # the baseline zoo, VoxPoser, the real-robot stack and the host
+        # utilities
+        import voxactb_tpu_torch.models.baselines, voxactb_tpu_torch.agents.baseline_agents
+        import voxactb_tpu_torch.voxposer, voxactb_tpu_torch.voxposer.interface
+        import voxactb_tpu_torch.voxposer.controller, voxactb_tpu_torch.voxposer.lmp
+        import voxactb_tpu_torch.voxposer.llm_http, voxactb_tpu_torch.voxposer.planner
+        import voxactb_tpu_torch.voxposer.value_maps, voxactb_tpu_torch.voxposer.heuristics
+        import voxactb_tpu_torch.realrobot, voxactb_tpu_torch.realrobot.robot_env
+        import voxactb_tpu_torch.realrobot.monitor, voxactb_tpu_torch.realrobot.urscript
+        import voxactb_tpu_torch.realrobot.robot
+        import voxactb_tpu_torch.utils.recovery, voxactb_tpu_torch.utils.video
+        import voxactb_tpu_torch.utils.visualize
         from voxactb_tpu_torch.sim.environment import BimanualTaskEnvironment
         from voxactb_tpu_torch.sim.tasks import TASK_REGISTRY
 
@@ -214,6 +250,37 @@ def test_host_modules_load_no_jax():
             buf.add({"reward": 1.0})
             assert buf.gather(np.zeros(1))["reward"][0] == 1.0
             buf.close()
+        # a VoxPoser plan on the fake env, a baseline act, a real-robot step
+        from voxactb_tpu_torch.envs.fake_env import FakeBimanualEnv
+        from voxactb_tpu_torch.voxposer.interface import DetectedObject, VoxPoserPlanner
+        from voxactb_tpu_torch.voxposer.lmp import ScriptedBackend
+        from voxactb_tpu_torch.voxposer.value_maps import VoxelMapSpec
+        llm_cache = tempfile.TemporaryDirectory()
+        fake = FakeBimanualEnv(image_size=8, episode_length=10, seed=0)
+        fake.launch()
+        obs = fake.reset()
+        program = ("aff = get_empty_affordance_map()\\n"
+                   "set_voxel_by_radius(aff, pointat2index(detect('cube').position), 4)\\n"
+                   "ret_val = execute('ee', aff)\\n")
+        planner = VoxPoserPlanner(
+            ScriptedBackend({"hand": program}), VoxelMapSpec([-0.4, -0.5, 0.6, 0.6, 0.5, 1.4], 20),
+            lambda name: DetectedObject(name, np.asarray(fake.target_object_world_coords())),
+            cache_dir=llm_cache.name)
+        assert len(list(planner.plan(fake, obs))) > 0
+        llm_cache.cleanup()
+        from voxactb_tpu_torch.agents.baseline_agents import BCLangAgent
+        agent = BCLangAgent(["wrist"], network="vit", device="cpu", dim=16, depth=1, heads=2)
+        assert agent.act(0, obs).action.shape == (9,)
+        from voxactb_tpu_torch.realrobot.robot_env import RealRobotEnv
+        class Robots:
+            def move_arm(self, *a, **k): pass
+            def observation(self):
+                return {f"gripper_{s}_pose": np.zeros(7, np.float32) for s in ("right", "left")}
+        K = np.array([[10.0, 0, 4], [0, 10.0, 4], [0, 0, 1]])
+        cam = lambda: (np.zeros((8, 8, 3), np.uint8), np.ones((8, 8), np.float32), K)
+        real = RealRobotEnv(Robots(), {"front": cam}, {"right": np.eye(4), "left": np.eye(4)})
+        real.reset()
+        assert "lang_goal_tokens" in real.step(np.r_[0.3, 0, 1, 0, 1, 0, 0, 1, 0], "right").observation
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in %r)
         print("LOADED", loaded)

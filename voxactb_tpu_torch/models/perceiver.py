@@ -27,14 +27,14 @@ through torch autograd.
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 from torch import nn
 
-from voxactb_tpu_torch.models.blocks import (
-    Conv3D, Conv3DUpsample, Dense, DenseBlock, LayerNorm, lrelu, softargmax_stats_3d)
+from voxactb_tpu_torch.models.blocks import (  # noqa: F401  (gelu_tanh re-exported)
+    Conv3D, Conv3DUpsample, Dense, DenseBlock, LayerNorm, gelu_tanh, lrelu,
+    softargmax_stats_3d)
 
 
 class Attention(nn.Module):
@@ -133,18 +133,6 @@ class PreNormAttention(nn.Module):
         if context is not None and self.norm_context is not None:
             context = self.norm_context(context)
         return self.attn(y, context, train=train, seed=seed)
-
-
-def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.gelu`` (tanh approximation, its default) op by op in ``x``'s
-    dtype with the constants rounded to it. At bf16 this is bit-identical to
-    the JAX package; ``F.gelu(x, approximate="tanh")`` rounds once at the end
-    and differs from it in about 40% of bf16 outputs by one ulp."""
-    def c(v):
-        return torch.tensor(v, dtype=x.dtype, device=x.device)
-
-    inner = c(math.sqrt(2.0 / math.pi)) * (x + c(0.044715) * x ** 3)
-    return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
 
 
 class FeedForward(nn.Module):

@@ -348,3 +348,30 @@ def optax_state_tree(module: nn.Module, state, kind: str, scheduled: bool) -> di
     if kind == "adam":
         return {"0": {}, "1": adam, "2": sched}
     raise ValueError(f"Unknown optimizer type {kind!r}")
+
+
+# -- the baseline zoo (models/baselines.py) ------------------------------------
+
+
+def baseline_state_dict_from_flax(module: nn.Module, tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX baseline's flax tree (``{'params': ...}`` of numpy arrays, as
+    ``BCLangAgent`` saves it, or the inner dict) as the state_dict of the
+    port's ``CnnLangPolicy``, ``ViTLangPolicy`` or ``LingUNetQNet``.
+
+    The baselines' modules carry flax's names, so the bridge above maps them:
+    ``nn.Conv`` HWIO -> OIHW (``Conv3D`` DHWIO -> OIDHW), ``nn.Dense``
+    transposed, LayerNorm ``scale`` -> ``weight``; the attention's
+    ``DenseGeneral`` kernels and the ViT's ``pos`` are held in flax's layout
+    and copied as they are. Strict: a ``pos`` sized for another token count,
+    a camera too many or a missing leaf raises."""
+    return flax_tree_to_tensors(module, tree)
+
+
+def baseline_flax_tree(module: nn.Module,
+                       state_dict: Mapping[str, torch.Tensor] = None) -> dict:
+    """The inverse: the module's parameters (or ``state_dict``) as the JAX
+    baseline's ``{'params': ...}`` tree of f32 numpy arrays, the tree the JAX
+    ``BCLangAgent`` writes to ``{name}.msgpack``."""
+    if state_dict is None:
+        state_dict = dict(module.named_parameters())
+    return tensors_to_flax_tree(module, state_dict)
