@@ -164,6 +164,18 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     # the caller may ask for the CPU
     QAttentionBCAgent(cfg, ["wrist"], [0, 0, 0, 1, 1, 1], device="cpu").build(training=True)
 
+    # the act entry point and the six probes
+    import importlib
+
+    from voxactb_tpu_torch import graft_entry
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        graft_entry.entry()
+    for name in ("probe_op_floor", "probe_act_ab", "probe_decoder_ab", "probe_decoder_parts",
+                 "probe_front_batch", "probe_front_matmul"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            importlib.import_module(f"voxactb_tpu_torch.tools.{name}").main()
+
     # the baseline zoo's agent: build, and update / act (which build when
     # build was not called)
     from voxactb_tpu_torch.agents.baseline_agents import BCLangAgent
@@ -186,6 +198,43 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         agent.update(0, sample)
         assert agent.act(0, sample).action.shape == (9,)
         assert next(agent.network.parameters()).device.type == "cpu"
+
+
+def test_parallel_and_probe_modules_load_no_jax(tmp_path):
+    """The train step over ranks (``parallel/``), ``graft_entry`` and the six
+    probes import nothing of JAX or the JAX package, and a one-rank gloo step
+    and a small act of ``entry()`` on the CPU load none of it."""
+    script = textwrap.dedent("""
+        import sys
+        import torch
+        torch.set_num_threads(1)
+        import torch.distributed as dist
+        import voxactb_tpu_torch.parallel.collectives
+        from voxactb_tpu_torch import graft_entry
+        from voxactb_tpu_torch.parallel import dryrun, mesh
+        import voxactb_tpu_torch.tools.probe_op_floor, voxactb_tpu_torch.tools.probe_act_ab
+        import voxactb_tpu_torch.tools.probe_decoder_ab
+        import voxactb_tpu_torch.tools.probe_decoder_parts
+        import voxactb_tpu_torch.tools.probe_front_batch
+        import voxactb_tpu_torch.tools.probe_front_matmul
+        dist.init_process_group("gloo", init_method="file://%s", rank=0, world_size=1)
+        _, init_fn, step, batch = dryrun.tiny_train_setup(2)
+        state, place, pstep = mesh.make_parallel_train_step(
+            mesh.make_mesh({"dp": 1}), init_fn, step, batch, torch.Generator().manual_seed(1))
+        state, metrics = pstep(state, place(batch))
+        assert torch.isfinite(metrics["total_loss"])
+        dist.destroy_process_group()
+        infer, args = graft_entry.entry(device="cpu", img=8, voxel_sizes=[10], num_latents=8,
+                                        latent_dim=16, transformer_depth=1, final_dim=8)
+        assert infer(*args).continuous_action.shape == (1, 9)
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in %r)
+        print("LOADED", loaded)
+        assert not loaded, loaded
+    """ % (str(tmp_path / "rendezvous"), FORBIDDEN))
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LOADED []" in res.stdout
 
 
 def test_host_modules_load_no_jax():

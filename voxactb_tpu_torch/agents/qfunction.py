@@ -27,7 +27,8 @@ from voxactb_tpu_torch.device import resolve_device
 from voxactb_tpu_torch.models.blocks import lrelu
 from voxactb_tpu_torch.models.perceiver import PerceiverVoxelLangEncoder
 from voxactb_tpu_torch.ops import geometry as G
-from voxactb_tpu_torch.ops.augmentation import Se3AugConfig, apply_se3_augmentation
+from voxactb_tpu_torch.ops.augmentation import (
+    Se3AugConfig, apply_se3_augmentation, draw_rows)
 from voxactb_tpu_torch.ops.voxelize import (
     flatten_camera_observations, reciprocal, voxelize)
 from voxactb_tpu_torch.optim import (
@@ -263,7 +264,13 @@ def make_train_step(cfg: MethodConfig, optimizer: Optimizer, camera_names: Seque
     ``model`` holds the seeded initial weights; the step reads its weights
     from ``state`` and leaves the module's own untouched.
     ``step_fn.loss_and_grads(state, batch, generator)`` gives the losses and
-    the gradients without the update.
+    the gradients without the update; with ``rows=(offset, total)`` the batch
+    is the rows ``offset ..`` of a global batch of ``total`` (a data-parallel
+    rank's, ``parallel.mesh``), whose ``target_object_scene_bounds`` it
+    carries whole: every draw is made for the global batch and these rows
+    kept, and the dropout masks are those of these rows (``mask_offset``
+    overrides their offset). ``step_fn.model`` and ``step_fn.optimizer`` are
+    the module and the optimizer the step runs.
     """
     from voxactb_tpu_torch.weights import leaf_groups
 
@@ -285,11 +292,13 @@ def make_train_step(cfg: MethodConfig, optimizer: Optimizer, camera_names: Seque
             out[k] = t.to(device)
         return out
 
-    def forward(params, grid, low_dim, lang_emb, lang_toks, seeds):
+    def forward(params, grid, low_dim, lang_emb, lang_toks, seeds, batch_offset):
         return functional_call(model, params, (grid, low_dim, lang_emb, lang_toks),
-                               dict(train=True, dropout_seeds=seeds))
+                               dict(train=True, dropout_seeds=seeds,
+                                    batch_offset=batch_offset))
 
-    def loss_fn(params, batch, bounds, generator):
+    def loss_fn(params, batch, bounds, generator, rows=None, batch_bounds=None,
+                mask_offset=0):
         pcds = [batch[f"{c}_point_cloud"] for c in camera_names]
         rgbs = [normalize_rgb(batch[f"{c}_rgb"]) for c in camera_names]
         b = pcds[0].shape[0]
@@ -307,7 +316,8 @@ def make_train_step(cfg: MethodConfig, optimizer: Optimizer, camera_names: Seque
                     voxel_size=n, rot_resolution_deg=cfg.rotation_resolution, cfg=aug_cfg,
                     action_gripper_pose_left=batch.get("gripper_pose_left")
                     if two_heads else None,
-                    action_rot_grip_left=rot_grip_labels_l if two_heads else None)
+                    action_rot_grip_left=rot_grip_labels_l if two_heads else None,
+                    rows=rows, batch_bounds=batch_bounds)
                 pcds = list(aug.pcds)
                 trans_labels, rot_grip_labels = aug.trans_indices, aug.rot_grip_indices
                 if two_heads:
@@ -320,7 +330,7 @@ def make_train_step(cfg: MethodConfig, optimizer: Optimizer, camera_names: Seque
         # forward and passed in, so a recomputed forward sees the same masks
         seeds = model.draw_dropout_seeds(generator)
         args = (params, grid, batch["low_dim_state"], batch["lang_goal_emb"],
-                batch["lang_token_embs"], seeds)
+                batch["lang_token_embs"], seeds, mask_offset)
         out = checkpoint(forward, *args, use_reentrant=False) if cfg.remat \
             else forward(*args)
 
@@ -359,25 +369,31 @@ def make_train_step(cfg: MethodConfig, optimizer: Optimizer, camera_names: Seque
                        grip_loss=l_grip.mean(), collision_loss=l_coll.mean())
         return total, metrics
 
-    def loss_and_grads(state: TrainState, batch: dict, generator=None):
+    def loss_and_grads(state: TrainState, batch: dict, generator=None, *, rows=None,
+                       mask_offset=None):
         """``(metrics, grads)`` of one batch at ``state.params``: the losses as
         0-dim tensors and ``parameter name -> gradient``."""
         batch = to_device(batch)
         b = batch["trans_action_indicies"].shape[0]
+        offset, total_b = rows if rows is not None else (0, b)
 
         # bounds: per-sample VLM-crop bounds override the static scene bounds
-        # (qattention update :431-451), with optional +/-5cm crop-point jitter
+        # (qattention update :431-451), with optional +/-5cm crop-point jitter;
+        # for the whole batch, then this call's rows
         if cfg.crop_target_obj_voxel:
             bounds = batch["target_object_scene_bounds"]
             if cfg.randomizations_crop_point:
-                shift = torch.rand((b, 3), generator=generator, device=device) * 0.1 - 0.05
-                bounds = bounds + shift.repeat(1, 2)
+                shift = draw_rows(lambda n: torch.rand((n, 3), generator=generator,
+                                                       device=device), total_b)
+                bounds = bounds + (shift * 0.1 - 0.05).repeat(1, 2)
         else:
-            bounds = torch.broadcast_to(batch["scene_bounds"].reshape(-1, 6), (b, 6))
+            bounds = torch.broadcast_to(batch["scene_bounds"].reshape(-1, 6), (total_b, 6))
+        batch_bounds, bounds = bounds, bounds[offset:offset + b]
 
         names = list(state.params)
         params = {k: state.params[k].detach().requires_grad_() for k in names}
-        total, metrics = loss_fn(params, batch, bounds, generator)
+        total, metrics = loss_fn(params, batch, bounds, generator, rows, batch_bounds,
+                                 offset if mask_offset is None else mask_offset)
         grads = dict(zip(names, torch.autograd.grad(total, [params[k] for k in names])))
         return {k: v.detach() for k, v in metrics.items()}, grads
 
@@ -389,6 +405,8 @@ def make_train_step(cfg: MethodConfig, optimizer: Optimizer, camera_names: Seque
         return TrainState(state.step + 1, params, opt_state), metrics
 
     train_step.loss_and_grads = loss_and_grads
+    train_step.model = model
+    train_step.optimizer = optimizer
 
     def init_fn() -> TrainState:
         """The model's seeded weights, zero moments, step 0."""

@@ -211,7 +211,8 @@ __global__ void __launch_bounds__(Roles<NC>::kThreads, C == 1 ? Roles<NC>::kMinB
 train_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
           const __grid_constant__ CUtensorMap tm_v, const long long* __restrict__ seed_ptr,
           bf16* __restrict__ o, float* __restrict__ lse, uint32_t* __restrict__ bits, int Tq,
-          int Tk, uint32_t thr, float scale, int tq_pad, int tk_pad) {
+          int Tk, uint32_t thr, float scale, int tq_pad, int tk_pad, int heads_local,
+          int heads_global, long long head_base) {
   constexpr Plan P = fwd_plan<NC, C>();
   constexpr uint32_t kKBytes = kFwdBn * kRowBytes;  // a box of a key tile
   extern __shared__ unsigned char smem_raw[];
@@ -302,13 +303,16 @@ train_fwd(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
     }
     float mb[2];
     unsigned long long index_row[2];
+    // the mask's head: this block's row of heads in the global [B, H] batch
+    const unsigned long long gbh = (unsigned long long)(
+        head_base + (long long)(bh / heads_local) * heads_global + bh % heads_local);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       s[h] = quad_sum(s[h]);
       const int r = row + 8 * h;
       if (qd == 0 && r < Tq) lse[(size_t)bh * Tq + r] = m[h] + logf(s[h]);
       mb[h] = fmaf(m[h], kLog2e, log2f(s[h] / scale));
-      index_row[h] = ((unsigned long long)bh * tq_pad + r) * (unsigned long long)tk_pad;
+      index_row[h] = (gbh * tq_pad + r) * (unsigned long long)tk_pad;
     }
     const uint32_t seed = drop ? (uint32_t)(*seed_ptr) : 0u;
 
@@ -750,13 +754,18 @@ VX_EXPORT_ERROR_STRING(voxactb_flash_attention_train_error_string)
 // lse [BH, Tq] f32 are written, and with thr != 0 the keep mask as bits
 // [BH, Tq, ceil(Tk / 32)] uint32 (else `bits` may be null).
 // thr = round(dropout * 2^32) or 0 without dropout, scale = 1 / (1 - dropout);
-// tq_pad, tk_pad: the padded extents of the mask index. Returns a cudaError_t.
+// tq_pad, tk_pad: the padded extents of the mask index; row bh of the call is
+// head head_base + (bh / heads_local) * heads_global + bh % heads_local of
+// the mask (1, 1, 0: bh itself). Returns a cudaError_t.
 extern "C" int voxactb_flash_attention_train_fwd(
     const void* q, const void* k, const void* v, const void* seed, void* o, void* lse,
     void* bits, int BH, int Tq, int Tk, unsigned int thr, float scale, int tq_pad,
-    int tk_pad, int hd, void* stream_ptr) {
+    int tk_pad, int heads_local, int heads_global, long long head_base, int hd,
+    void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (tk_pad % kFwdBn != 0 || (hd != 64 && hd != 128))  // tk_pad: see row_key
+    return (int)cudaErrorInvalidValue;
+  if (heads_local < 1 || heads_global < heads_local || head_base < 0)
     return (int)cudaErrorInvalidValue;
   int sms = 0;
   VX_CHECK(device_setup(&sms));
@@ -771,15 +780,18 @@ extern "C" int voxactb_flash_attention_train_fwd(
   if (hd == 128) {
     dim3 grid((Tq + 63) / 64, BH);
     train_fwd<1, 2><<<grid, Roles<1>::kThreads, fwd_plan<1, 2>().bytes(), stream>>>(
-        tq, tk, tv, seedp, op, lsep, bitsp, Tq, Tk, thr, scale, tq_pad, tk_pad);
+        tq, tk, tv, seedp, op, lsep, bitsp, Tq, Tk, thr, scale, tq_pad, tk_pad, heads_local,
+        heads_global, head_base);
   } else if (consumer_groups(BH, Tq, sms) == 2) {
     dim3 grid((Tq + 127) / 128, BH);
     train_fwd<2, 1><<<grid, Roles<2>::kThreads, fwd_plan<2, 1>().bytes(), stream>>>(
-        tq, tk, tv, seedp, op, lsep, bitsp, Tq, Tk, thr, scale, tq_pad, tk_pad);
+        tq, tk, tv, seedp, op, lsep, bitsp, Tq, Tk, thr, scale, tq_pad, tk_pad, heads_local,
+        heads_global, head_base);
   } else {
     dim3 grid((Tq + 63) / 64, BH);
     train_fwd<1, 1><<<grid, Roles<1>::kThreads, fwd_plan<1, 1>().bytes(), stream>>>(
-        tq, tk, tv, seedp, op, lsep, bitsp, Tq, Tk, thr, scale, tq_pad, tk_pad);
+        tq, tk, tv, seedp, op, lsep, bitsp, Tq, Tk, thr, scale, tq_pad, tk_pad, heads_local,
+        heads_global, head_base);
   }
   return (int)cudaGetLastError();
 }

@@ -46,7 +46,16 @@ class Attention(nn.Module):
     Dropout, on either path, keeps the elements that ``keep_mask`` of
     ``ops/cuda/flash_attention_train`` derives from a seed: the caller draws
     the seed (from its generator, on the device) and passes it in, so a
-    recomputed forward (``torch.utils.checkpoint``) sees the same mask."""
+    recomputed forward (``torch.utils.checkpoint``) sees the same mask. The
+    mask is drawn for the rows' place in the global batch of heads: samples
+    from ``batch_offset`` on, and under ``tp`` this rank's heads.
+
+    ``tp``, when set (``parallel.mesh``), makes the module Megatron
+    tensor-parallel: ``to_q``, ``to_k`` and ``to_v`` hold this rank's heads
+    (column-parallel), ``to_out`` their input columns (row-parallel, its
+    partial products summed over the ranks before the bias)."""
+
+    tp = None
 
     def __init__(self, query_dim: int, context_dim: int, heads: int, dim_head: int,
                  out_dim: int, dropout: float = 0.0, flash: bool = False,
@@ -70,13 +79,27 @@ class Attention(nn.Module):
         self.to_out = Dense(inner, out_dim, dtype=dtype, generator=generator)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None, *,
-                train: bool = False, seed: Optional[torch.Tensor] = None):
-        context = x if context is None else context
-        q, k, v = self.to_q(x), self.to_k(context), self.to_v(context)
+                train: bool = False, seed: Optional[torch.Tensor] = None,
+                batch_offset: int = 0):
+        from voxactb_tpu_torch.ops.cuda.flash_attention_train import MaskIndex
+
+        tp = self.tp
+        heads, head_offset = self.heads, 0
+        if tp is None:
+            context = x if context is None else context
+            q, k, v = self.to_q(x), self.to_k(context), self.to_v(context)
+        else:
+            heads = self.heads // tp.size
+            head_offset = tp.rank * heads if tp.mask_offsets else 0
+            x = tp.column_input(x, self.dtype)
+            context = x if context is None else tp.column_input(context, self.dtype)
+            q, k, v = (tp.column_linear(d, t) for d, t in
+                       ((self.to_q, x), (self.to_k, context), (self.to_v, context)))
+        index = MaskIndex(heads, self.heads, batch_offset, head_offset)
 
         def split_heads(t):
             b, n, _ = t.shape
-            return t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
+            return t.reshape(b, n, heads, self.dim_head).transpose(1, 2)
 
         q, k, v = map(split_heads, (q, k, v))
         scale = self.dim_head ** -0.5
@@ -96,8 +119,8 @@ class Attention(nn.Module):
                 flash_attention_train)
 
             out = flash_attention_train(flat(q * scale), flat(k), flat(v),
-                                        0 if seed is None else seed,
-                                        dropout=dropout).reshape(b, h, n, d)
+                                        0 if seed is None else seed, dropout=dropout,
+                                        index=index).reshape(b, h, n, d)
         else:
             sim = torch.matmul(q.to(torch.float32),
                                k.to(torch.float32).transpose(-1, -2))
@@ -105,12 +128,13 @@ class Attention(nn.Module):
             if dropout > 0.0:
                 from voxactb_tpu_torch.ops.cuda.flash_attention_train import keep_mask
 
-                keep = keep_mask(seed, b * h, n, k.shape[2], dropout).reshape(sim.shape)
+                keep = keep_mask(seed, b * h, n, k.shape[2], dropout,
+                                 index=index).reshape(sim.shape)
                 attn = attn * keep.to(torch.float32) * (1.0 / (1.0 - dropout))
             out = torch.matmul(attn.to(v.dtype).to(torch.float32),
                                v.to(torch.float32))
         out = out.transpose(1, 2).reshape(b, n, h * d).to(self.dtype)
-        return self.to_out(out)
+        return self.to_out(out) if tp is None else tp.row_linear(self.to_out, out)
 
 
 class PreNormAttention(nn.Module):
@@ -128,16 +152,21 @@ class PreNormAttention(nn.Module):
                               dropout=dropout, flash=flash, flash_train=flash_train,
                               dtype=dtype, generator=generator)
 
-    def forward(self, x, context=None, *, train: bool = False, seed=None):
+    def forward(self, x, context=None, *, train: bool = False, seed=None,
+                batch_offset: int = 0):
         y = self.norm(x)
         if context is not None and self.norm_context is not None:
             context = self.norm_context(context)
-        return self.attn(y, context, train=train, seed=seed)
+        return self.attn(y, context, train=train, seed=seed, batch_offset=batch_offset)
 
 
 class FeedForward(nn.Module):
     """PreNorm GEGLU MLP: dim -> dim*mult (gated) -> dim (perceiver_lang_io.py:74-90),
-    with the tanh-approximate gelu of ``jax.nn.gelu``."""
+    with the tanh-approximate gelu of ``jax.nn.gelu``. Under ``tp``
+    (``parallel.mesh``) ``w_in`` holds this rank's rows of both halves (its
+    values and their gates) and ``w_out`` the matching input columns."""
+
+    tp = None
 
     def __init__(self, dim: int, mult: int = 4, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
@@ -147,9 +176,20 @@ class FeedForward(nn.Module):
         self.w_out = Dense(dim * mult, dim, dtype=dtype, generator=generator)
 
     def forward(self, x):
-        y = self.w_in(self.norm(x))
+        tp = self.tp
+        if tp is None:
+            y = self.w_in(self.norm(x))
+            y, gates = y.chunk(2, dim=-1)
+            return self.w_out(y * gelu_tanh(gates))
+        # the replicated bias enters through tp.copy, so that its gradient,
+        # which each rank holds only at its own rows, is summed over the ranks
+        hidden = self.w_in.bias.shape[0] // 2
+        lo, hi = tp.rank * hidden // tp.size, (tp.rank + 1) * hidden // tp.size
+        bias = tp.copy(self.w_in.bias)
+        y = tp.column_linear(self.w_in, tp.column_input(self.norm(x), self.w_in.dtype))
+        y = y + torch.cat([bias[lo:hi], bias[hidden + lo:hidden + hi]]).to(self.w_in.dtype)
         y, gates = y.chunk(2, dim=-1)
-        return self.w_out(y * gelu_tanh(gates))
+        return tp.row_linear(self.w_out, y * gelu_tanh(gates))
 
 
 class PerceiverVoxelLangEncoder(nn.Module):
@@ -299,14 +339,15 @@ class PerceiverVoxelLangEncoder(nn.Module):
     def forward(self, voxel_grid: torch.Tensor, proprio: torch.Tensor,
                 lang_goal_emb: Optional[torch.Tensor], lang_token_embs: torch.Tensor,
                 *, train: bool = False, dropout_seeds: Optional[torch.Tensor] = None,
-                front=None):
+                front=None, batch_offset: int = 0):
         """``voxel_grid [B,N,N,N,10]`` (channels last), ``proprio [B, low_dim]``
         or ``[B, 2, low_dim]``, ``lang_token_embs [B, 77, 512]``. ``front``,
         when given, is ``(d0, patch_tokens, kp0, gmax0)`` from the fused front
         kernel; ``voxel_grid`` then only carries the batch size. ``train=True``
         applies dropout from ``dropout_seeds`` (``draw_dropout_seeds``; drawn
         here from the default generator when not given) and keeps to the
-        differentiable ops."""
+        differentiable ops. ``batch_offset`` places the batch in a global one
+        for the dropout masks (a data-parallel rank's first row)."""
         del lang_goal_emb  # 'seq' fusion conditions on token embeddings only
         if train and front is not None:
             raise ValueError("the fused front is an inference path")
@@ -365,13 +406,16 @@ class PerceiverVoxelLangEncoder(nn.Module):
 
         x = self.latents[None].to(dt).expand(b, self.num_latents, self.latent_dim)
         for _ in range(self.iterations):
-            x = self.cross_attend(x, seq, train=train, seed=next(seeds)) + x
+            x = self.cross_attend(x, seq, train=train, seed=next(seeds),
+                                  batch_offset=batch_offset) + x
             x = self.cross_ff(x) + x
             for i in range(self.depth):
-                x = getattr(self, f"self_attn_{i}")(x, train=train, seed=next(seeds)) + x
+                x = getattr(self, f"self_attn_{i}")(x, train=train, seed=next(seeds),
+                                                    batch_offset=batch_offset) + x
                 x = getattr(self, f"self_ff_{i}")(x) + x
 
-        decoded = self.decoder_cross_attn(seq, x, train=train, seed=next(seeds))
+        decoded = self.decoder_cross_attn(seq, x, train=train, seed=next(seeds),
+                                          batch_offset=batch_offset)
         grid = decoded[:, self.lang_max_seq_len:].reshape(b, spatial, spatial, spatial, dim)
         kp1, gmax1 = self._stats(grid)
         feats.extend([kp1, gmax1])

@@ -51,25 +51,39 @@ def _unclamped_voxel_floor(point: torch.Tensor, voxel_size: int,
     return torch.clamp(idx, max=voxel_size - 1)
 
 
+def draw_rows(draw, b: int, rows: Optional[Tuple[int, int]] = None, axis: int = 0):
+    """``draw(n)`` for the whole batch, then this call's ``b`` rows along
+    ``axis``: ``rows = (offset, total)`` places them in a global batch of
+    ``total`` (a data-parallel rank draws what the one-process step draws and
+    keeps its own rows); None: the batch is the whole batch."""
+    if rows is None:
+        return draw(b)
+    offset, total = rows
+    return draw(total).narrow(axis, offset, b)
+
+
 def sample_candidates(generator: Optional[torch.Generator], cfg: Se3AugConfig,
-                      bounds: torch.Tensor, b: int
+                      bounds: torch.Tensor, b: int,
+                      rows: Optional[Tuple[int, int]] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``[K, B, 3]`` translation shifts + ``[K, B, 3, 3]`` rotation matrices on
-    ``bounds``' device; slot 0 = identity. ``generator`` lives on that device."""
+    ``bounds``' device; slot 0 = identity. ``generator`` lives on that device;
+    ``rows`` as ``draw_rows``'."""
     k = cfg.num_candidates
     dev = bounds.device
     f32 = torch.float32
     trans_range = (bounds[:, 3:6] - bounds[:, 0:3]) * torch.tensor(
         cfg.trans_range, dtype=f32, device=dev)
-    u = torch.rand((k, b, 3), generator=generator, device=dev, dtype=f32) * 2.0 - 1.0
+    rand = lambda n: torch.rand((k, n, 3), generator=generator, device=dev,  # noqa: E731
+                                dtype=f32)
+    u = draw_rows(rand, b, rows, axis=1) * 2.0 - 1.0
     trans = trans_range[None] * u
 
     # discrete rotation steps at the augmentation resolution (augmentation.py:128-141)
     steps = torch.tensor([int(r // cfg.rot_resolution_deg) for r in cfg.rot_range_deg],
                          dtype=f32, device=dev)
     # uniform integers in [-steps, steps], per axis
-    draw = torch.floor(torch.rand((k, b, 3), generator=generator, device=dev, dtype=f32)
-                       * (2.0 * steps + 1.0)) - steps
+    draw = torch.floor(draw_rows(rand, b, rows, axis=1) * (2.0 * steps + 1.0)) - steps
     draw = torch.minimum(draw, steps)
     euler_rad = draw * cfg.rot_resolution_deg * (math.pi / 180.0)
     # the reference composes Rx(roll)@Ry(pitch)@Rz(yaw) (pytorch3d
@@ -115,9 +129,12 @@ def apply_se3_candidates(
     rot_resolution_deg: int,
     action_gripper_pose_left: Optional[torch.Tensor] = None,
     action_rot_grip_left: Optional[torch.Tensor] = None,
+    batch_bounds: Optional[torch.Tensor] = None,
 ) -> Se3AugResult:
     """Apply the first valid of the candidates ``trans_shift [K,B,3]`` /
-    ``rot_mat [K,B,3,3]`` (slot 0 the identity) to clouds and action(s)."""
+    ``rot_mat [K,B,3,3]`` (slot 0 the identity) to clouds and action(s).
+    ``batch_bounds``: the ``[B', 6]`` bounds of the whole batch this one is
+    part of, whose extremes clamp the shifted anchor (default ``bounds``)."""
     b = action_gripper_pose.shape[0]
     bounds = torch.broadcast_to(bounds.to(torch.float32), (b, 6))
     two_robot = action_gripper_pose_left is not None
@@ -158,8 +175,9 @@ def apply_se3_candidates(
     # translation (perturb_se3, augmentation.py:7-65): the shifted gripper
     # position is clamped into the global min/max of the batch bounds.
     anchor = action_gripper_pose[:, :3]
-    lo = bounds[:, 0:3].amin(0)
-    hi = bounds[:, 3:6].amax(0)
+    whole = bounds if batch_bounds is None else batch_bounds.to(torch.float32).reshape(-1, 6)
+    lo = whole[:, 0:3].amin(0)
+    hi = whole[:, 3:6].amax(0)
     shifted_anchor = torch.minimum(torch.maximum(anchor + sel_shift, lo), hi)
 
     out_pcds = []
@@ -186,6 +204,8 @@ def apply_se3_augmentation(
     cfg: Se3AugConfig = Se3AugConfig(),
     action_gripper_pose_left: Optional[torch.Tensor] = None,
     action_rot_grip_left: Optional[torch.Tensor] = None,
+    rows: Optional[Tuple[int, int]] = None,
+    batch_bounds: Optional[torch.Tensor] = None,
 ) -> Se3AugResult:
     """Jointly perturb point clouds and keyframe action(s).
 
@@ -201,12 +221,15 @@ def apply_se3_augmentation(
         two-robot behaviour (augmentation.py:187-348): ONE shared perturbation
         per element, valid only if BOTH arms' perturbed actions stay in
         bounds, clouds rotated about the RIGHT gripper.
+      rows / batch_bounds: a part of a larger batch (a data-parallel rank's
+        rows): the candidates are drawn for the whole batch and these rows
+        kept (``draw_rows``), and the whole batch's bounds clamp the anchor.
     """
     b = action_gripper_pose.shape[0]
     bounds = torch.broadcast_to(bounds.to(torch.float32), (b, 6))
-    trans_shift, rot_mat = sample_candidates(generator, cfg, bounds, b)
+    trans_shift, rot_mat = sample_candidates(generator, cfg, bounds, b, rows)
     return apply_se3_candidates(
         trans_shift, rot_mat, pcds, action_gripper_pose, action_rot_grip, bounds,
         voxel_size=voxel_size, rot_resolution_deg=rot_resolution_deg,
         action_gripper_pose_left=action_gripper_pose_left,
-        action_rot_grip_left=action_rot_grip_left)
+        action_rot_grip_left=action_rot_grip_left, batch_bounds=batch_bounds)

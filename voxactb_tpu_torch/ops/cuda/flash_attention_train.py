@@ -24,6 +24,12 @@ which covers every shape in the repo (the largest, 64 heads of 2048 x 2048, is
 here the index is 64 bits wide and its high word is mixed into the hash, so
 the mask stays decorrelated but no longer equals the TPU kernel's.
 
+``head`` is the flat index of the head in the GLOBAL ``[B, H]`` batch of
+heads (``MaskIndex``): a call that holds only some of the samples (a data
+rank) or some of the heads (a tensor-parallel rank) names where its rows sit,
+so that every rank draws the rows of the one-process mask. The default is the
+call's own flat index.
+
 The kernels are built for head dims 64 and 128 (``HEAD_DIMS``). The launchers
 zero-pad q, k, v and dO of a head of at most 64 to 64 and of 65-128 to 128
 (``head_dim.padded_call``) and slice out, dQ, dK and dV back: exact, since the
@@ -35,7 +41,7 @@ raise.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -45,6 +51,33 @@ from voxactb_tpu_torch.ops.cuda.head_dim import kernel_head_dim, padded_call
 HEAD_DIMS = (64, 128)  # the kernels' head dims; narrower heads are zero-padded
 _M32 = 0xFFFFFFFF
 Q_BLOCK = 512  # the TPU kernel's default query block: part of the mask index
+
+
+class MaskIndex(NamedTuple):
+    """Where a call's ``bh = b_local * heads_local`` rows of heads sit in the
+    global ``[B, heads_global]`` batch: local row ``i`` is global head
+    ``(batch_offset + i // heads_local) * heads_global + head_offset + i %
+    heads_local``. The default maps every row to itself."""
+
+    heads_local: int = 1
+    heads_global: int = 1
+    batch_offset: int = 0
+    head_offset: int = 0
+
+    @property
+    def base(self) -> int:
+        """The global index of local row 0."""
+        return self.batch_offset * self.heads_global + self.head_offset
+
+
+LOCAL = MaskIndex()
+
+
+def global_heads(bh: int, index: MaskIndex, device) -> torch.Tensor:
+    """``[bh]`` int64: the global flat head index of each local row."""
+    i = torch.arange(bh, dtype=torch.int64, device=device)
+    hl = index.heads_local
+    return index.base + (i // hl) * index.heads_global + i % hl
 
 
 def dropout_threshold(dropout: float) -> int:
@@ -70,14 +103,15 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def keep_mask(seed: torch.Tensor, bh: int, tq: int, tk: int, dropout: float,
-              q_block: int = Q_BLOCK) -> torch.Tensor:
+              q_block: int = Q_BLOCK, *, index: MaskIndex = LOCAL) -> torch.Tensor:
     """``[bh, tq, tk]`` bool: the elements dropout keeps (murmur3 finalizer of
     ``seed ^ index``, kept where the hash >= ``dropout_threshold``), in torch
-    integer arithmetic on ``seed``'s device."""
+    integer arithmetic on ``seed``'s device; the rows' heads placed by
+    ``index``."""
     tq_pad, tk_pad = padded_extents(tq, tk, q_block)
     dev = seed.device
     i64 = torch.int64
-    head = torch.arange(bh, dtype=i64, device=dev)[:, None, None]
+    head = global_heads(bh, index, dev)[:, None, None]
     row = torch.arange(tq, dtype=i64, device=dev)[None, :, None]
     col = torch.arange(tk, dtype=i64, device=dev)[None, None, :]
     index = (head * tq_pad + row) * tk_pad + col
@@ -91,11 +125,11 @@ def keep_mask(seed: torch.Tensor, bh: int, tq: int, tk: int, dropout: float,
 
 
 def keep_bits(seed: torch.Tensor, bh: int, tq: int, tk: int, dropout: float,
-              q_block: int = Q_BLOCK) -> torch.Tensor:
+              q_block: int = Q_BLOCK, *, index: MaskIndex = LOCAL) -> torch.Tensor:
     """``keep_mask`` packed as the forward kernel saves it: ``[bh, tq,
     ceil(tk / 32)]`` int32 holding uint32 words, bit j of word w for column
     ``32 w + j``, bits past ``tk`` zero."""
-    keep = keep_mask(seed, bh, tq, tk, dropout, q_block)
+    keep = keep_mask(seed, bh, tq, tk, dropout, q_block, index=index)
     words = -(-tk // 32)
     keep = torch.nn.functional.pad(keep, (0, 32 * words - tk))
     weight = torch.ones(32, dtype=torch.int64, device=keep.device) << torch.arange(
@@ -111,7 +145,7 @@ def unpack_keep_bits(bits: torch.Tensor, tk: int) -> torch.Tensor:
     return keep.reshape(*bits.shape[:-1], -1)[..., :tk].to(torch.bool)
 
 
-def _keep_scale(seed, q, k, dropout: float, q_block: int, bits=None):
+def _keep_scale(seed, q, k, dropout: float, q_block: int, bits=None, index=LOCAL):
     """f32 ``keep / (1 - dropout)``, or None without dropout; the mask from
     ``bits`` where given, else hashed from ``seed``."""
     if dropout <= 0.0:
@@ -119,7 +153,8 @@ def _keep_scale(seed, q, k, dropout: float, q_block: int, bits=None):
     if bits is not None:
         keep = unpack_keep_bits(bits, k.shape[1])
     else:
-        keep = keep_mask(seed, q.shape[0], q.shape[1], k.shape[1], dropout, q_block)
+        keep = keep_mask(seed, q.shape[0], q.shape[1], k.shape[1], dropout, q_block,
+                         index=index)
     return keep.to(torch.float32) * (1.0 / (1.0 - dropout))
 
 
@@ -127,7 +162,8 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(torch.float32)
 
 
-def plain_forward(q, k, v, seed, dropout: float, q_block: int = Q_BLOCK):
+def plain_forward(q, k, v, seed, dropout: float, q_block: int = Q_BLOCK, *,
+                  index: MaskIndex = LOCAL):
     """``(out [BH, Tq, hd] in v.dtype, lse [BH, Tq] f32)`` of the plain
     version: f32 logits of bf16 operands, probabilities normalised in f32,
     dropout applied, then cast to bf16 for the f32-accumulated product."""
@@ -137,7 +173,7 @@ def plain_forward(q, k, v, seed, dropout: float, q_block: int = Q_BLOCK):
     s = p.sum(-1, keepdim=True)
     lse = (m + torch.log(s))[..., 0]
     attn = p / s
-    ks = _keep_scale(seed, q, k, dropout, q_block)
+    ks = _keep_scale(seed, q, k, dropout, q_block, index=index)
     if ks is not None:
         attn = attn * ks
     out = torch.matmul(_f32(attn), _f32(v)).to(v.dtype)
@@ -145,7 +181,7 @@ def plain_forward(q, k, v, seed, dropout: float, q_block: int = Q_BLOCK):
 
 
 def plain_backward(q, k, v, lse, d_out, seed, dropout: float, q_block: int = Q_BLOCK,
-                   *, bits=None):
+                   *, bits=None, index: MaskIndex = LOCAL):
     """``(dq, dk, dv)`` of the plain version, written out as the TPU backward
     kernel: P recomputed from lse, the row term ``sum(P * dP)`` taken from the
     resident P and dP, dS and A rounded to bf16 before their products. The
@@ -153,7 +189,7 @@ def plain_backward(q, k, v, lse, d_out, seed, dropout: float, q_block: int = Q_B
     qf, kf, vf, dof = _f32(q), _f32(k), _f32(v), _f32(d_out)
     p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) - lse[..., None])
     da = torch.matmul(dof, vf.transpose(-1, -2))
-    ks = _keep_scale(seed, q, k, dropout, q_block, bits)
+    ks = _keep_scale(seed, q, k, dropout, q_block, bits, index)
     a, dp = (p, da) if ks is None else (p * ks, da * ks)
     r = (p * dp).sum(-1, keepdim=True)
     ds = _f32(p * (dp - r))
@@ -165,24 +201,26 @@ def plain_backward(q, k, v, lse, d_out, seed, dropout: float, q_block: int = Q_B
 
 class _PlainTrainAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, seed, dropout, q_block):
-        out, lse = plain_forward(q, k, v, seed, dropout, q_block)
+    def forward(ctx, q, k, v, seed, dropout, q_block, index):
+        out, lse = plain_forward(q, k, v, seed, dropout, q_block, index=index)
         ctx.save_for_backward(q, k, v, seed, lse)
-        ctx.dropout, ctx.q_block = dropout, q_block
+        ctx.dropout, ctx.q_block, ctx.index = dropout, q_block, index
         return out
 
     @staticmethod
     def backward(ctx, d_out):
         q, k, v, seed, lse = ctx.saved_tensors
-        dq, dk, dv = plain_backward(q, k, v, lse, d_out, seed, ctx.dropout, ctx.q_block)
-        return dq, dk, dv, None, None, None
+        dq, dk, dv = plain_backward(q, k, v, lse, d_out, seed, ctx.dropout, ctx.q_block,
+                                    index=ctx.index)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_train_reference(q, k, v, seed, *, dropout: float = 0.0,
-                                    q_block: int = Q_BLOCK) -> torch.Tensor:
+                                    q_block: int = Q_BLOCK,
+                                    index: MaskIndex = LOCAL) -> torch.Tensor:
     """Plain version of ``flash_attention_train`` (any head dim, any device)."""
     return _PlainTrainAttention.apply(q, k, v, _seed_tensor(seed, q.device),
-                                      float(dropout), q_block)
+                                      float(dropout), q_block, MaskIndex(*index))
 
 
 # -- the kernels -----------------------------------------------------------------
@@ -221,7 +259,7 @@ def _entry(name: str, argtypes):
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGS = [_VP] * 7 + [_CI, _CI, _CI, ctypes.c_uint32, ctypes.c_float, _CI, _CI, _CI,
-                         _VP]
+                         _CI, ctypes.c_longlong, _CI, _VP]
 _BWD_ARGS = [_VP] * 10 + [_CI, _CI, _CI, ctypes.c_float, _CI, _VP]
 
 
@@ -231,20 +269,24 @@ def _mask_args(tq: int, tk: int, dropout: float):
             ctypes.c_float(1.0 / (1.0 - dropout)), tq_pad, tk_pad)
 
 
-def flash_attention_train_forward(q, k, v, seed: torch.Tensor, dropout: float):
+def flash_attention_train_forward(q, k, v, seed: torch.Tensor, dropout: float,
+                                  index: MaskIndex = LOCAL):
     """Launch the forward kernel: ``(out bf16 [BH, Tq, hd], lse f32 [BH, Tq],
     keep bits [BH, Tq, ceil(Tk / 32)] int32 or None without dropout)``, hd at
-    most 128. CPU tensors take ``plain_forward`` and ``keep_bits``."""
+    most 128, the mask's heads placed by ``index``. CPU tensors take
+    ``plain_forward`` and ``keep_bits``."""
     if not q.is_cuda:
-        out, lse = plain_forward(q, k, v, seed, dropout)
-        bits = (keep_bits(seed, q.shape[0], q.shape[1], k.shape[1], dropout)
+        out, lse = plain_forward(q, k, v, seed, dropout, index=index)
+        bits = (keep_bits(seed, q.shape[0], q.shape[1], k.shape[1], dropout, index=index)
                 if dropout > 0.0 else None)
         return out, lse, bits
     width = _check_operands(q, k, v)[3]
-    return padded_call(_launch_forward, (q, k, v), width, seed, dropout, sliced=(0,))
+    return padded_call(_launch_forward, (q, k, v), width, seed, dropout, index,
+                       sliced=(0,))
 
 
-def _launch_forward(q, k, v, seed: torch.Tensor, dropout: float):
+def _launch_forward(q, k, v, seed: torch.Tensor, dropout: float,
+                    index: MaskIndex = LOCAL):
     from voxactb_tpu_torch.ops.cuda.build import check, stream_ptr, tma_operand
 
     bh, tq, tk, hd = _check_operands(q, k, v)
@@ -256,7 +298,8 @@ def _launch_forward(q, k, v, seed: torch.Tensor, dropout: float):
     lib, fn = _entry("fwd", _FWD_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), seed.data_ptr(), out.data_ptr(),
              lse.data_ptr(), None if bits is None else bits.data_ptr(), bh, tq, tk,
-             *_mask_args(tq, tk, dropout), hd, stream_ptr(q.device))
+             *_mask_args(tq, tk, dropout), index.heads_local, index.heads_global,
+             ctypes.c_longlong(index.base), hd, stream_ptr(q.device))
     check(lib, "flash_attention_train", err)
     LAUNCHES["flash_attention_train_fwd"] += 1
     return out, lse, bits
@@ -303,8 +346,8 @@ def _launch_backward(q, k, v, d_out, lse, bits, dropout: float):
 
 class _KernelTrainAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, seed, dropout):
-        out, lse, bits = flash_attention_train_forward(q, k, v, seed, dropout)
+    def forward(ctx, q, k, v, seed, dropout, index):
+        out, lse, bits = flash_attention_train_forward(q, k, v, seed, dropout, index)
         ctx.save_for_backward(q, k, v, seed, lse, bits)
         ctx.dropout = dropout
         return out
@@ -314,18 +357,20 @@ class _KernelTrainAttention(torch.autograd.Function):
         q, k, v, _, lse, bits = ctx.saved_tensors
         dq, dk, dv = flash_attention_train_backward(q, k, v, lse, d_out, bits,
                                                     ctx.dropout)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seed, *,
-                          dropout: float = 0.0) -> torch.Tensor:
+                          dropout: float = 0.0, index: MaskIndex = LOCAL) -> torch.Tensor:
     """Differentiable ``[BH, Tq, hd] x [BH, Tk, hd] -> [BH, Tq, hd]`` in bf16,
     hd at most 128; q must be PRE-SCALED by ``hd ** -0.5``. ``seed`` (an int, or an
     integer tensor holding a value below 2^32) derives the dropout mask and is
-    ignored when ``dropout == 0``; gradients flow to q, k and v. CPU tensors
-    take the plain version."""
+    ignored when ``dropout == 0``; ``index`` places the rows' heads in the
+    global batch of heads; gradients flow to q, k and v. CPU tensors take the
+    plain version."""
+    index = MaskIndex(*index)
     if not q.is_cuda:
-        return flash_attention_train_reference(q, k, v, seed, dropout=dropout)
+        return flash_attention_train_reference(q, k, v, seed, dropout=dropout, index=index)
     bf = torch.bfloat16
     return _KernelTrainAttention.apply(q.to(bf), k.to(bf), v.to(bf),
-                                       _seed_tensor(seed, q.device), float(dropout))
+                                       _seed_tensor(seed, q.device), float(dropout), index)

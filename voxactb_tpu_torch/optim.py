@@ -19,6 +19,11 @@ stores flax's fused ``to_kv`` kernel as two parameters (``to_k``, ``to_v``),
 and ``leaf_groups`` names such sets so that their norms are taken over the
 group as one leaf; two separate ratios would make the trained weights drift
 from the JAX package's from the first step.
+
+Where a parameter is split over ranks (``parallel.mesh``) the update runs on
+each rank's slice; ``sq_reduce`` then completes the squared norms of the
+slices to those of the whole parameters (a sum over the ranks that share it)
+before the trust ratio and ``global_norm`` take them.
 """
 
 from __future__ import annotations
@@ -108,22 +113,23 @@ class Optimizer:
         return self._group_cache[key]
 
     def _trust_ratios(self, params: List[torch.Tensor], updates: List[torch.Tensor],
-                      names: List[str]) -> List[torch.Tensor]:
+                      names: List[str], sq_reduce=None) -> List[torch.Tensor]:
         """``scale_by_trust_ratio``: ||param|| / ||update|| per leaf, 1 where
         either norm is 0."""
         group, n_leaves = self._group_index(names, params[0].device)
-
-        def leaf_norms(tensors):
-            sq = torch.stack(torch._foreach_norm(tensors)) ** 2
-            total = torch.zeros(n_leaves, dtype=sq.dtype, device=sq.device)
-            return torch.sqrt(total.index_add_(0, group, sq))
-
-        pn, un = leaf_norms(params), leaf_norms(updates)
+        sq = torch.stack([torch.stack(torch._foreach_norm(t)) ** 2
+                          for t in (params, updates)])
+        if sq_reduce is not None:
+            sq = sq_reduce(sq)
+        total = torch.zeros((2, n_leaves), dtype=sq.dtype, device=sq.device)
+        pn, un = torch.sqrt(total.index_add_(1, group, sq))
         ratio = torch.where((pn == 0.0) | (un == 0.0), torch.ones_like(pn), pn / un)
         return list(ratio[group].unbind(0))
 
-    def update(self, grads: Tensors, state: OptState, params: Tensors):
-        """One step: ``(new_params, new_state)``. Nothing is changed in place."""
+    def update(self, grads: Tensors, state: OptState, params: Tensors, *, sq_reduce=None):
+        """One step: ``(new_params, new_state)``. Nothing is changed in place.
+        ``sq_reduce`` maps the ``[2, n]`` squared norms of the parameters' and
+        the updates' local slices to those of the whole parameters."""
         names = list(params)
         p = [params[n] for n in names]
         g = [grads[n].to(torch.float32) for n in names]
@@ -144,7 +150,7 @@ class Optimizer:
         if self.kind == "lamb":
             if self.weight_decay:
                 u = torch._foreach_add(u, torch._foreach_mul(p, self.weight_decay))
-            ratios = self._trust_ratios(p, u, names)
+            ratios = self._trust_ratios(p, u, names, sq_reduce)
             u = torch._foreach_mul(u, ratios)
 
         lr = self.learning_rate
@@ -155,10 +161,14 @@ class Optimizer:
                 OptState(count, dict(zip(names, mu)), dict(zip(names, nu))))
 
 
-def global_norm(tensors: Tensors) -> torch.Tensor:
-    """``optax.global_norm``: sqrt of the sum of all squared elements."""
+def global_norm(tensors: Tensors, sq_reduce=None) -> torch.Tensor:
+    """``optax.global_norm``: sqrt of the sum of all squared elements;
+    ``sq_reduce`` as ``Optimizer.update``'s, on a ``[1, n]`` tensor."""
     vals = [t.to(torch.float32) for t in tensors.values()]
-    return torch.sqrt(torch.stack(torch._foreach_norm(vals)).square().sum())
+    sq = torch.stack(torch._foreach_norm(vals)).square()
+    if sq_reduce is not None:
+        sq = sq_reduce(sq[None])[0]
+    return torch.sqrt(sq.sum())
 
 
 def state_to_cpu(state: OptState) -> dict:

@@ -13,7 +13,14 @@
   ``probe_replay_accuracy``, ``probe_policy_open_loop``, ``probe_input_diff``
   and ``probe_hybrid_inputs``;
 - ``profile_train`` and ``profile_sam``: the train step's and the SAM image
-  encoder's stages.
+  encoder's stages (``--bwd-split [--flash-train]``, ``--stage``);
+- the root probes: ``probe_op_floor`` (the fixed cost per dependent launch and
+  one act's launches), ``probe_act_ab`` (K2 on and off in act chains),
+  ``probe_decoder_ab`` (K8 against cuDNN ``up0`` + K3), ``probe_decoder_parts``
+  (K3's launches beside P1's stream floor), ``probe_front_batch`` (K1 against
+  the plain front, K3 at batch 8) and ``probe_front_matmul`` (the front stage
+  and its act chain). A key of the JAX tool that has no counterpart here is
+  listed, with the reason, in the tool's ``NO_COUNTERPART``.
 
 The helpers below are what the timed tools share: inputs synthesized on the
 device from a seed, chains of steps that each read a fresh input slice and
@@ -117,3 +124,54 @@ def warm_seconds(fn, dev: torch.device) -> float:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return time.perf_counter() - t0
+
+
+def kernel_ms(fn, calls: int, dev: torch.device, names) -> dict:
+    """Device milliseconds per call of ``fn`` of the kernels whose name holds
+    each of ``names`` (summed over the kernels that match), from the
+    profiler over ``calls`` calls; None for each off the card."""
+    if dev.type != "cuda":
+        return {n: None for n in names}
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize(dev)
+    events = [e for e in prof.key_averages() if e.device_time_total > 0]
+    return {n: sum(e.device_time_total for e in events if n in e.key) / calls / 1e3
+            for n in names}
+
+
+def median_ms(fn, dev: torch.device, reps: int = 3, per: int = 1) -> float:
+    """Median over ``reps`` calls of ``fn`` (``seconds``), in ms per ``per``."""
+    walls = sorted(seconds(fn, dev) for _ in range(reps))
+    return walls[len(walls) // 2] * 1e3 / per
+
+
+SCENE_BOUNDS = [-0.8, -1.0, 0.1, 1.2, 1.0, 2.1]  # bench.py's
+
+
+def act_observations(rng, n_chain: int, batch: int, dev: torch.device, img: int = 128,
+                     low_dim: int = 4):
+    """``n_chain`` seeded observations of ``batch`` (bench.py's: two cameras of
+    ``img``^2, rgb in [0, 255], points in [-0.5, 1.5]^3) on ``dev``, each a
+    tuple for ``make_infer_fn``'s program after its module."""
+    def t(x):
+        return torch.as_tensor(x.astype("float32"), device=dev)
+
+    obs = []
+    for _ in range(n_chain):
+        rgbs = tuple(t(rng.integers(0, 255, (batch, img, img, 3))) for _ in range(2))
+        pcds = tuple(t(rng.uniform(-0.5, 1.5, (batch, img, img, 3))) for _ in range(2))
+        obs.append((rgbs, pcds, t(rng.normal(size=(batch, low_dim))),
+                    t(rng.normal(size=(batch, 1024))), t(rng.normal(size=(batch, 77, 512))),
+                    torch.tensor([SCENE_BOUNDS], device=dev)))
+    return obs
+
+
+def act_chain(model, infer, obs):
+    """The act program over every observation: ``[n_chain, B, 9]`` actions."""
+    return torch.stack([infer(model, *o).continuous_action for o in obs])

@@ -214,8 +214,9 @@ def bwd_split(args, dev, base=BASE) -> dict:
     from voxactb_tpu_torch.config import MethodConfig
 
     results = {}
+    flash = dict(pallas_attention_train=True) if getattr(args, "flash_train", False) else {}
     for depth in BWD_DEPTHS:
-        cfg = MethodConfig(**{**base, "transformer_depth": depth})
+        cfg = MethodConfig(**{**base, **flash, "transformer_depth": depth})
         model = build_encoder(cfg, device=dev, seed=0)
         batch = stage_batch(cfg, args.batch, dev)
         gen = torch.Generator(device=dev).manual_seed(1)
@@ -255,6 +256,9 @@ def main(argv=None, device=None) -> dict:
     ap.add_argument("--bwd-split", action="store_true",
                     help="the trans loss's forward and its backward alone at "
                          "transformer depths 6/3/1")
+    ap.add_argument("--flash-train", action="store_true",
+                    help="with --bwd-split: the trainable attention kernel (K4) in place of "
+                         "the plain attention path the JAX tool's split takes")
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
     dev = resolve_device(device or args.device)
