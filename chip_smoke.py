@@ -561,8 +561,9 @@ def device_ms(fn, name, reps: int = 10, tries: int = 5) -> float:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        found = [e for e in prof.key_averages() if e.device_time_total > 0 and (
-            name in e.key if name is not None else e.device_type == DeviceType.CUDA)]
+        found = [e for e in prof.key_averages() if e.device_time_total > 0
+                 and not e.is_user_annotation  # the program's spans, mirrored
+                 and (name in e.key if name is not None else e.device_type == DeviceType.CUDA)]
         if found:
             lost = [f"{e.key[:60]} x{e.count}" for e in found if e.count % calls]
             if lost:
@@ -2012,7 +2013,8 @@ def profile_act(fn, tag, details, act_ms, top=12):
         torch.cuda.synchronize()
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.is_user_annotation]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     # the replicate pads the call made, by input shape

@@ -2,7 +2,8 @@
 model held equal to tools/cost_model.py and to its invariants; every stage of
 the JAX profilers has a counterpart or a stated reason; the profilers and
 probes run small on the CPU; the entry points refuse to fall back to the CPU;
-the profiling instrumentation as tests/test_recovery.py holds the JAX one."""
+the profiling instrumentation's gauges and trace (its spans and counters:
+tests/test_torch_tracing.py)."""
 
 import ast
 import importlib.util
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 from voxactb_tpu_torch.tools import cost_model, probe_smem, profile_quick, profile_stages, roofline
-from voxactb_tpu_torch.utils.profiling import StepTimer, device_trace, host_gauges
+from voxactb_tpu_torch.utils.profiling import device_trace, host_gauges
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -193,18 +194,7 @@ def test_entry_points_raise_without_cuda(monkeypatch, entry):
         entry()
 
 
-# -- utils/profiling (tests/test_recovery.py's cases on the port's copy) -------------
-
-
-def test_step_timer():
-    t = StepTimer()
-    with t.time("sample"):
-        pass
-    with t.time("step"):
-        pass
-    s = t.summary()
-    assert "time/sample_s" in s and "time/step_s" in s
-    assert t.last("sample") >= 0
+# -- utils/profiling: host gauges and the device trace -------------------------------
 
 
 def test_host_gauges():
@@ -221,7 +211,7 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
         with device_trace(str(tmp_path), device="cpu") as prof:
             torch.ones(64, 64) @ torch.ones(64, 64)
         assert prof is not None
-    traces = sorted(os.listdir(tmp_path))
+    traces = sorted(f for f in os.listdir(tmp_path) if f.startswith("trace_"))
     assert len(traces) == 2
     events = json.loads((tmp_path / traces[0]).read_text())["traceEvents"]
     assert any("mm" in e.get("name", "") for e in events)

@@ -26,6 +26,7 @@ from voxactb_tpu_torch.config import MethodConfig
 from voxactb_tpu_torch.device import resolve_device
 from voxactb_tpu_torch.optim import state_from_saved, state_to_cpu
 from voxactb_tpu_torch.utils.observation import point_to_pixel_index
+from voxactb_tpu_torch.utils.profiling import count, span
 
 NAME = "QAttentionAgent"
 
@@ -34,6 +35,20 @@ def _with_batch(x, event_ndim: int, dtype=np.float32):
     """Reshape to [1, *event_shape] regardless of incoming batch dims."""
     a = np.asarray(x, dtype)
     return a.reshape((1,) + a.shape[a.ndim - event_ndim:])
+
+
+def _to_host(out: InferOutput) -> dict:
+    """The action's fields as host arrays: one blocking device -> host copy
+    per field, each counted as ``act.d2h_copies``."""
+    host = {}
+    for key, t in (("trans_idx", out.trans_idx), ("rot_grip", out.rot_grip_idx),
+                   ("collision", out.collision_idx), ("att", out.attention_coordinate),
+                   ("cont", out.continuous_action)):
+        count("act.d2h_copies")
+        host[key] = t.cpu().numpy()
+    count("act.d2h_copies")
+    host["front_overflow"] = int(out.front_overflow.sum().item())
+    return host
 
 
 class QAttentionBCAgent(Agent):
@@ -109,15 +124,16 @@ class QAttentionBCAgent(Agent):
     def update(self, step: int, replay_sample: dict) -> dict:
         if not self._training:
             raise RuntimeError("update() needs build(training=True)")
-        batch = {k: v for k, v in replay_sample.items()
-                 if isinstance(v, (np.ndarray, torch.Tensor, list, float, int))}
-        if "scene_bounds" not in batch:
-            batch["scene_bounds"] = self._scene_bounds
-        self._ensure_state()
-        self._state, metrics = self._train_step(self._state, batch, self._generator)
-        self._model_stale = True
-        self._summaries = {f"losses/{k}": v for k, v in metrics.items()}
-        return {"total_loss": metrics["total_loss"]}
+        with span("vx.update", step):
+            batch = {k: v for k, v in replay_sample.items()
+                     if isinstance(v, (np.ndarray, torch.Tensor, list, float, int))}
+            if "scene_bounds" not in batch:
+                batch["scene_bounds"] = self._scene_bounds
+            self._ensure_state()
+            self._state, metrics = self._train_step(self._state, batch, self._generator)
+            self._model_stale = True
+            self._summaries = {f"losses/{k}": v for k, v in metrics.items()}
+            return {"total_loss": metrics["total_loss"]}
 
     # -- inference -----------------------------------------------------------------
 
@@ -125,6 +141,25 @@ class QAttentionBCAgent(Agent):
             which_arm: Optional[str] = None, new_scene_bounds=None,
             dominant_assitive_policy: bool = False, ep_number: int = 0,
             is_real_robot: bool = False) -> ActResult:
+        with span("vx.act", step):
+            with span("vx.act.prep"):
+                inputs = self._act_inputs(observation, which_arm, new_scene_bounds,
+                                          dominant_assitive_policy)
+            with span("vx.act.sync_model"):
+                if self._model is None:
+                    self.build(training=False)
+                self._sync_model()
+            with span("vx.act.infer"):
+                out: InferOutput = self._infer(self._model, *inputs)
+            with span("vx.act.d2h"):
+                host = _to_host(out)
+            with span("vx.act.post"):
+                return self._act_result(out, host, observation, which_arm, is_real_robot)
+
+    def _act_inputs(self, observation: dict, which_arm, new_scene_bounds,
+                    dominant_assitive_policy: bool) -> tuple:
+        """The observation as ``infer``'s host arrays: ``(rgbs, pcds, proprio,
+        lang_goal_emb, lang_token_embs, bounds)``."""
         bounds = (np.asarray(new_scene_bounds, np.float32)
                   if new_scene_bounds is not None else self._scene_bounds).reshape(1, 6)
 
@@ -174,20 +209,12 @@ class QAttentionBCAgent(Agent):
             np.asarray(observation[f"{c}_point_cloud"], np.float32).reshape(
                 1, *np.asarray(observation[f"{c}_point_cloud"]).shape[-3:])
             for c in self._camera_names)
+        return rgbs, pcds, proprio, lang_goal, lang_tok, bounds
 
-        if self._model is None:
-            self.build(training=False)
-        self._sync_model()
-        out: InferOutput = self._infer(self._model, rgbs, pcds, proprio, lang_goal,
-                                       lang_tok, bounds)
-
-        # one device -> host transfer per field of the action
-        trans_idx = out.trans_idx.cpu().numpy()
-        rot_grip = out.rot_grip_idx.cpu().numpy()
-        collision = out.collision_idx.cpu().numpy()
-        att = out.attention_coordinate.cpu().numpy()
-        cont = out.continuous_action.cpu().numpy()
-
+    def _act_result(self, out: InferOutput, host: dict, observation: dict, which_arm,
+                    is_real_robot: bool) -> ActResult:
+        trans_idx, rot_grip = host["trans_idx"], host["rot_grip"]
+        collision, att, cont = host["collision"], host["att"], host["cont"]
         if self._cfg.variant == "one_policy_more_heads":
             head = 0 if which_arm in ("right", "multiarm_right", None) else 1
             trans_idx, rot_grip = trans_idx[head], rot_grip[head]
@@ -212,7 +239,7 @@ class QAttentionBCAgent(Agent):
             "voxel_grid_depth0": out.voxel_grid,
             "q_depth0": out.q_trans,
             "voxel_idx_depth0": trans_idx,
-            "front_overflow": int(out.front_overflow.sum().item()),
+            "front_overflow": host["front_overflow"],
         }
         if is_real_robot:
             return ActResult((cont[0, :3], cont[0, 3:7], cont[0, 7:8]),

@@ -33,6 +33,7 @@ from voxactb_tpu_torch.ops.voxelize import (
     flatten_camera_observations, reciprocal, voxelize)
 from voxactb_tpu_torch.optim import (
     Optimizer, OptState, cosine_hard_restarts_schedule, global_norm)
+from voxactb_tpu_torch.utils.profiling import span
 
 
 def build_encoder(cfg: MethodConfig, low_dim_size: Optional[int] = None, *,
@@ -117,22 +118,28 @@ def fused_front_inputs(cfg: MethodConfig, model: PerceiverVoxelLangEncoder,
     return (d0, ins, kp, gmax), overflow
 
 
-def apply_with_front(cfg: MethodConfig, model, coords, feats, bounds, proprio,
-                     lang_goal_emb, lang_token_embs):
-    """Q-forward dispatch: the fused front kernel where eligible (the dense
-    grid is then never built and ``grid`` is a [B,1,1,1,10] placeholder),
-    else the voxelize path, which returns the real ``[B,N,N,N,10]`` grid (the
-    path to take when rendering voxel grids) and feeds it to the encoder
-    (``pallas_encoder``'s kernel there). Returns ``(out, grid, overflow)``."""
+def front_inputs(cfg: MethodConfig, model, coords, feats, bounds):
+    """The Q-forward's front: the fused front kernel where eligible (the
+    dense grid is then never built and ``grid`` is a [B,1,1,1,10]
+    placeholder), else the voxelize path, which returns the real
+    ``[B,N,N,N,10]`` grid (the path to take when rendering voxel grids) for
+    the encoder (``pallas_encoder``'s kernel there). Returns ``(front, grid,
+    overflow)``, ``front`` None on the voxelize path."""
     b = coords.shape[0]
     if front_eligible(cfg):
         front, overflow = fused_front_inputs(cfg, model, coords, feats, bounds)
         grid = torch.zeros((b, 1, 1, 1, 10), dtype=torch.float32, device=coords.device)
-        out = model(grid, proprio, lang_goal_emb, lang_token_embs, front=front)
-    else:
-        grid = voxelize(coords, feats, bounds, voxel_size=cfg.voxel_size)
-        out = model(grid, proprio, lang_goal_emb, lang_token_embs)
-        overflow = torch.zeros((b,), dtype=torch.int32, device=coords.device)
+        return front, grid, overflow
+    grid = voxelize(coords, feats, bounds, voxel_size=cfg.voxel_size)
+    return None, grid, torch.zeros((b,), dtype=torch.int32, device=coords.device)
+
+
+def apply_with_front(cfg: MethodConfig, model, coords, feats, bounds, proprio,
+                     lang_goal_emb, lang_token_embs):
+    """Q-forward dispatch: ``front_inputs``, then the model. Returns ``(out,
+    grid, overflow)``."""
+    front, grid, overflow = front_inputs(cfg, model, coords, feats, bounds)
+    out = model(grid, proprio, lang_goal_emb, lang_token_embs, front=front)
     return out, grid, overflow
 
 
@@ -188,15 +195,18 @@ def make_infer_fn(cfg: MethodConfig, low_dim_size: Optional[int] = None, *,
     @torch.inference_mode()
     def infer(model, rgbs: Sequence, pcds: Sequence, proprio, lang_goal_emb,
               lang_token_embs, bounds) -> InferOutput:
-        rgbs = [as_tensor(r) for r in rgbs]
-        pcds = [as_tensor(p) for p in pcds]
-        b = pcds[0].shape[0]
-        bounds = torch.broadcast_to(as_tensor(bounds).reshape(-1, 6), (b, 6))
-        coords, feats = flatten_camera_observations(
-            [normalize_rgb(r) for r in rgbs], pcds)
-        out, grid, overflow = apply_with_front(
-            cfg, model, coords, feats, bounds, as_tensor(proprio),
-            as_tensor(lang_goal_emb), as_tensor(lang_token_embs))
+        with span("vx.act.h2d"):
+            rgbs = [as_tensor(r) for r in rgbs]
+            pcds = [as_tensor(p) for p in pcds]
+            b = pcds[0].shape[0]
+            bounds = torch.broadcast_to(as_tensor(bounds).reshape(-1, 6), (b, 6))
+            proprio, lang_goal_emb, lang_token_embs = (
+                as_tensor(proprio), as_tensor(lang_goal_emb), as_tensor(lang_token_embs))
+        with span("vx.act.front"):
+            coords, feats = flatten_camera_observations(
+                [normalize_rgb(r) for r in rgbs], pcds)
+            front, grid, overflow = front_inputs(cfg, model, coords, feats, bounds)
+        out = model(grid, proprio, lang_goal_emb, lang_token_embs, front=front)
 
         def decode(trans, rot_grip, collision):
             t_idx = _flat_argmax_3d(trans)
@@ -209,13 +219,14 @@ def make_infer_fn(cfg: MethodConfig, low_dim_size: Optional[int] = None, *,
             q_soft = torch.softmax(trans.reshape(b, -1), -1).reshape(b, n, n, n)
             return t_idx, rg_idx, c_idx, att, cont, q_soft
 
-        if two_heads:
-            parts = [decode(out[f"trans_{s}"], out[f"rot_grip_{s}"],
-                            out[f"collision_{s}"]) for s in ("right", "left")]
-            stacked = [torch.stack(field) for field in zip(*parts)]
-            return InferOutput(*stacked, voxel_grid=grid, front_overflow=overflow)
-        return InferOutput(*decode(out["trans"], out["rot_grip"], out["collision"]),
-                           voxel_grid=grid, front_overflow=overflow)
+        with span("vx.act.decode"):
+            if two_heads:
+                parts = [decode(out[f"trans_{s}"], out[f"rot_grip_{s}"],
+                                out[f"collision_{s}"]) for s in ("right", "left")]
+                stacked = [torch.stack(field) for field in zip(*parts)]
+                return InferOutput(*stacked, voxel_grid=grid, front_overflow=overflow)
+            return InferOutput(*decode(out["trans"], out["rot_grip"], out["collision"]),
+                               voxel_grid=grid, front_overflow=overflow)
 
     return model, infer
 
@@ -309,7 +320,7 @@ def make_train_step(cfg: MethodConfig, optimizer: Optimizer, camera_names: Seque
             trans_labels_l = batch["trans_action_indicies_left"][:, :3].to(torch.int32)
             rot_grip_labels_l = batch["rot_grip_action_indicies_left"].to(torch.int32)
 
-        with torch.no_grad():
+        with torch.no_grad(), span("vx.update.aug"):
             if cfg.apply_se3:
                 aug = apply_se3_augmentation(
                     generator, pcds, batch["gripper_pose"], rot_grip_labels, bounds,
@@ -326,54 +337,56 @@ def make_train_step(cfg: MethodConfig, optimizer: Optimizer, camera_names: Seque
             coords, feats = flatten_camera_observations(rgbs, pcds)
             grid = voxelize(coords, feats, bounds, voxel_size=n)
 
-        # the dropout seeds are drawn before the (optionally rematerialised)
-        # forward and passed in, so a recomputed forward sees the same masks
-        seeds = model.draw_dropout_seeds(generator)
-        args = (params, grid, batch["low_dim_state"], batch["lang_goal_emb"],
-                batch["lang_token_embs"], seeds, mask_offset)
-        out = checkpoint(forward, *args, use_reentrant=False) if cfg.remat \
-            else forward(*args)
+        with span("vx.update.forward"):
+            # the dropout seeds are drawn before the (optionally rematerialised)
+            # forward and passed in, so a recomputed forward sees the same masks
+            seeds = model.draw_dropout_seeds(generator)
+            args = (params, grid, batch["low_dim_state"], batch["lang_goal_emb"],
+                    batch["lang_token_embs"], seeds, mask_offset)
+            out = checkpoint(forward, *args, use_reentrant=False) if cfg.remat \
+                else forward(*args)
 
-        collision_labels = batch["ignore_collisions"][:, 0]
+            collision_labels = batch["ignore_collisions"][:, 0]
 
-        def head_losses(trans, rot_grip, collision, t_lab, rg_lab):
-            t_lab = t_lab.to(torch.int64)
-            flat_label = (t_lab[:, 0] * n + t_lab[:, 1]) * n + t_lab[:, 2]
-            l_trans = _ce(trans.reshape(b, -1), flat_label)
-            l_rot = sum(_ce(rot_grip[:, i * num_rot:(i + 1) * num_rot], rg_lab[:, i])
-                        for i in range(3))
-            l_grip = _ce(rot_grip[:, 3 * num_rot:], rg_lab[:, 3])
-            l_coll = _ce(collision, collision_labels)
-            return l_trans, l_rot, l_grip, l_coll
+            def head_losses(trans, rot_grip, collision, t_lab, rg_lab):
+                t_lab = t_lab.to(torch.int64)
+                flat_label = (t_lab[:, 0] * n + t_lab[:, 1]) * n + t_lab[:, 2]
+                l_trans = _ce(trans.reshape(b, -1), flat_label)
+                l_rot = sum(_ce(rot_grip[:, i * num_rot:(i + 1) * num_rot], rg_lab[:, i])
+                            for i in range(3))
+                l_grip = _ce(rot_grip[:, 3 * num_rot:], rg_lab[:, 3])
+                l_coll = _ce(collision, collision_labels)
+                return l_trans, l_rot, l_grip, l_coll
 
-        metrics = {}
-        l_arm = 0.0
-        if two_heads:
-            right = head_losses(out["trans_right"], out["rot_grip_right"],
-                                out["collision_right"], trans_labels, rot_grip_labels)
-            left = head_losses(out["trans_left"], out["rot_grip_left"],
-                               out["collision_left"], trans_labels_l, rot_grip_labels_l)
-            l_trans, l_rot, l_grip, l_coll = (r + l for r, l in zip(right, left))
-        else:
-            l_trans, l_rot, l_grip, l_coll = head_losses(
-                out["trans"], out["rot_grip"], out["collision"], trans_labels,
-                rot_grip_labels)
-            if cfg.arm_pred_loss:
-                l_arm = _ce(out["arm"], batch["label"].reshape(b))
-                metrics["arm_loss"] = l_arm.mean()
+            metrics = {}
+            l_arm = 0.0
+            if two_heads:
+                right = head_losses(out["trans_right"], out["rot_grip_right"],
+                                    out["collision_right"], trans_labels, rot_grip_labels)
+                left = head_losses(out["trans_left"], out["rot_grip_left"],
+                                   out["collision_left"], trans_labels_l, rot_grip_labels_l)
+                l_trans, l_rot, l_grip, l_coll = (r + l for r, l in zip(right, left))
+            else:
+                l_trans, l_rot, l_grip, l_coll = head_losses(
+                    out["trans"], out["rot_grip"], out["collision"], trans_labels,
+                    rot_grip_labels)
+                if cfg.arm_pred_loss:
+                    l_arm = _ce(out["arm"], batch["label"].reshape(b))
+                    metrics["arm_loss"] = l_arm.mean()
 
-        total = (l_trans * cfg.trans_loss_weight + l_rot * cfg.rot_loss_weight
-                 + l_grip * cfg.grip_loss_weight + l_coll * cfg.collision_loss_weight
-                 + l_arm * cfg.arm_loss_weight).mean()
-        metrics.update(total_loss=total, trans_loss=l_trans.mean(), rot_loss=l_rot.mean(),
-                       grip_loss=l_grip.mean(), collision_loss=l_coll.mean())
-        return total, metrics
+            total = (l_trans * cfg.trans_loss_weight + l_rot * cfg.rot_loss_weight
+                     + l_grip * cfg.grip_loss_weight + l_coll * cfg.collision_loss_weight
+                     + l_arm * cfg.arm_loss_weight).mean()
+            metrics.update(total_loss=total, trans_loss=l_trans.mean(), rot_loss=l_rot.mean(),
+                           grip_loss=l_grip.mean(), collision_loss=l_coll.mean())
+            return total, metrics
 
     def loss_and_grads(state: TrainState, batch: dict, generator=None, *, rows=None,
                        mask_offset=None):
         """``(metrics, grads)`` of one batch at ``state.params``: the losses as
         0-dim tensors and ``parameter name -> gradient``."""
-        batch = to_device(batch)
+        with span("vx.update.h2d"):
+            batch = to_device(batch)
         b = batch["trans_action_indicies"].shape[0]
         offset, total_b = rows if rows is not None else (0, b)
 
@@ -394,12 +407,13 @@ def make_train_step(cfg: MethodConfig, optimizer: Optimizer, camera_names: Seque
         params = {k: state.params[k].detach().requires_grad_() for k in names}
         total, metrics = loss_fn(params, batch, bounds, generator, rows, batch_bounds,
                                  offset if mask_offset is None else mask_offset)
-        grads = dict(zip(names, torch.autograd.grad(total, [params[k] for k in names])))
+        with span("vx.update.backward"):
+            grads = dict(zip(names, torch.autograd.grad(total, [params[k] for k in names])))
         return {k: v.detach() for k, v in metrics.items()}, grads
 
     def train_step(state: TrainState, batch: dict, generator=None):
         metrics, grads = loss_and_grads(state, batch, generator)
-        with torch.no_grad():
+        with torch.no_grad(), span("vx.update.optim"):
             params, opt_state = optimizer.update(grads, state.opt_state, state.params)
             metrics["grad_norm"] = global_norm(grads)
         return TrainState(state.step + 1, params, opt_state), metrics

@@ -35,6 +35,7 @@ from torch import nn
 from voxactb_tpu_torch.models.blocks import (  # noqa: F401  (gelu_tanh re-exported)
     Conv3D, Conv3DUpsample, Dense, DenseBlock, LayerNorm, gelu_tanh, lrelu,
     softargmax_stats_3d)
+from voxactb_tpu_torch.utils.profiling import span
 
 
 class Attention(nn.Module):
@@ -366,107 +367,111 @@ class PerceiverVoxelLangEncoder(nn.Module):
         spatial = self.voxel_size // self.voxel_patch_stride
         dim = self.input_dim_before_seq
 
-        if front is not None:
-            d0, ins, kp0, gmax0 = front
-            d0, ins = d0.to(dt), ins.to(dt)
-        elif (self.pallas_encoder and not train and self.activation == "lrelu"
-              and dt == torch.bfloat16):
-            from voxactb_tpu_torch.ops.cuda.encoder_stats import encoder_stats
-            from voxactb_tpu_torch.ops.cuda.front_fused import front_patchify
+        with span("vx.qnet.encode"):
+            if front is not None:
+                d0, ins, kp0, gmax0 = front
+                d0, ins = d0.to(dt), ins.to(dt)
+            elif (self.pallas_encoder and not train and self.activation == "lrelu"
+                  and dt == torch.bfloat16):
+                from voxactb_tpu_torch.ops.cuda.encoder_stats import encoder_stats
+                from voxactb_tpu_torch.ops.cuda.front_fused import front_patchify
 
-            # the kernel rounds the grid to bf16 itself
-            d0, kp0, gmax0 = encoder_stats(
-                voxel_grid, self.input_preprocess.kernel_dhwio()[0, 0, 0],
-                self.input_preprocess.bias)
-            if self.patchify.kernel_size == 5 and self.patchify.strides == 5:
-                # the patchify kernel (K1's) on d0 as it is: no padded copy of
-                # d0; bias and lrelu as Conv3D adds them
-                pre = front_patchify(d0, self.patchify.kernel_dhwio())
-                ins = lrelu((pre + self.patchify.bias).to(dt))
+                # the kernel rounds the grid to bf16 itself
+                d0, kp0, gmax0 = encoder_stats(
+                    voxel_grid, self.input_preprocess.kernel_dhwio()[0, 0, 0],
+                    self.input_preprocess.bias)
+                if self.patchify.kernel_size == 5 and self.patchify.strides == 5:
+                    # the patchify kernel (K1's) on d0 as it is: no padded copy of
+                    # d0; bias and lrelu as Conv3D adds them
+                    pre = front_patchify(d0, self.patchify.kernel_dhwio())
+                    ins = lrelu((pre + self.patchify.bias).to(dt))
+                else:
+                    ins = self.patchify(d0)
             else:
+                d0 = self.input_preprocess(voxel_grid.to(dt))
+                kp0, gmax0 = self._stats(d0)
                 ins = self.patchify(d0)
-        else:
-            d0 = self.input_preprocess(voxel_grid.to(dt))
-            kp0, gmax0 = self._stats(d0)
-            ins = self.patchify(d0)
-        feats = [kp0, gmax0]
+            feats = [kp0, gmax0]
 
-        if self.low_dim_size > 0:
-            p = proprio.reshape(b, self.num_proprio, self.low_dim_size)
-            p = self.proprio_preprocess(p.to(dt))
-            p = p.reshape(b, 1, 1, 1, self.num_proprio * self.im_channels).expand(
-                b, spatial, spatial, spatial, self.num_proprio * self.im_channels)
-            ins = torch.cat([ins, p], -1)
-        ins = ins.reshape(b, spatial ** 3, dim)
+            if self.low_dim_size > 0:
+                p = proprio.reshape(b, self.num_proprio, self.low_dim_size)
+                p = self.proprio_preprocess(p.to(dt))
+                p = p.reshape(b, 1, 1, 1, self.num_proprio * self.im_channels).expand(
+                    b, spatial, spatial, spatial, self.num_proprio * self.im_channels)
+                ins = torch.cat([ins, p], -1)
+            ins = ins.reshape(b, spatial ** 3, dim)
 
-        if self.no_language:
-            lang_token_embs = torch.zeros_like(lang_token_embs)
-        lang = self.lang_preprocess(lang_token_embs.to(dt))
-        seq = torch.cat([lang, ins], 1) + self.pos_encoding.to(dt)
+            if self.no_language:
+                lang_token_embs = torch.zeros_like(lang_token_embs)
+            lang = self.lang_preprocess(lang_token_embs.to(dt))
+            seq = torch.cat([lang, ins], 1) + self.pos_encoding.to(dt)
 
-        x = self.latents[None].to(dt).expand(b, self.num_latents, self.latent_dim)
-        for _ in range(self.iterations):
-            x = self.cross_attend(x, seq, train=train, seed=next(seeds),
-                                  batch_offset=batch_offset) + x
-            x = self.cross_ff(x) + x
-            for i in range(self.depth):
-                x = getattr(self, f"self_attn_{i}")(x, train=train, seed=next(seeds),
-                                                    batch_offset=batch_offset) + x
-                x = getattr(self, f"self_ff_{i}")(x) + x
+        with span("vx.qnet.trunk"):
+            x = self.latents[None].to(dt).expand(b, self.num_latents, self.latent_dim)
+            for _ in range(self.iterations):
+                x = self.cross_attend(x, seq, train=train, seed=next(seeds),
+                                      batch_offset=batch_offset) + x
+                x = self.cross_ff(x) + x
+                for i in range(self.depth):
+                    x = getattr(self, f"self_attn_{i}")(x, train=train, seed=next(seeds),
+                                                        batch_offset=batch_offset) + x
+                    x = getattr(self, f"self_ff_{i}")(x) + x
 
-        decoded = self.decoder_cross_attn(seq, x, train=train, seed=next(seeds),
-                                          batch_offset=batch_offset)
-        grid = decoded[:, self.lang_max_seq_len:].reshape(b, spatial, spatial, spatial, dim)
-        kp1, gmax1 = self._stats(grid)
-        feats.extend([kp1, gmax1])
+        with span("vx.qnet.decoder"):
+            decoded = self.decoder_cross_attn(seq, x, train=train, seed=next(seeds),
+                                              batch_offset=batch_offset)
+            grid = decoded[:, self.lang_max_seq_len:].reshape(b, spatial, spatial, spatial, dim)
+            kp1, gmax1 = self._stats(grid)
+            feats.extend([kp1, gmax1])
 
-        heads = ["", "_left"] if self.two_arm_heads else [""]
-        trans = {}
-        tail = self._tail_kernel(train)
-        if tail is not None:
-            tds = [getattr(self, f"trans_decoder{s}") for s in heads]
-            wt = torch.stack([td.kernel_dhwio() for td in tds])
-            bt = torch.cat([td.bias for td in tds])
-            wf, bf = self.final.kernel_dhwio(), self.final.bias
-            if tail == "v3":
-                from voxactb_tpu_torch.ops.cuda.decoder_head_v3 import decoder_head_v3
+            heads = ["", "_left"] if self.two_arm_heads else [""]
+            trans = {}
+            tail = self._tail_kernel(train)
+            if tail is not None:
+                tds = [getattr(self, f"trans_decoder{s}") for s in heads]
+                wt = torch.stack([td.kernel_dhwio() for td in tds])
+                bt = torch.cat([td.bias for td in tds])
+                wf, bf = self.final.kernel_dhwio(), self.final.bias
+                if tail == "v3":
+                    from voxactb_tpu_torch.ops.cuda.decoder_head_v3 import decoder_head_v3
 
-                h, up_kernel, up_bias = self.up0(grid, pre_only=True)
-                trans_all, kp_u, gmax_u = decoder_head_v3(d0, h, up_kernel, up_bias,
-                                                          wf, bf, wt, bt)
+                    h, up_kernel, up_bias = self.up0(grid, pre_only=True)
+                    trans_all, kp_u, gmax_u = decoder_head_v3(d0, h, up_kernel, up_bias,
+                                                              wf, bf, wt, bt)
+                else:
+                    from voxactb_tpu_torch.ops.cuda.decoder_head import decoder_head
+
+                    trans_all, kp_u, gmax_u = decoder_head(d0, self.up0(grid), wf, bf, wt, bt)
+                for i, s in enumerate(heads):
+                    trans[s] = trans_all[..., i:i + 1]
             else:
-                from voxactb_tpu_torch.ops.cuda.decoder_head import decoder_head
+                u0 = self.up0(grid)
+                if self.no_skip_connection:
+                    u = self.final(u0)
+                elif self.no_perceiver:
+                    u = self.final(d0)
+                else:
+                    u = self.final(torch.cat([d0, u0], -1))
+                kp_u, gmax_u = self._stats(u)
+                for s in heads:
+                    # the conv rounds to the compute dtype, then the f32 view
+                    trans[s] = getattr(self, f"trans_decoder{s}")(u).to(torch.float32)
 
-                trans_all, kp_u, gmax_u = decoder_head(d0, self.up0(grid), wf, bf, wt, bt)
-            for i, s in enumerate(heads):
-                trans[s] = trans_all[..., i:i + 1]
-        else:
-            u0 = self.up0(grid)
-            if self.no_skip_connection:
-                u = self.final(u0)
-            elif self.no_perceiver:
-                u = self.final(d0)
-            else:
-                u = self.final(torch.cat([d0, u0], -1))
-            kp_u, gmax_u = self._stats(u)
+        with span("vx.qnet.heads"):
+            cat = torch.cat(feats + [kp_u, gmax_u], 1).to(dt)
+            out = {}
             for s in heads:
-                # the conv rounds to the compute dtype, then the f32 view
-                trans[s] = getattr(self, f"trans_decoder{s}")(u).to(torch.float32)
-
-        cat = torch.cat(feats + [kp_u, gmax_u], 1).to(dt)
-        out = {}
-        for s in heads:
-            h0 = getattr(self, f"dense0{s}")(cat)
-            h1 = getattr(self, f"dense1{s}")(h0)
-            rgc = getattr(self, f"rot_grip_collision_ff{s}")(h1)
-            nc = self.num_collision_classes
-            key = {"": "right", "_left": "left"}[s] if self.two_arm_heads else None
-            names = (("trans", "rot_grip", "collision") if key is None else
-                     (f"trans_{key}", f"rot_grip_{key}", f"collision_{key}"))
-            out[names[0]] = trans[s]
-            out[names[1]] = rgc[:, :-nc].to(torch.float32)
-            out[names[2]] = rgc[:, -nc:].to(torch.float32)
-        if self.arm_pred and not self.two_arm_heads:
-            h2 = self.dense2(cat)
-            out["arm"] = self.arm_ff(h2).to(torch.float32)
-        return out
+                h0 = getattr(self, f"dense0{s}")(cat)
+                h1 = getattr(self, f"dense1{s}")(h0)
+                rgc = getattr(self, f"rot_grip_collision_ff{s}")(h1)
+                nc = self.num_collision_classes
+                key = {"": "right", "_left": "left"}[s] if self.two_arm_heads else None
+                names = (("trans", "rot_grip", "collision") if key is None else
+                         (f"trans_{key}", f"rot_grip_{key}", f"collision_{key}"))
+                out[names[0]] = trans[s]
+                out[names[1]] = rgc[:, :-nc].to(torch.float32)
+                out[names[2]] = rgc[:, -nc:].to(torch.float32)
+            if self.arm_pred and not self.two_arm_heads:
+                h2 = self.dense2(cat)
+                out["arm"] = self.arm_ff(h2).to(torch.float32)
+            return out

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from voxactb_tpu_torch.device import resolve_device
+from voxactb_tpu_torch.utils.profiling import count, span
 
 # batches the worker may hold ready: one being consumed, one being copied
 PREFETCH_DEPTH = 2
@@ -72,7 +73,12 @@ class PrefetchIterator:
     def _worker(self):
         try:
             while not self._stop.is_set():
-                item = self._transfer(self._sample_fn())
+                # off the profiler's timeline: where a profiler records this
+                # thread, its spans would name the consumer's idle gaps
+                with span("vx.feed.sample", timeline=False):
+                    batch = self._sample_fn()
+                with span("vx.feed.stage", timeline=False):
+                    item = self._transfer(batch)
                 while not self._stop.is_set():
                     try:
                         self._queue.put(item, timeout=0.2)
@@ -89,22 +95,28 @@ class PrefetchIterator:
         return self
 
     def __next__(self) -> Dict[str, torch.Tensor]:
-        while True:
-            if self._error is not None:
-                raise RuntimeError("replay prefetch worker failed") \
-                    from self._error
-            if self._stop.is_set():
-                raise StopIteration
-            try:
-                batch, ready = self._queue.get(timeout=1.0)
-            except queue.Empty:
-                continue
-            if ready is not None:
-                current = torch.cuda.current_stream(self._device)
-                current.wait_event(ready)
-                for t in batch.values():
-                    t.record_stream(current)
-            return batch
+        """The next batch; a call that finds no batch ready counts as a stall
+        (``feed.stalls``, beside ``feed.batches``)."""
+        with span("vx.feed.next"):
+            if self._queue.empty():
+                count("feed.stalls")
+            while True:
+                if self._error is not None:
+                    raise RuntimeError("replay prefetch worker failed") \
+                        from self._error
+                if self._stop.is_set():
+                    raise StopIteration
+                try:
+                    batch, ready = self._queue.get(timeout=1.0)
+                except queue.Empty:
+                    continue
+                if ready is not None:
+                    current = torch.cuda.current_stream(self._device)
+                    current.wait_event(ready)
+                    for t in batch.values():
+                        t.record_stream(current)
+                count("feed.batches")
+                return batch
 
     def close(self):
         self._stop.set()

@@ -11,13 +11,26 @@ steps.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import shutil
-from typing import Iterable
+import time
+from typing import Dict, Iterable
 
-from voxactb_tpu_torch.agents.base import Agent
+from voxactb_tpu_torch.agents.base import Agent, ScalarSummary
 from voxactb_tpu_torch.utils.loggers import LogWriter
+
+
+def interval_scalars(spans, steps: int, wall_s: float) -> Dict[str, float]:
+    """What a log interval of ``steps`` steps did: its wall seconds per step
+    between the two log points' syncs, and from its collection of spans the
+    update's and the feed's host milliseconds per step and the feed's
+    stalls."""
+    return {"time/step_s": wall_s / steps,
+            "time/update_ms": 1e3 * spans.seconds("vx.update") / steps,
+            "time/feed_next_ms": 1e3 * spans.seconds("vx.feed.next") / steps,
+            "feed/stalls": float(spans.counts.get("feed.stalls", 0))}
 
 
 class OfflineTrainRunner:
@@ -89,31 +102,34 @@ class OfflineTrainRunner:
             # drop them so the CSV holds exactly one run's trajectory
             self._writer.truncate_from(start)
 
-        from voxactb_tpu_torch.utils.profiling import StepTimer, host_gauges
+        from voxactb_tpu_torch.utils.profiling import collect, host_gauges
 
-        timer = StepTimer()
         data_iter = iter(self._dataset)
-        for i in range(start, self._training_iterations):
-            with timer.time("sample"):
+        mark = None  # (step, time) at the last log point's sync
+        with contextlib.ExitStack() as interval:
+            spans = interval.enter_context(collect())
+            for i in range(start, self._training_iterations):
                 batch = next(data_iter)
-            with timer.time("step"):
                 result = self._agent.update(i, batch)
 
-            if i % self._log_freq == 0:
-                # a 0-dim tensor on the device: float() syncs and copies it
-                loss = float(result["total_loss"])
-                logging.info(
-                    "train step %d | loss %.4f | sample %.3fs | step %.3fs",
-                    i, loss, timer.last("sample"), timer.last("step"),
-                )
-                summaries = self._agent.update_summaries()
-                for name, value in {**timer.summary(), **host_gauges()}.items():
-                    self._writer.add_scalar(i, f"train/{name}", value)
-                self._writer.add_summaries(i, summaries)
+                if i % self._log_freq == 0:
+                    # a 0-dim tensor on the device: float() syncs and copies it
+                    loss = float(result["total_loss"])
+                    now = time.perf_counter()
+                    scalars = host_gauges()
+                    if mark is not None:
+                        scalars.update(interval_scalars(spans, i - mark[0], now - mark[1]))
+                    logging.info("train step %d | loss %.4f | step %.3fs", i, loss,
+                                 scalars.get("time/step_s", float("nan")))
+                    self._writer.add_summaries(i, self._agent.update_summaries() + [
+                        ScalarSummary(f"train/{k}", v) for k, v in scalars.items()])
+                    mark = (i, now)
+                    interval.close()
+                    spans = interval.enter_context(collect())
 
-            if self._save_freq > 0 and i % self._save_freq == 0 and \
-                    self._weightsdir is not None:
-                self._save_model(i)
+                if self._save_freq > 0 and i % self._save_freq == 0 and \
+                        self._weightsdir is not None:
+                    self._save_model(i)
 
         if self._weightsdir is not None:
             self._save_model(self._training_iterations - 1)

@@ -100,7 +100,8 @@ def seconds(fn, dev: torch.device) -> float:
 def device_ms(fn, calls: int, dev: torch.device):
     """Device milliseconds per call of ``fn`` over ``calls`` calls: the sum of
     every device-side activity (kernels, copies, memsets) that
-    ``torch.profiler`` records, per call; None off the card."""
+    ``torch.profiler`` records, per call (the program's spans mirrored on the
+    device's timeline left out); None off the card."""
     if dev.type != "cuda":
         return None
     from torch.autograd import DeviceType
@@ -112,7 +113,7 @@ def device_ms(fn, calls: int, dev: torch.device):
             fn()
         torch.cuda.synchronize(dev)
     total = sum(e.device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
+                if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
     return total / calls / 1e3
 
 
@@ -140,7 +141,8 @@ def kernel_ms(fn, calls: int, dev: torch.device, names) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize(dev)
-    events = [e for e in prof.key_averages() if e.device_time_total > 0]
+    events = [e for e in prof.key_averages()
+              if e.device_time_total > 0 and not e.is_user_annotation]
     return {n: sum(e.device_time_total for e in events if n in e.key) / calls / 1e3
             for n in names}
 

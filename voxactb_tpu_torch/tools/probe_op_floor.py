@@ -71,6 +71,14 @@ def act_config(n: int, **overrides):
     return MethodConfig(**kw)
 
 
+def _outermost_op(event) -> bool:
+    """Whether ``event`` is an op with no op above it (spans do not count)."""
+    parent = event.cpu_parent
+    while parent is not None and parent.is_user_annotation:
+        parent = parent.cpu_parent
+    return parent is None and not event.is_user_annotation
+
+
 def count_act_ops(dev: torch.device, n: int = 100, img: int = 128, **overrides) -> dict:
     """Launches of one act (after a warming one) and the twelve most frequent."""
     from torch.autograd import DeviceType
@@ -90,12 +98,14 @@ def count_act_ops(dev: torch.device, n: int = 100, img: int = 128, **overrides) 
         infer(model, *obs)
         if cuda:
             torch.cuda.synchronize(dev)
+    # the program's spans are user annotations, on the device's timeline too:
+    # neither is an op
     if cuda:
         kinds = Counter({e.key: e.count for e in prof.key_averages()
-                         if e.device_type == DeviceType.CUDA and e.device_time_total > 0})
+                         if e.device_type == DeviceType.CUDA and e.device_time_total > 0
+                         and not e.is_user_annotation})
     else:
-        top = [e for e in prof.events() if e.cpu_parent is None]
-        kinds = Counter(e.name for e in top)
+        kinds = Counter(e.name for e in prof.events() if _outermost_op(e))
     return {"entry_ops": sum(kinds.values()), "by_kind": dict(kinds.most_common(12))}
 
 

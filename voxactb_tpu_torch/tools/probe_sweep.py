@@ -104,7 +104,8 @@ def _profiled_ms(fn, name: str, calls: int = 50) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    found = [e for e in prof.key_averages() if name in e.key and e.device_time_total > 0]
+    found = [e for e in prof.key_averages()
+             if name in e.key and e.device_time_total > 0 and not e.is_user_annotation]
     if not found:
         raise SystemExit(f"the profiler recorded no {name} kernel")
     return sum(e.device_time_total for e in found) / sum(e.count for e in found) / 1e3
