@@ -66,10 +66,12 @@ Phases:
                variant at 50^3 (``dense_two_head50``) and of ``pallas_stats``
                alone at 100^3 (``stats100``, three stats launches).
   6. vlm_episode - the per-episode VLM crop path at full width on a synthetic
-               512^2 front RGB-D frame: OWL-ViT B/32 detect, SAM ViT-H (SAM
-               attention on its global and windowed blocks) and its mask
-               decoder, against the plain path at bf16 and f32 under the act's
-               rule; the crop point and radius, the scene bounds, and a 25-act
+               512^2 front RGB-D frame, through the detector the benchmark
+               builds (``TorchOwlVitSamDetector.build``, its pass replayed as
+               CUDA graphs): OWL-ViT B/32 detect, SAM ViT-H (SAM attention on
+               its global and windowed blocks, 32 launches per replayed pass)
+               and its mask decoder, the replayed pass's outputs against the
+               plain path at bf16 and f32 under the act's rule; the crop point and radius, the scene bounds, and a 25-act
                dual-policy episode at 50^3 inside them with CLIP-text language;
                stage times and one profiled VLM pass.
   7. train50 - ``make_train_step`` at full width (50^3 crop, batch 8, bf16,
@@ -149,8 +151,8 @@ Phases:
                in-memory state's under the train rule (fresh moments must fail
                it), one K4 update of the restored agent;
                ``TorchOwlVitSamDetector.from_pretrained`` and an f32 VLM pass,
-               the bf16 towers from the same trees held by SAM's rule and one
-               VLM pass with K7; CLIP RN50 at 224^2; the sim's language from
+               the bf16 detector from the same files (its replayed pass held
+               by SAM's rule) and one VLM pass with K7; CLIP RN50 at 224^2; the sim's language from
                the checkpoint's text tower. The files are removed at the end.
  13. baselines - the paper's comparison policies, plain PyTorch (no TPU
                kernel computes their functions; every launch count stays 0):
@@ -2317,35 +2319,40 @@ def vlm_frame(rng):
     return rgb, pcd
 
 
-def vlm_towers(seed):
-    """The kernel path's towers in bf16 with weights from ``seed``, on the card:
-    K7 on SAM's global and windowed blocks. The weights are drawn on the card
-    from a generator there (ViT-H's 637M draws take minutes on the host). The
-    rel-pos tables, zero at initialisation, get seeded values so that the bias
-    path does work."""
+def vlm_detector(seed):
+    """The kernel path's detector in bf16 with weights from ``seed``, on the
+    card, built as the benchmark's cell builds it
+    (``TorchOwlVitSamDetector.build``): K7 on SAM's global and windowed
+    blocks, the pass replayed as CUDA graphs after its first call. The
+    weights are drawn on the card from a generator there (ViT-H's 637M draws
+    take minutes on the host). The rel-pos tables, zero at initialisation,
+    get seeded values so that the bias path does work."""
     import torch
-    from voxactb_tpu_torch.models.clip_text import ClipTextEncoder
-    from voxactb_tpu_torch.models.owlvit import OwlViTDetector, OwlViTImageEncoder
-    from voxactb_tpu_torch.models.sam_decoder import SamMaskDecoder
-    from voxactb_tpu_torch.models.sam_encoder import SamImageEncoder
+    from voxactb_tpu_torch.vlm.pipeline import TorchOwlVitSamDetector
 
     g = torch.Generator(device=DEVICE).manual_seed(seed)
-    bf = torch.bfloat16
     t = VLM_TOWERS
-    with torch.device(DEVICE):
-        towers = dict(
-            owl=OwlViTDetector(t["owl_embed"], OwlViTImageEncoder(**t["owl"], dtype=bf,
-                                                                  generator=g),
-                               dtype=bf, generator=g),
-            owl_text=ClipTextEncoder(**t["owl_text"], dtype=bf, generator=g),
-            sam=SamImageEncoder(**t["sam"], fused_global=True, fused_windowed=True,
-                                dtype=bf, generator=g),
-            decoder=SamMaskDecoder(**t["decoder"], dtype=bf, generator=g))
+    spec = dict(owl={**t["owl"], "embed_dim": t["owl_embed"]}, owl_text=t["owl_text"],
+                sam=t["sam"], decoder=t["decoder"])
+    detector = TorchOwlVitSamDetector.build(
+        spec, dtype=torch.bfloat16, fused_global=True, fused_windowed=True, device=DEVICE,
+        generator=g, score_threshold=0.0)
     with torch.no_grad():
-        for name, p in towers["sam"].named_parameters():
+        for name, p in detector._sam.encoder.named_parameters():
             if "rel_pos" in name:
                 p.normal_(0.0, 0.1, generator=g)
-    return {k: m.eval() for k, m in towers.items()}
+    return detector
+
+
+def served_pass(vlm, rgb, pcd, task):
+    """Two VLM passes on one frame (the first captures the detector's
+    graphs, the second replays them) -> the replayed pass's box and its SAM
+    outputs (embedding, mask logits, IoU), as ``SamSegmenter.predict``
+    returns them."""
+    vlm.get_target_object_world_coords(rgb, pcd, task)
+    vlm.get_target_object_world_coords(rgb, pcd, task)
+    last = vlm._detector.last
+    return last["box"], last["score"], (last["embedding"], last["masks"], last["iou"])
 
 
 def sam_plain(seg, dtype):
@@ -2365,9 +2372,11 @@ def sam_plain(seg, dtype):
     return SamSegmenter(enc.eval(), dec.eval(), VLM_TOWERS["sam"]["img_size"])
 
 
-def compare_sam_paths(seg, rgb, box, details, tag="vlm_episode"):
-    """SAM on the kernel path against the plain path at bf16 on the same
-    weights, frame and box, under the act's rule: each group (the image
+def compare_sam_paths(seg, rgb, box, served, details, tag="vlm_episode"):
+    """SAM's outputs ``served`` by the detector's replayed pass (its
+    embedding, mask logits and IoU predictions for ``box``) against the
+    plain path at bf16 on the same weights, frame and box, under the act's
+    rule: each group (the image
     embedding, the mask logits, the IoU predictions) within twice the plain
     bf16 path's distance from the plain f32 path. The chosen mask may differ
     only where the plain path's top-two IoU gap is within that tolerance, and
@@ -2375,7 +2384,7 @@ def compare_sam_paths(seg, rgb, box, details, tag="vlm_episode"):
     import torch
 
     groups = ("embedding", "mask_logits", "iou")
-    outs = {"kernel": seg.predict(rgb, box)}
+    outs = {"kernel": served}
     for dtype in ("bfloat16", "float32"):
         ref = sam_plain(seg, dtype)
         outs[dtype] = ref.predict(rgb, box)
@@ -2429,28 +2438,25 @@ def vlm_episode(rng, details, timings, n_acts=25):
     import torch
     from voxactb_tpu_torch.agents.qattention_agent import QAttentionBCAgent
     from voxactb_tpu_torch.models.clip_text import ClipLanguageEncoder
-    from voxactb_tpu_torch.models.owlvit import OwlViTPipeline
-    from voxactb_tpu_torch.models.sam_decoder import SamSegmenter
     from voxactb_tpu_torch.models.sam_encoder import preprocess_image
     from voxactb_tpu_torch.ops import cuda as kernels
     from voxactb_tpu_torch.ops.geometry import scene_bounds_from_crop
-    from voxactb_tpu_torch.vlm.pipeline import VLM, TorchOwlVitSamDetector, task_queries
+    from voxactb_tpu_torch.vlm.pipeline import VLM, task_queries
 
     t0 = time.perf_counter()
-    towers = vlm_towers(seed=3)
+    detector = vlm_detector(seed=3)
+    owl, seg = detector._owl, detector._sam
     lang = ClipLanguageEncoder(dtype=torch.bfloat16, device=DEVICE, seed=4)
-    owl = OwlViTPipeline(towers["owl"], towers["owl_text"],
-                         img_size=VLM_TOWERS["owl"]["img_size"])
-    seg = SamSegmenter(towers["sam"], towers["decoder"], VLM_TOWERS["sam"]["img_size"])
-    detector = TorchOwlVitSamDetector(owl, seg, score_threshold=0.0)
     vlm = VLM(detector)
-    log(f"[vlm_episode] towers built in {time.perf_counter() - t0:.1f} s")
+    log(f"[vlm_episode] detector built in {time.perf_counter() - t0:.1f} s")
     rgb, pcd = vlm_frame(np.random.default_rng(0))
 
-    # the kernel path against the plain path, on the box OWL-ViT proposes
-    query_emb = owl.embed_queries([task_queries(VLM_TASK)])
-    box, score = owl.detect(rgb, query_emb, score_threshold=0.0)
-    compare_sam_paths(seg, rgb, box, details)
+    # the replayed pass against the plain path, on the box OWL-ViT proposed
+    query = task_queries(VLM_TASK)
+    query_emb = owl.embed_queries([query])
+    box, score, served = served_pass(vlm, rgb, pcd, VLM_TASK)
+    compare_sam_paths(seg, rgb, box, served, details)
+    del served
 
     cams = ["wrist", "wrist2"]
     acting = QAttentionBCAgent(act_config(50, which_arm="dominant", arm_pred_loss=True,
@@ -2518,9 +2524,15 @@ def vlm_episode(rng, details, timings, n_acts=25):
         torch.cuda.synchronize()
         episode_ms = (time.perf_counter() - t_ep) * 1e3
         counts = kernels.launch_counts()
+        # a replay calls no Python entry; the shapes are read off the same
+        # programs run eagerly
+        replayed_shapes = dict(shapes)
+        detector.mask_logits(rgb, query, _eager=True)
+        torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    expect(counts["sam_attention"] == sam["depth"] and shapes == want,
-           f"vlm_episode: K7 launches {counts['sam_attention']} ({shapes}) in one VLM pass")
+    expect(counts["sam_attention"] == sam["depth"] and not replayed_shapes and shapes == want,
+           f"vlm_episode: K7 launches {counts['sam_attention']} in one replayed VLM pass "
+           f"(entries called {replayed_shapes}), eagerly by shape {shapes}")
     lo, hi = bounds[:3], bounds[3:]
     for a in actions:
         expect(a.shape == (9,) and bool(np.isfinite(a).all()), "vlm_episode action")
@@ -2562,7 +2574,7 @@ def vlm_episode(rng, details, timings, n_acts=25):
         f"ms, VLM pass {vlm_pass_ms:.3f} ms; {statistics.median(walls):.3f} ms/act median; "
         f"episode (VLM pass + {n_acts} acts) {episode_ms:.3f} ms; peak memory "
         f"{peak_gb:.2f} GiB; launches: {counts}, K7 by shape {shapes}")
-    del towers, seg, owl, detector, vlm, acting, stabilizing, lang, emb, x
+    del seg, owl, detector, vlm, acting, stabilizing, lang, emb, x
     torch.cuda.empty_cache()
     return dict(acts=n_acts, vlm_passes=1, launches=counts, sam_attention_by_shape=shapes)
 
@@ -4397,15 +4409,12 @@ def weights_resume(rng, details, timings):
 
 def weights_vlm(details, timings):
     """``TorchOwlVitSamDetector.from_pretrained`` on the files and one f32 VLM
-    pass; the bf16 kernel-path towers from the same imported trees held by
-    ``compare_sam_paths``' rule, one VLM pass on them with K7; one CLIP RN50
+    pass; the bf16 kernel-path detector from the same files
+    (``from_pretrained(compute_dtype=bfloat16)``), its replayed pass held by
+    ``compare_sam_paths``' rule, one VLM pass on it with K7; one CLIP RN50
     forward; the sim's language encoder on the checkpoint."""
     import torch
     from voxactb_tpu_torch.models.clip_image import preprocess_clip_image
-    from voxactb_tpu_torch.models.owlvit import OwlViTPipeline, load_hf_owlvit_weights
-    from voxactb_tpu_torch.models.sam_decoder import (
-        SamSegmenter, load_torch_sam_decoder_weights)
-    from voxactb_tpu_torch.models.sam_encoder import load_torch_sam_weights
     from voxactb_tpu_torch.ops import cuda as kernels
     from voxactb_tpu_torch.sim import environment as sim_env
     from voxactb_tpu_torch.utils import pretrained as P
@@ -4429,27 +4438,18 @@ def weights_vlm(details, timings):
     del vlm, f32
     torch.cuda.empty_cache()
 
-    # the bf16 towers of the kernel path, from the same imported trees
-    bf = torch.bfloat16
+    # the bf16 detector of the kernel path, from the same files
     t0 = time.perf_counter()
-    det_tree, text_tree = load_hf_owlvit_weights(P._torch_state_dict(P.find_weights("owlvit")))
-    sd = P._torch_state_dict(P.find_weights("sam_vit_h"))
-    enc_tree, dec_tree = load_torch_sam_weights(sd), load_torch_sam_decoder_weights(sd)
-    del sd
-    owl, text = P.owlvit_from(det_tree, text_tree, DEVICE, dtype=bf)
-    sam = P.sam_encoder_from(enc_tree, "vit_h", DEVICE, dtype=bf, fused_global=True,
-                             fused_windowed=True)
-    decoder = P.sam_decoder_from(dec_tree, DEVICE, dtype=bf, **VLM_TOWERS["decoder"])
+    bf16 = TorchOwlVitSamDetector.from_pretrained("vit_h", score_threshold=0.0, device=DEVICE,
+                                                  compute_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     build_bf16_s = time.perf_counter() - t0
-    del det_tree, text_tree, enc_tree, dec_tree
-    pipeline = OwlViTPipeline(owl, text, img_size=owl.image_encoder.img_size)
-    seg = SamSegmenter(sam, decoder, VLM_TOWERS["sam"]["img_size"])
+    pipeline, seg = bf16._owl, bf16._sam
     query = pipeline.embed_queries([task_queries(VLM_TASK)])
-    box, score = pipeline.detect(rgb, query, score_threshold=0.0)
-    compare_sam_paths(seg, rgb, box, details, tag="weights_vlm")
-    vlm = VLM(TorchOwlVitSamDetector(pipeline, seg, score_threshold=0.0))
-    vlm.get_target_object_world_coords(rgb, pcd, VLM_TASK)  # warm
+    vlm = VLM(bf16)
+    box, score, served = served_pass(vlm, rgb, pcd, VLM_TASK)
+    compare_sam_paths(seg, rgb, box, served, details, tag="weights_vlm")
+    del served
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -4477,7 +4477,7 @@ def weights_vlm(details, timings):
                      owl_detect_ms=time_ms(lambda: pipeline.detect(rgb, query, 0.0), reps=5),
                      sam_decode_ms=time_ms(lambda: seg.decoder(emb, box_t), reps=5))
     del emb, x
-    del vlm, seg, pipeline, owl, text, sam, decoder
+    del vlm, seg, pipeline, bf16
     torch.cuda.empty_cache()
 
     # CLIP RN50's image tower at 224^2, and the sim's language on the checkpoint
@@ -5511,21 +5511,16 @@ def real_robot(acting, stabilizing, lang, rng, stages):
     the front camera (K7), dual-policy acts (K1-K3); the commands the
     controllers received, parsed back, are the actions after the extrinsics
     and the gimbal guard (without the extrinsics they must differ)."""
-    from voxactb_tpu_torch.models.owlvit import OwlViTPipeline
-    from voxactb_tpu_torch.models.sam_decoder import SamSegmenter
     from voxactb_tpu_torch.ops import cuda as kernels
     from voxactb_tpu_torch.ops.geometry import scene_bounds_from_crop
     from voxactb_tpu_torch.realrobot.robot import (
         BimanualURRobot, URRobot, axis_angle_to_quat)
     from voxactb_tpu_torch.realrobot.robot_env import RealRobotEnv, guard_gimbal_lock
     from voxactb_tpu_torch.runners.rollout import RolloutGenerator
-    from voxactb_tpu_torch.vlm.pipeline import VLM, TorchOwlVitSamDetector
+    from voxactb_tpu_torch.vlm.pipeline import VLM
 
     t0 = time.perf_counter()
-    towers = vlm_towers(seed=22)
-    owl = OwlViTPipeline(towers["owl"], towers["owl_text"], img_size=VLM_TOWERS["owl"]["img_size"])
-    seg = SamSegmenter(towers["sam"], towers["decoder"], VLM_TOWERS["sam"]["img_size"])
-    vlm = VLM(TorchOwlVitSamDetector(owl, seg, score_threshold=0.0))
+    vlm = VLM(vlm_detector(seed=22))
     stages["vlm_build_s"] = time.perf_counter() - t0
     extrinsics = {}
     for arm, offset in REAL_EXTRINSICS.items():
@@ -5588,7 +5583,7 @@ def real_robot(acting, stabilizing, lang, rng, stages):
             robots.close()
         for c in controllers.values():
             c.stop()
-    del towers, owl, seg, vlm
+    del vlm
     return dict(launches=counts, steps=len(ts), lines={a: len(v) for a, v in got.items()},
                 crop=[float(v) for v in crop], crop_radius=float(env.auto_crop_radius()),
                 parsed_pos_err=worst_pos, parsed_quat_err=worst_quat), ts, bounds

@@ -548,11 +548,11 @@ def test_sim_language_encoder_raises_on_an_unreadable_checkpoint(tmp_path, monke
 def test_from_pretrained(tmp_path, monkeypatch, hf):
     """``TorchOwlVitSamDetector.from_pretrained`` raises ``FileNotFoundError``
     without the files; with them (a tiny OWL-ViT and a tiny segment-anything
-    file, the SAM sizes made tiny) its towers hold the imported weights."""
-    from voxactb_tpu_torch.models import sam_encoder
+    file) its towers, at the widths read off the files, hold the imported
+    weights."""
     from voxactb_tpu_torch.models.owlvit import load_hf_owlvit_weights
     from voxactb_tpu_torch.models.sam_decoder import load_torch_sam_decoder_weights
-    from voxactb_tpu_torch.utils import pretrained as P
+    from voxactb_tpu_torch.models.sam_encoder import load_torch_sam_weights
     from voxactb_tpu_torch.vlm.pipeline import TorchOwlVitSamDetector
     from voxactb_tpu_torch.weights import tensors_to_flax_tree
 
@@ -563,16 +563,10 @@ def test_from_pretrained(tmp_path, monkeypatch, hf):
     torch.save(owl.state_dict(), tmp_path / "owlvit_base.pt")
     fb = _hf_to_facebook(sam.state_dict())
     torch.save(fb, tmp_path / "sam_vit_h.pth")
-    tiny = dict(img_size=64, embed_dim=32, depth=4, num_heads=2, window_size=2,
-                global_attn_indexes=(1, 3), out_chans=32)
-    monkeypatch.setattr(sam_encoder, "sam_vit_h", lambda **kw: sam_encoder.SamImageEncoder(
-        **tiny, **kw))
-    decoder_from = P.sam_decoder_from
-    monkeypatch.setattr(P, "sam_decoder_from", lambda params, device=None: decoder_from(
-        params, device, dim=32, heads=2, mlp_dim=64))
     det = TorchOwlVitSamDetector.from_pretrained("vit_h", device="cpu")
     want_det, want_text = load_hf_owlvit_weights(owl.state_dict())
     for module, tree in ((det._owl._det, want_det), (det._owl._text, want_text),
+                         (det._sam.encoder, load_torch_sam_weights(fb)),
                          (det._sam.decoder, load_torch_sam_decoder_weights(fb))):
         _same_tree(tensors_to_flax_tree(module, dict(module.named_parameters())), tree)
     assert det._owl._img_size == 32

@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from voxactb_tpu_torch.device import resolve_device
-from voxactb_tpu_torch.models.blocks import Dense, LayerNorm, sigmoid
+from voxactb_tpu_torch.models.blocks import Dense, LayerNorm, rounded, sigmoid
 from voxactb_tpu_torch.models.torch_port import make_port_helpers
 
 CONTEXT_LENGTH = 77
@@ -28,7 +28,7 @@ VOCAB_SIZE = 49408
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """``x * sigmoid(1.702 x)`` op by op in ``x``'s dtype, 1.702 rounded to it."""
-    return x * sigmoid(torch.tensor(1.702, dtype=x.dtype, device=x.device) * x)
+    return x * sigmoid(rounded(1.702, x.dtype) * x)
 
 
 def attend_logits(logits: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

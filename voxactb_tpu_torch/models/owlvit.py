@@ -20,11 +20,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from voxactb_tpu_torch.models.blocks import Conv2D, Dense, LayerNorm, gelu_erf, sigmoid
+from voxactb_tpu_torch.models.blocks import Conv2D, Dense, LayerNorm, gelu_erf, rounded, sigmoid
 from voxactb_tpu_torch.models.clip_text import (
     ClipTextEncoder, attend, merge_heads, quick_gelu, split_heads)
 from voxactb_tpu_torch.models.torch_port import make_port_helpers
 from voxactb_tpu_torch.ops.resize import resize_linear
+from voxactb_tpu_torch.utils.profiling import count
 
 
 class ViTBlock(nn.Module):
@@ -42,8 +43,7 @@ class ViTBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         q, k, v = (split_heads(a, self.heads)
                    for a in self.qkv(self.ln1(x)).chunk(3, dim=-1))
-        scale = torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype, device=q.device)
-        x = x + self.proj(merge_heads(attend(q * scale, k, v)))
+        x = x + self.proj(merge_heads(attend(q * rounded(q.shape[-1] ** -0.5, q.dtype), k, v)))
         return x + self.fc2(quick_gelu(self.fc1(self.ln2(x))))
 
 
@@ -83,8 +83,7 @@ class OwlViTImageEncoder(nn.Module):
 
 
 def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
-    return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True)
-                + torch.tensor(1e-6, dtype=x.dtype, device=x.device))
+    return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + rounded(1e-6, x.dtype))
 
 
 class OwlViTDetector(nn.Module):
@@ -245,21 +244,39 @@ class OwlViTPipeline:
             sent, _ = self._text(tokens)
         return sent
 
-    def detect(self, rgb: np.ndarray, text_embeds, score_threshold: float = 0.1):
-        """-> (box_xyxy in source pixels, score) for the best query match."""
-        h, w = rgb.shape[:2]
-        dev = self.device
-        x = torch.as_tensor(np.asarray(rgb), dtype=torch.float32, device=dev)[None] / 255.0
-        x = resize_linear(x, (1, self._img_size, self._img_size, 3))
+    def predict_frame(self, frame: torch.Tensor, text_embeds: torch.Tensor):
+        """A frame ``[H, W, 3]`` (0-255, f32) and query embeddings ``[Q, E]``
+        on the device -> (class logits ``[T, Q]``, boxes ``[T, 4]`` cxcywh in
+        [0, 1]) of the frame's patches, f32; no copy from the host."""
+        x = resize_linear(frame[None] / 255.0, (1, self._img_size, self._img_size, 3))
         with torch.inference_mode():
-            logits, boxes = self._det(x, torch.as_tensor(text_embeds, device=dev))
-        probs = sigmoid(logits[0]).cpu().numpy()  # [T, Q]
+            logits, boxes = self._det(x, text_embeds)
+        return logits[0], boxes[0]
+
+    @staticmethod
+    def choose(logits: torch.Tensor, boxes: torch.Tensor, frame_hw,
+               score_threshold: float = 0.1):
+        """``predict_frame``'s outputs -> (box_xyxy in the frame's pixels,
+        score, patch) of the best query match; two copies to the host."""
+        h, w = frame_hw
+        probs = sigmoid(logits).cpu().numpy()  # [T, Q]
+        count("vlm.d2h_copies")
         best = np.unravel_index(np.argmax(probs), probs.shape)
         score = float(probs[best])
         if score < score_threshold:
             raise ValueError(f"no detection above {score_threshold} "
                              f"(best {score:.3f})")
-        cx, cy, bw, bh = boxes[0, best[0]].cpu().numpy()
+        cx, cy, bw, bh = boxes[best[0]].cpu().numpy()
+        count("vlm.d2h_copies")
         box = np.array([(cx - bw / 2) * w, (cy - bh / 2) * h,
                         (cx + bw / 2) * w, (cy + bh / 2) * h])
-        return np.clip(box, 0, [w, h, w, h]), score
+        return np.clip(box, 0, [w, h, w, h]), score, int(best[0])
+
+    def detect(self, rgb: np.ndarray, text_embeds, score_threshold: float = 0.1):
+        """-> (box_xyxy in source pixels, score) for the best query match."""
+        dev = self.device
+        frame = torch.as_tensor(np.asarray(rgb), dtype=torch.float32, device=dev)
+        box, score, _ = self.choose(
+            *self.predict_frame(frame, torch.as_tensor(text_embeds, device=dev)),
+            rgb.shape[:2], score_threshold)
+        return box, score

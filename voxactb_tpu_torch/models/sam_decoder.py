@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from voxactb_tpu_torch.models.blocks import (
-    ConvTranspose2D, Dense, LayerNorm, gelu_erf, sigmoid)
+    ConvTranspose2D, Dense, LayerNorm, gelu_erf, rounded, sigmoid)
 from voxactb_tpu_torch.models.clip_text import attend, merge_heads, split_heads
 from voxactb_tpu_torch.models.torch_port import make_port_helpers
 from voxactb_tpu_torch.ops.resize import resize_linear
@@ -87,8 +87,7 @@ class _Attn(nn.Module):
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         qh, kh, vh = (split_heads(proj(t), self.heads)
                       for proj, t in ((self.q, q), (self.k, k), (self.v, v)))
-        scale = torch.tensor(qh.shape[-1] ** -0.5, dtype=qh.dtype, device=qh.device)
-        return self.out(merge_heads(attend(qh * scale, kh, vh)))
+        return self.out(merge_heads(attend(qh * rounded(qh.shape[-1] ** -0.5, qh.dtype), kh, vh)))
 
 
 class TwoWayBlock(nn.Module):
@@ -311,26 +310,50 @@ class SamSegmenter:
     def device(self) -> torch.device:
         return next(self.encoder.parameters()).device
 
+    def embed(self, rgb: np.ndarray) -> torch.Tensor:
+        """The frame's image embedding ``[1, g, g, 256]``, f32 on the device."""
+        frame = torch.as_tensor(np.asarray(rgb), dtype=torch.float32, device=self.device)
+        return self.embed_frame(frame)
+
+    def embed_frame(self, frame: torch.Tensor) -> torch.Tensor:
+        """``embed`` of a frame ``[H, W, 3]`` (0-255, f32) on the device."""
+        from voxactb_tpu_torch.models.sam_encoder import normalize_frame
+
+        with torch.inference_mode():
+            return self.encoder(normalize_frame(frame, self._img_size))
+
+    def box_array(self, box_xyxy, frame_hw) -> np.ndarray:
+        """A box in the frame's pixels -> the decoder's ``[1, 4]`` normalised
+        box over the padded square (f32, on the host)."""
+        scale = self._img_size / max(frame_hw)
+        # +0.5 shifts the corner to the pixel center (SamPromptEncoder._embed_boxes)
+        return ((np.asarray(box_xyxy, np.float32) * scale + 0.5) / self._img_size)[None]
+
+    def decode(self, embedding: torch.Tensor, box: torch.Tensor):
+        """-> (mask logits ``[1, M, 4g, 4g]`` over the padded square, IoU
+        predictions ``[1, M]``), f32 on the device; ``box`` as ``box_array``'s."""
+        with torch.inference_mode():
+            return self.decoder(embedding, box)
+
     def predict(self, rgb: np.ndarray, box_xyxy):
         """-> (image embedding ``[1, g, g, 256]``, mask logits ``[1, M, 4g, 4g]``
         over the padded square, IoU predictions ``[1, M]``), f32 on the device."""
-        from voxactb_tpu_torch.models.sam_encoder import preprocess_image
-
-        h, w = rgb.shape[:2]
-        scale = self._img_size / max(h, w)
-        # +0.5 shifts the corner to the pixel center (SamPromptEncoder._embed_boxes)
-        box = (np.asarray(box_xyxy, np.float32) * scale + 0.5) / self._img_size
-        with torch.inference_mode():
-            emb = self.encoder(preprocess_image(rgb, self._img_size, self.device))
-            masks, iou = self.decoder(emb, torch.as_tensor(box[None], device=self.device))
+        box = torch.as_tensor(self.box_array(box_xyxy, rgb.shape[:2]), device=self.device)
+        emb = self.embed(rgb)
+        masks, iou = self.decode(emb, box)
         return emb, masks, iou
 
-    def mask_logits(self, masks: torch.Tensor, frame_hw, index: int) -> torch.Tensor:
-        """Mask ``index`` of ``predict``'s logits with the padding cropped away,
-        resized to the ``(H, W)`` frame: ``[H, W]`` f32."""
+    def mask_logits(self, masks: torch.Tensor, frame_hw, index) -> torch.Tensor:
+        """Mask ``index`` (an int, or a one-element long tensor on the device,
+        read there without a copy to the host) of ``predict``'s logits with
+        the padding cropped away, resized to the ``(H, W)`` frame: ``[H, W]``
+        f32."""
         h, w = frame_hw
         scale = self._img_size / max(h, w)
-        m = masks[0, index]
+        if isinstance(index, torch.Tensor):
+            m = torch.index_select(masks[0], 0, index.reshape(1))[0]
+        else:
+            m = masks[0, index]
         mg = m.shape[0]
         ch = max(1, int(round(h * scale / self._img_size * mg)))
         cw = max(1, int(round(w * scale / self._img_size * mg)))

@@ -19,6 +19,7 @@ formulation (``ops/sam_attention``), which is also K7's plain version.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -26,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from voxactb_tpu_torch.models.blocks import Conv2D, Dense, LayerNorm, gelu_erf
+from voxactb_tpu_torch.models.blocks import Conv2D, Dense, LayerNorm, gelu_erf, rounded
 from voxactb_tpu_torch.models.torch_port import make_port_helpers
 from voxactb_tpu_torch.ops.resize import resize_linear
 
@@ -87,7 +88,7 @@ class WindowAttention(nn.Module):
             rel_h_term = x.new_zeros(b * heads, h * w, h, dtype=f32)
             rel_w_term = x.new_zeros(b * heads, h * w, w, dtype=f32)
         # q * scale rounds to the compute dtype before the logits
-        scale = torch.tensor(hd ** -0.5, dtype=q.dtype, device=q.device)
+        scale = rounded(hd ** -0.5, q.dtype)
         flat = lambda t: t.reshape(b * heads, h * w, hd)
         fused = self.fused_global and self.use_rel_pos and self.dtype == torch.bfloat16
         attention = global_rel_attention if fused else global_rel_attention_plain
@@ -219,13 +220,24 @@ def preprocess_image(rgb: np.ndarray, img_size: int = 1024, device=None) -> torc
     """uint8 RGB ``[H, W, 3]`` -> normalised, resized (longest side to
     ``img_size``) and zero-padded ``[1, img_size, img_size, 3]`` f32 on
     ``device``."""
-    h, w = rgb.shape[:2]
+    return normalize_frame(torch.as_tensor(np.asarray(rgb), dtype=torch.float32,
+                                           device=device), img_size)
+
+
+@functools.lru_cache(maxsize=None)
+def _pixel_stats(device: torch.device):
+    return (torch.as_tensor(SAM_PIXEL_MEAN, device=device),
+            torch.as_tensor(SAM_PIXEL_STD, device=device))
+
+
+def normalize_frame(frame: torch.Tensor, img_size: int = 1024) -> torch.Tensor:
+    """``preprocess_image`` of a frame ``[H, W, 3]`` (0-255, f32) already on
+    its device; after a device's first call, no copy from the host."""
+    h, w = frame.shape[:2]
     scale = img_size / max(h, w)
     nh, nw = int(round(h * scale)), int(round(w * scale))
-    x = torch.as_tensor(np.asarray(rgb), dtype=torch.float32, device=device)
-    x = resize_linear(x, (nh, nw, 3))
-    x = (x - torch.as_tensor(SAM_PIXEL_MEAN, device=device)) \
-        / torch.as_tensor(SAM_PIXEL_STD, device=device)
+    mean, std = _pixel_stats(frame.device)
+    x = (resize_linear(frame, (nh, nw, 3)) - mean) / std
     out = x.new_zeros(img_size, img_size, 3)
     out[:nh, :nw] = x
     return out[None]

@@ -147,14 +147,6 @@ def sam_encoder_from(params, size: str = "vit_h", device=None, **kw):
     return _loaded(lambda: getattr(se, _SAM_SIZES[size])(**kw), params, device)
 
 
-def sam_decoder_from(params, device=None, **kw):
-    """``SamMaskDecoder`` (its defaults, ``kw`` as its arguments) loaded from a
-    SAM decoder tree."""
-    from voxactb_tpu_torch.models.sam_decoder import SamMaskDecoder
-
-    return _loaded(lambda: SamMaskDecoder(**kw), params, device)
-
-
 def load_sam_encoder(size: str = "vit_h", path: Optional[str] = None, device=None):
     """(SamImageEncoder of the requested size, ported params), or None."""
     path = path or find_weights(f"sam_{size}")

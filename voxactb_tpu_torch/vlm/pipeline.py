@@ -6,16 +6,28 @@ points whose voxel-downsampled centroid becomes the crop point, and the crop
 radius is auto-derived from the object's extent plus 5cm padding.
 
 - ``crop_point_from_mask``: the geometry half (mask + cloud -> centroid +
-  radius), host-only, copied from the JAX package;
+  radius) on the host, copied from the JAX package; ``crop_stats_on_device``
+  + ``crop_from_stats`` compute the same from a mask's logits where they
+  lie, with one copy to the host;
 - ``Detector`` protocol: anything producing a boolean object mask from an RGB
   frame: ``TorchOwlVitSamDetector`` (the port's OWL-ViT + SAM towers on the
   card), ``ColorDetector``, ``MaskLocalizer`` / ``GroundTruthLocalizer``;
 - ``VLM``: the user-facing class with the reference's entry point
-  ``get_target_object_world_coords``.
+  ``get_target_object_world_coords``. With a detector that keeps its mask's
+  logits on the device (``mask_logits``) the geometry runs there too.
 
-``TorchOwlVitSamDetector.from_pretrained`` builds the towers from local
-checkpoints (``utils/pretrained``). The transformers-based
-``OwlVitSamDetector`` is not ported: the card has no transformers.
+``TorchOwlVitSamDetector.build`` makes the towers at given widths, compute
+dtype and K7 flags, from a flat ``name -> tensor`` dict or a generator;
+``from_pretrained`` builds through it from local checkpoints
+(``utils/pretrained``). The transformers-based ``OwlVitSamDetector`` is not
+ported: the card has no transformers.
+
+Spans and counters (``utils/profiling``): ``vx.vlm`` per pass, inside it
+``vx.vlm.owl`` (detection and its copies), ``vx.vlm.sam.encode``
+(preprocess, image encoder), ``vx.vlm.sam.decode`` (prompt, mask decoder,
+the IoU choice), ``vx.vlm.crop`` (the geometry, enqueued) and
+``vx.vlm.d2h`` (its one copy); counters ``vlm.d2h_copies`` (each blocking
+copy to the host) and ``vlm.mask_pixels`` (the chosen mask's area).
 """
 
 from __future__ import annotations
@@ -23,6 +35,9 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Protocol, Tuple
 
 import numpy as np
+import torch
+
+from voxactb_tpu_torch.utils.profiling import count, span
 
 # per-task text queries (vlm.py:146-151)
 TASK_QUERIES: Dict[str, str] = {
@@ -76,9 +91,12 @@ def crop_point_from_mask(
     if len(pts) == 0:
         raise ValueError("empty object mask — detector found nothing")
     pts = voxel_downsample(pts, downsample_voxel)
+    return _crop(pts.mean(0), pts.max(0) - pts.min(0), task_name)
 
-    center = pts.mean(0)
-    extents = pts.max(0) - pts.min(0)
+
+def _crop(center: np.ndarray, extents: np.ndarray, task_name: str) -> Tuple[np.ndarray, float]:
+    """The crop point and radius from the downsampled object's centroid and
+    extents (f32)."""
     if task_name == "open_jar" and extents[:2].max() > JAR_MAX_PLAUSIBLE_DIM:
         # detector latched onto something jar-sized-ly implausible: fall back
         # to the fixed workspace-center crop point, exactly like the
@@ -90,37 +108,203 @@ def crop_point_from_mask(
     return center.astype(np.float32), radius
 
 
+def chosen_mask(logits: torch.Tensor) -> torch.Tensor:
+    """A mask's logits -> its pixels (logit > 0); where none is positive,
+    the pixels at its largest logit, the best guess (as ``ColorDetector``
+    keeps the closest colour), with no copy to the host."""
+    mask = logits > 0
+    return torch.where(mask.any(), mask, logits >= logits.max())
+
+
+def crop_stats_on_device(logits: torch.Tensor, cloud: torch.Tensor,
+                         downsample_voxel: float = 0.01) -> torch.Tensor:
+    """``crop_point_from_mask``'s work on the device, without a copy to the
+    host: the chosen mask (``chosen_mask``) of ``logits`` ``[H, W]`` over
+    ``cloud`` ``[H, W, 3]`` f32 -> ``[8]`` f32: the downsampled object's
+    centroid (3) and extents (3), the mask's area and its finite points'
+    count. As ``voxel_downsample``: keys ``floor(p / voxel)`` in f32, each
+    occupied voxel's mean summed in float64 in the points' order (stable
+    sorts by key), cast to f32; the centroid is their mean."""
+    f32, f64 = torch.float32, torch.float64
+    mask = chosen_mask(logits).reshape(-1)
+    pts = cloud.reshape(-1, 3).to(f32)
+    valid = mask & torch.isfinite(pts).all(-1)
+    # constants filled on the device: a copy from pageable memory would wait for the stream
+    voxel = torch.full((), downsample_voxel, dtype=f32, device=pts.device)
+    zero = torch.zeros((), dtype=f32, device=pts.device)
+    keys = torch.floor(torch.where(valid[:, None], pts, zero) / voxel).to(torch.int64)
+    # lexicographic (invalid last, x, y, z), stable: each voxel's points keep their order
+    order = torch.arange(len(pts), device=pts.device)
+    for col in (keys[:, 2], keys[:, 1], keys[:, 0], (~valid).to(torch.int64)):
+        order = order[torch.argsort(col[order], stable=True)]
+    k, v = keys[order], valid[order]
+    new = torch.ones_like(v)
+    new[1:] = (k[1:] != k[:-1]).any(-1)
+    starts = new & v
+    group = torch.cumsum(starts.to(torch.int64), 0) - 1
+    group = group.clamp(min=0)
+    p = torch.where(v[:, None], pts[order], zero).to(f64)
+    sums = torch.zeros((len(pts), 3), dtype=f64, device=pts.device).index_add_(0, group, p)
+    counts = torch.zeros(len(pts), dtype=f64, device=pts.device).index_add_(0, group, v.to(f64))
+    occupied = counts > 0
+    means = (sums / counts.clamp(min=1.0)[:, None]).to(f32)
+    n = occupied.sum()
+    center = (torch.where(occupied[:, None], means, zero).to(f64).sum(0)
+              / n.clamp(min=1).to(f64)).to(f32)
+    inf = torch.full((), float("inf"), dtype=f32, device=pts.device)
+    hi = torch.where(occupied[:, None], means, -inf).amax(0)
+    lo = torch.where(occupied[:, None], means, inf).amin(0)
+    return torch.cat([center, hi - lo, mask.sum().to(f32)[None], valid.sum().to(f32)[None]])
+
+
+def crop_from_stats(stats: np.ndarray, task_name: str = "") -> Tuple[np.ndarray, float]:
+    """``crop_stats_on_device``'s ``[8]`` on the host -> (crop point [3],
+    radius), as ``crop_point_from_mask`` gives them; raises on a mask with
+    no finite point."""
+    stats = np.asarray(stats, np.float32)
+    if stats[7] == 0:
+        raise ValueError("empty object mask — detector found nothing")
+    return _crop(stats[:3].copy(), stats[3:6].copy(), task_name)
+
+
 class Detector(Protocol):
     def __call__(self, rgb: np.ndarray, query: str) -> np.ndarray:
         """RGB [H,W,3] uint8 + text query -> boolean mask [H,W]."""
+
+
+def build_towers(spec: Dict[str, dict], *, dtype: torch.dtype = torch.float32,
+                 fused_global: bool = False, fused_windowed: bool = False, device=None,
+                 params: Optional[Dict[str, torch.Tensor]] = None,
+                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.nn.Module]:
+    """The detector's four towers at ``spec``'s widths, in eval mode:
+    ``owl`` (``OwlViTDetector``: ``spec["owl"]`` is ``OwlViTImageEncoder``'s
+    arguments and ``embed_dim``), ``owl_text`` (``ClipTextEncoder``), ``sam``
+    (``SamImageEncoder``) and ``decoder`` (``SamMaskDecoder``), each group
+    its constructor's arguments; ``dtype`` the compute dtype, the K7 flags
+    as ``SamImageEncoder``'s. Weights from ``params`` (``"<tower>.<name>"``
+    -> tensor, the towers' ``state_dict`` names; the modules take the
+    tensors themselves, no copy) or else drawn from ``generator`` at each
+    module's initialisation on ``device``."""
+    from voxactb_tpu_torch.device import resolve_device
+    from voxactb_tpu_torch.models.clip_text import ClipTextEncoder
+    from voxactb_tpu_torch.models.owlvit import OwlViTDetector, OwlViTImageEncoder
+    from voxactb_tpu_torch.models.sam_decoder import SamMaskDecoder
+    from voxactb_tpu_torch.models.sam_encoder import SamImageEncoder
+
+    def make(g):
+        owl = dict(spec["owl"])
+        embed = owl.pop("embed_dim")
+        return {"owl": OwlViTDetector(embed, OwlViTImageEncoder(**owl, dtype=dtype, generator=g),
+                                      dtype=dtype, generator=g),
+                "owl_text": ClipTextEncoder(**spec["owl_text"], dtype=dtype, generator=g),
+                "sam": SamImageEncoder(**spec["sam"], fused_global=fused_global,
+                                       fused_windowed=fused_windowed, dtype=dtype, generator=g),
+                "decoder": SamMaskDecoder(**spec["decoder"], dtype=dtype, generator=g)}
+
+    if params is None:
+        with torch.device(resolve_device(device)):
+            towers = make(generator)
+    else:
+        with torch.device("meta"):
+            towers = make(None)
+        for name, module in towers.items():
+            prefix = name + "."
+            module.load_state_dict({k[len(prefix):]: v for k, v in params.items()
+                                    if k.startswith(prefix)}, strict=True, assign=True)
+    return {k: m.eval() for k, m in towers.items()}
+
+
+def spec_from_trees(det_tree, text_tree, sam_tree, decoder_tree) -> Dict[str, dict]:
+    """``build_towers``' spec read off imported flax trees (OWL-ViT's
+    detector and text tower, SAM's image encoder and mask decoder). Widths
+    that no shape shows take the published values: OWL-ViT's heads of 64,
+    the mask decoder's 8 heads."""
+    vp = det_tree["params"]["image_encoder"]
+    dim = vp["cls_token"].shape[-1]
+    patch = vp["patch_embed"]["kernel"].shape[0]
+    tp = text_tree["params"]
+    width = tp["positional_embedding"].shape[1]
+    sp = sam_tree["params"]
+    g, sam_patch = sp["pos_embed"].shape[1], sp["patch_embed"]["kernel"].shape[0]
+    blocks = sorted((int(k.split("_")[1]) for k in sp if k.startswith("block_")))
+    rel = {i: sp[f"block_{i}"]["attn"]["rel_pos_h"].shape for i in blocks}
+    windowed = [(n + 1) // 2 for n, _ in rel.values() if n != 2 * g - 1]
+    dp = decoder_tree["params"]
+    return {
+        "owl": dict(img_size=int(round((vp["pos_embed"].shape[1] - 1) ** 0.5)) * patch,
+                    patch=patch, dim=dim, depth=sum(k.startswith("block_") for k in vp),
+                    heads=max(1, dim // 64),
+                    embed_dim=tp["text_projection"].shape[1]),
+        "owl_text": dict(vocab_size=tp["token_embedding"].shape[0],
+                         context_length=tp["positional_embedding"].shape[0], width=width,
+                         heads=max(1, width // 64),
+                         layers=sum(k.startswith("resblock_") for k in tp),
+                         embed_dim=tp["text_projection"].shape[1]),
+        "sam": dict(img_size=g * sam_patch, patch_size=sam_patch,
+                    embed_dim=sp["pos_embed"].shape[-1], depth=len(blocks),
+                    num_heads=sp["pos_embed"].shape[-1] // rel[blocks[0]][1],
+                    window_size=windowed[0] if windowed else g,
+                    global_attn_indexes=tuple(i for i in blocks if rel[i][0] == 2 * g - 1),
+                    out_chans=sp["neck_conv1"]["kernel"].shape[-1]),
+        "decoder": dict(dim=dp["iou_token"].shape[-1], heads=8,
+                        depth=sum(k.startswith("block_") for k in dp),
+                        num_masks=dp["mask_tokens"].shape[0],
+                        mlp_dim=dp["block_0"]["Dense_0"]["kernel"].shape[1]),
+    }
 
 
 class TorchOwlVitSamDetector:
     """OWL-ViT box proposal + SAM box-prompted mask on the port's towers
     (``models/owlvit.py``, ``models/sam_encoder.py`` + ``sam_decoder.py``),
     the counterpart of the JAX package's ``JaxOwlVitSamDetector``. The query
-    embeddings are computed once per query and cached."""
+    embeddings are computed once per query and cached. ``last`` holds the
+    newest pass's device outputs (OWL's logits, the box and its patch,
+    SAM's embedding, mask logits, IoU predictions and chosen index, the
+    chosen mask's logits over the frame), for inspection."""
 
     def __init__(self, owl_pipeline, sam_segmenter, score_threshold: float = 0.1):
         self._owl = owl_pipeline
         self._sam = sam_segmenter
         self._threshold = score_threshold
         self._query_cache = {}
+        # on a CUDA device, the pass's programs replay as CUDA graphs (vlm/graphs.py)
+        self._pass = {}  # (frame size, query shape) -> buffers and programs
+        self.last: Dict[str, object] = {}
+
+    @classmethod
+    def build(cls, spec: Dict[str, dict], *, dtype: torch.dtype = torch.float32,
+              fused_global: bool = False, fused_windowed: bool = False, device=None,
+              params: Optional[Dict[str, torch.Tensor]] = None,
+              generator: Optional[torch.Generator] = None, score_threshold: float = 0.1):
+        """The detector at ``spec``'s widths (see ``build_towers``): the
+        compute ``dtype`` and K7's flags (K7 runs at bf16 on a CUDA device),
+        weights from ``params`` or ``generator``."""
+        t = build_towers(spec, dtype=dtype, fused_global=fused_global,
+                         fused_windowed=fused_windowed, device=device, params=params,
+                         generator=generator)
+        from voxactb_tpu_torch.models.owlvit import OwlViTPipeline
+        from voxactb_tpu_torch.models.sam_decoder import SamSegmenter
+
+        return cls(OwlViTPipeline(t["owl"], t["owl_text"], img_size=spec["owl"]["img_size"]),
+                   SamSegmenter(t["sam"], t["decoder"], spec["sam"]["img_size"]),
+                   score_threshold)
 
     @classmethod
     def from_pretrained(cls, sam_size: str = "vit_h", score_threshold: float = 0.1,
-                        device=None):
+                        device=None, compute_dtype: torch.dtype = torch.float32):
         """Build from local checkpoints (``utils/pretrained``:
         ``$VOXACTB_WEIGHTS_DIR`` with ``owlvit_base.pt`` and
-        ``sam_{size}.pth``): f32 towers at the checkpoints' dims on ``device``
-        (CUDA unless the caller passes ``"cpu"``). Raises
+        ``sam_{size}.pth``) through ``build``: towers at the checkpoints'
+        widths in ``compute_dtype`` (K7 in every SAM block at bf16) on
+        ``device`` (CUDA unless the caller passes ``"cpu"``). Raises
         ``FileNotFoundError`` when weights are absent; callers fall back to
         ``MaskLocalizer`` / ``GroundTruthLocalizer``."""
-        from voxactb_tpu_torch.models.owlvit import OwlViTPipeline, load_hf_owlvit_weights
-        from voxactb_tpu_torch.models.sam_decoder import (
-            SamSegmenter, load_torch_sam_decoder_weights)
+        from voxactb_tpu_torch.device import resolve_device
+        from voxactb_tpu_torch.models.owlvit import load_hf_owlvit_weights
+        from voxactb_tpu_torch.models.sam_decoder import load_torch_sam_decoder_weights
         from voxactb_tpu_torch.models.sam_encoder import load_torch_sam_weights
         from voxactb_tpu_torch.utils import pretrained
+        from voxactb_tpu_torch.weights import flax_tree_to_tensors
 
         owl_path = pretrained.find_weights("owlvit")
         sam_path = pretrained.find_weights(f"sam_{sam_size}")
@@ -128,20 +312,83 @@ class TorchOwlVitSamDetector:
             raise FileNotFoundError(
                 f"no OWL-ViT / SAM checkpoints under {pretrained.weights_dir()} (need "
                 f"owlvit_base.pt and sam_{sam_size}.pth)")
-        det, text = pretrained.owlvit_from(
-            *load_hf_owlvit_weights(pretrained._torch_state_dict(owl_path)), device)
+        det, text = load_hf_owlvit_weights(pretrained._torch_state_dict(owl_path))
         sd = pretrained._torch_state_dict(sam_path)  # read once for both towers
-        encoder = pretrained.sam_encoder_from(load_torch_sam_weights(sd), sam_size, device)
-        decoder = pretrained.sam_decoder_from(load_torch_sam_decoder_weights(sd), device)
+        trees = {"owl": det, "owl_text": text, "sam": load_torch_sam_weights(sd),
+                 "decoder": load_torch_sam_decoder_weights(sd)}
         del sd
-        pipeline = OwlViTPipeline(det, text, img_size=det.image_encoder.img_size)
-        return cls(pipeline, SamSegmenter(encoder, decoder), score_threshold)
+        spec = spec_from_trees(*trees.values())
+        dev = resolve_device(device)
+        params = {}
+        for name, module in build_towers(spec, device="meta", params=None).items():
+            params.update({f"{name}.{k}": v.to(dev)
+                           for k, v in flax_tree_to_tensors(module, trees[name]).items()})
+        return cls.build(spec, dtype=compute_dtype, fused_global=True, fused_windowed=True,
+                         params=params, score_threshold=score_threshold)
 
-    def __call__(self, rgb: np.ndarray, query: str) -> np.ndarray:
+    def mask_logits(self, rgb: np.ndarray, query: str, *, _eager: bool = False) -> torch.Tensor:
+        """The chosen mask's logits over the frame, ``[H, W]`` f32 on the
+        device: OWL-ViT's best box for ``query`` (its two copies to the
+        host), SAM's masks for it, the one of highest predicted IoU, chosen
+        on the device. ``_eager`` (tests): the programs run eagerly, with no
+        CUDA graph."""
+        frame_hw = rgb.shape[:2]
         if query not in self._query_cache:
             self._query_cache[query] = self._owl.embed_queries([query])
-        box, _score = self._owl.detect(rgb, self._query_cache[query], self._threshold)
-        return self._sam.segment_box(rgb, box)
+        queries = self._query_cache[query]
+        frame, query_in, prompt, *programs = self._programs(frame_hw, queries)
+        owl, encode, decode = (p.eager if _eager else p for p in programs)
+        with span("vx.vlm.owl"):
+            frame.copy_(torch.from_numpy(np.ascontiguousarray(rgb)))
+            query_in.copy_(queries)
+            logits, boxes = owl()
+            box, score, patch = self._owl.choose(logits, boxes, frame_hw, self._threshold)
+        with span("vx.vlm.sam.encode"):
+            prompt.copy_(torch.from_numpy(self._sam.box_array(box, frame_hw)))
+            (embedding,) = encode()
+        with span("vx.vlm.sam.decode"):
+            masks, iou, index, chosen = decode()
+        self.last = dict(owl_logits=logits, box=box, score=score, patch=patch,
+                         embedding=embedding, masks=masks, iou=iou, index=index,
+                         mask_logits=chosen)
+        return chosen
+
+    def _programs(self, frame_hw, queries: torch.Tensor):
+        """The pass's input buffers and its three programs (``vlm/graphs``)
+        for this frame size and query count, made on the first pass that
+        needs them: the frame, the query embeddings and the box prompt in,
+        OWL-ViT's logits and boxes, SAM's embedding (kept in a buffer the
+        decoder reads), the decoder's masks, IoU, choice and chosen mask
+        out."""
+        from voxactb_tpu_torch.vlm.graphs import Program
+
+        key = (tuple(frame_hw), tuple(queries.shape))
+        if key not in self._pass:
+            dev, f32 = self._sam.device, torch.float32
+            frame = torch.zeros((*frame_hw, 3), dtype=f32, device=dev)
+            query = torch.zeros(queries.shape, dtype=f32, device=dev)
+            prompt = torch.zeros((1, 4), dtype=f32, device=dev)
+            enc = self._sam.encoder
+            g = enc.pos_embed.shape[1]
+            embedding = torch.zeros((1, g, g, enc.neck_conv1.weight.shape[0]), dtype=f32,
+                                    device=dev)
+
+            def decode(e, p):
+                masks, iou = self._sam.decode(e, p)
+                index = torch.argmax(iou[0])
+                return masks, iou, index, self._sam.mask_logits(masks, frame_hw, index)
+
+            self._pass[key] = (
+                frame, query, prompt,
+                Program(self._owl.predict_frame, (frame, query)),
+                Program(lambda f: (embedding.copy_(self._sam.embed_frame(f)),), (frame,)),
+                Program(decode, (embedding, prompt)))
+        return self._pass[key]
+
+    def __call__(self, rgb: np.ndarray, query: str) -> np.ndarray:
+        mask = chosen_mask(self.mask_logits(rgb, query)).cpu().numpy()
+        count("vlm.d2h_copies")
+        return mask
 
 
 _BASE = {
@@ -226,6 +473,22 @@ class VLM:
         query: Optional[str] = None,
     ) -> Tuple[np.ndarray, float]:
         query = query or task_queries(task_name)
-        mask = self._detector(rgb, query)
-        return crop_point_from_mask(
-            mask, point_cloud, task_name, self._downsample_voxel)
+        with span("vx.vlm"):
+            on_device = getattr(self._detector, "mask_logits", None)
+            if on_device is None:
+                mask = self._detector(rgb, query)
+                with span("vx.vlm.crop"):
+                    return crop_point_from_mask(
+                        mask, point_cloud, task_name, self._downsample_voxel)
+            # the cloud goes up first, while the device is idle: a copy from
+            # pageable memory waits for the stream
+            cloud = torch.as_tensor(np.asarray(point_cloud, np.float32),
+                                    device=self._detector._sam.device)
+            logits = on_device(rgb, query)
+            with span("vx.vlm.crop"):
+                stats = crop_stats_on_device(logits, cloud, self._downsample_voxel)
+            with span("vx.vlm.d2h"):
+                stats = stats.cpu().numpy()
+            count("vlm.d2h_copies")
+            count("vlm.mask_pixels", int(stats[6]))
+            return crop_from_stats(stats, task_name)
