@@ -22,7 +22,9 @@ Phases:
                bits bit-equal, planted faults must fail; SAM
                attention at ViT-H's global and windowed shapes, a ragged
                case that planted faults must fail, head dim 64 and an odd
-               grid width; the dense-grid encoder
+               grid width; SAM's block kernels at ViT-H's windowed and global
+               layouts (bias + GELU, bias + residual and q/k/v bit-equal,
+               LayerNorm and the rel terms within f32 sum-order bounds), timed per encoder pass; the dense-grid encoder
                front at 50^3 and 100^3, batch 1 and 8, the stats kernel at the
                dense paths' five shapes and the inline-upsample tail at 50^3
                and 100^3 and with two heads, each within 2^-7 of its largest
@@ -69,9 +71,12 @@ Phases:
                512^2 front RGB-D frame, through the detector the benchmark
                builds (``TorchOwlVitSamDetector.build``, its pass replayed as
                CUDA graphs): OWL-ViT B/32 detect, SAM ViT-H (SAM attention on
-               its global and windowed blocks, 32 launches per replayed pass)
-               and its mask decoder, the replayed pass's outputs against the
-               plain path at bf16 and f32 under the act's rule; the crop point and radius, the scene bounds, and a 25-act
+               its global and windowed blocks, 32 launches per replayed pass;
+               its block kernels 64 norms, 32 qkv splits, 32 bias + GELU and
+               64 bias + residual passes per replayed pass) and its mask
+               decoder, the replayed pass's outputs against the plain path
+               (eager blocks, no SAM attention) at bf16 and f32 under the
+               act's rule; the crop point and radius, the scene bounds, and a 25-act
                dual-policy episode at 50^3 inside them with CLIP-text language;
                stage times and one profiled VLM pass.
   7. train50 - ``make_train_step`` at full width (50^3 crop, batch 8, bf16,
@@ -1538,6 +1543,152 @@ def check_sam_attention(rng, details):
     return rows
 
 
+def bf16_ulps(a, b):
+    """Distance in bf16 ulps of two bf16 tensors (as ordered integers)."""
+    import torch
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -32768 - i, i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def bf16_ulp(v):
+    """One bf16 ulp at the magnitude of ``v`` (f32)."""
+    import torch
+
+    _, e = torch.frexp(v.abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(v), e - 8)
+
+
+# ViT-H's block: width, heads, head dim, MLP width, grid, window, and how many
+# launches of each window layout one encoder pass makes (28 windowed blocks, 4
+# global; ln_rows twice a block, the second on the grid's rows)
+SAM_BLOCK = dict(c=1280, heads=16, hd=80, hidden=5120, grid=64, window=14)
+SAM_BLOCK_PER_PASS = {"ln_rows.windowed": 28, "ln_rows.global": 36,
+                      "qkv_split.windowed": 28, "qkv_split.global": 4, "bias_gelu": 32,
+                      "bias_residual.windowed": 28, "bias_residual.global": 36}
+
+
+def check_sam_block(rng, details):
+    """SAM's block kernels (``ops/cuda/sam_block``) against their plain
+    versions at ViT-H's shapes, windowed (the 70^2-padded layout) and global:
+    ``bias_gelu``, ``bias_residual`` and q/k/v bit-equal; LayerNorm within
+    ``ln_rows_bound`` plus one bf16 ulp (the shares one ulp and more apart
+    logged); the rel terms within 2 * hd *
+    2^-24 * sum |q||t|; two launches bit-equal. Each timed (wrapper call and
+    device time) beside its bound and the plain version (wrapper call and
+    device time of all its launches), and summed per encoder pass."""
+    import torch
+    from voxactb_tpu_torch.models.blocks import rounded
+    from voxactb_tpu_torch.ops.cuda import sam_block as B
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(int(rng.integers(1 << 30)))
+    c, heads, hd, hidden, grid, ws = (SAM_BLOCK[k] for k in
+                                      ("c", "heads", "hd", "hidden", "grid", "window"))
+
+    def bf(shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+
+    tokens = grid * grid
+    x = bf((1, grid, grid, c), 3.0) + 0.5
+    w = torch.randn(c, generator=g, device=dev) * 0.3 + 1
+    b = torch.randn(c, generator=g, device=dev) * 0.3
+    scale = rounded(hd ** -0.5, torch.bfloat16)
+    cases = {}
+    for window in (ws, 0):
+        tag = "windowed" if window else "global"
+        kh = window or grid
+        rows = B.padded_grid(grid, grid, window)[0] ** 2
+        qkv, qb = bf((rows, 3 * c), 2.0), bf((3 * c,), 0.5)
+        tabs = tuple(torch.randn(2 * kh - 1, hd, generator=g, device=dev) * 0.1
+                     for _ in range(2))
+        y, yb = bf((rows, c)), bf((c,), 0.5)
+        qk = dict(heads=heads, grid=(kh, kh), scale=scale, rel_pos=tabs)
+        cases[f"ln_rows.{tag}"] = dict(
+            kernel=lambda window=window: B.ln_rows(x, w, b, eps=1e-6, window=window),
+            plain=lambda window=window: B.ln_rows_plain(x, w, b, eps=1e-6, window=window),
+            bound=lambda window=window: B.ln_rows_bound(x, w, eps=1e-6, window=window),
+            name="sam_ln_rows", nbytes=2.0 * (tokens + rows) * c + 8.0 * c, f32_ops=0.0)
+        cases[f"qkv_split.{tag}"] = dict(
+            kernel=lambda qkv=qkv, qb=qb, qk=qk: B.qkv_split(qkv, qb, **qk),
+            plain=lambda qkv=qkv, qb=qb, qk=qk: B.qkv_split_plain(qkv, qb, **qk),
+            bound=lambda qkv=qkv, qb=qb, qk=qk, tabs=tabs: B.qkv_split_plain(
+                (qkv + qb).abs(), torch.zeros_like(qb), **{
+                    **qk, "rel_pos": tuple(t.abs() for t in tabs)}),
+            name="sam_qkv_split",
+            nbytes=2.0 * 2 * rows * 3 * c + 4.0 * rows * heads * 2 * kh,
+            f32_ops=2.0 * rows * heads * 2 * kh * hd)
+        cases[f"bias_residual.{tag}"] = dict(
+            kernel=lambda y=y, yb=yb, window=window: B.bias_residual(x, y, yb, window=window),
+            plain=lambda y=y, yb=yb, window=window: B.bias_residual_plain(x, y, yb,
+                                                                        window=window),
+            name="sam_bias_residual", nbytes=2.0 * 3 * tokens * c, f32_ops=0.0)
+    h, hb = bf((tokens, hidden), 3.0), bf((hidden,))
+    cases["bias_gelu"] = dict(kernel=lambda: B.bias_gelu(h, hb),
+                              plain=lambda: B.bias_gelu_plain(h, hb), name="sam_bias_gelu",
+                              nbytes=2.0 * 2 * tokens * hidden, f32_ops=0.0)
+    report, per_pass = {}, {}
+    for key, case in cases.items():
+        got, want, again = case["kernel"](), case["plain"](), case["kernel"]()
+        torch.cuda.synchronize()
+        row = {}
+        if key.startswith("ln_rows"):
+            # the statistics sum in another f32 order: within their bound plus
+            # one bf16 ulp; more than one ulp apart only where the output
+            # cancels to near 0
+            d = bf16_ulps(got, want)
+            err = (got.float() - want.float()).abs()
+            tol = case["bound"]() + bf16_ulp(torch.maximum(got.float().abs(),
+                                                           want.float().abs()))
+            row.update(one_ulp_share=float((d == 1).float().mean()),
+                       beyond_one_ulp=int((d > 1).sum()),
+                       err_of_bound=float((err / tol).max()))
+            expect(bool((err <= tol).all()), f"sam_block {key}: beyond its sum-order bound")
+        elif key.startswith("qkv_split"):
+            for i in range(3):
+                expect(torch.equal(got[i], want[i]), f"sam_block {key}: q/k/v[{i}] differ")
+            bound = case["bound"]()
+            worst = 0.0
+            for i in (3, 4):
+                err = (got[i] - want[i]).abs()
+                lim = 2 * hd * 2.0 ** -24 * bound[i]
+                expect(bool((err <= lim).all()), f"sam_block {key}: rel term beyond its bound")
+                worst = max(worst, float((err / lim.clamp_min(1e-30)).max()))
+            row["rel_err_of_bound"] = worst
+            got, again = torch.cat([t.flatten().float() for t in got]), \
+                torch.cat([t.flatten().float() for t in again])
+        else:
+            expect(torch.equal(got, want), f"sam_block {key}: not bit-equal to plain")
+        expect(torch.equal(got, again), f"sam_block {key}: two launches differ")
+        del got, want, again
+        bms, by = bound_ms(case["nbytes"], 0.0, case["f32_ops"])
+        row.update(ms=time_ms(case["kernel"]), device_ms=device_ms(case["kernel"], case["name"]),
+                   plain_ms=time_ms(case["plain"], reps=5),
+                   plain_device_ms=device_ms(case["plain"], None, reps=3),
+                   bound_ms=bms, bound_by=by)
+        row["roofline_pct"] = 100.0 * bms / row["device_ms"]
+        report[key] = row
+        n = SAM_BLOCK_PER_PASS[key]
+        for k in ("device_ms", "plain_device_ms", "bound_ms"):
+            per_pass[k] = per_pass.get(k, 0.0) + n * row[k]
+        log(f"[kernels] sam_block {key}: {row['ms']:.4f} ms (device {row['device_ms']:.4f}, "
+            f"{row['roofline_pct']:.1f}% of its bound {bms:.4f} ms, {by}); plain "
+            f"{row['plain_ms']:.4f} ms (device {row['plain_device_ms']:.4f})" + "".join(
+                f", {k} {row[k]:.3g}" for k in ("one_ulp_share", "beyond_one_ulp",
+                                                 "err_of_bound", "rel_err_of_bound")
+                if k in row) + ", two launches bit-equal")
+    report["per_pass"] = per_pass
+    log(f"[kernels] sam_block per ViT-H pass: device {per_pass['device_ms']:.3f} ms, bound "
+        f"{per_pass['bound_ms']:.3f} ms, plain versions' device {per_pass['plain_device_ms']:.3f}"
+        " ms")
+    details["sam_block"] = report
+    del x, h
+    torch.cuda.empty_cache()
+    return report
+
+
 # K2 and K4 at head dims the kernels are not built for (zero-padded to 64 or
 # 128 by their wrappers): (name, head dim, K2's [BH, Tq, Tk], K4's [BH, Tq,
 # Tk, dropout]). Round 5's 32 and 96 in (64, 128] at the full model's cross
@@ -2357,7 +2508,8 @@ def served_pass(vlm, rgb, pcd, task):
 
 def sam_plain(seg, dtype):
     """The segmenter ``seg`` with its weights, K7 off, at ``dtype`` (built on
-    the meta device, then filled)."""
+    the meta device, then filled). Its blocks take the block kernels at bf16
+    unless the caller plants ``sam_block.ops_for``."""
     import torch
     from voxactb_tpu_torch.models.sam_decoder import SamMaskDecoder, SamSegmenter
     from voxactb_tpu_torch.models.sam_encoder import SamImageEncoder
@@ -2383,11 +2535,16 @@ def compare_sam_paths(seg, rgb, box, served, details, tag="vlm_episode"):
     a mask pixel only where the plain path's |logit| is."""
     import torch
 
+    from voxactb_tpu_torch.ops.cuda import sam_block
+
     groups = ("embedding", "mask_logits", "iou")
     outs = {"kernel": served}
     for dtype in ("bfloat16", "float32"):
         ref = sam_plain(seg, dtype)
-        outs[dtype] = ref.predict(rgb, box)
+        # the plain path's blocks in their eager formulation at bf16 too
+        with planted("voxactb_tpu_torch.ops.cuda.sam_block", "ops_for",
+                     lambda _: lambda x: sam_block.PLAIN):
+            outs[dtype] = ref.predict(rgb, box)
         del ref
         torch.cuda.empty_cache()
     report = {}
@@ -2533,6 +2690,16 @@ def vlm_episode(rng, details, timings, n_acts=25):
     expect(counts["sam_attention"] == sam["depth"] and not replayed_shapes and shapes == want,
            f"vlm_episode: K7 launches {counts['sam_attention']} in one replayed VLM pass "
            f"(entries called {replayed_shapes}), eagerly by shape {shapes}")
+    # SAM's block kernels: two norms, one qkv split, one bias + GELU and two
+    # bias + residual passes a block
+    depth = sam["depth"]
+    block = {k: counts[k] for k in ("sam_ln", "sam_qkv_split", "sam_bias_gelu",
+                                    "sam_bias_residual")}
+    log(f"[vlm_episode] launches in one replayed VLM pass: K7 {counts['sam_attention']}, "
+        + ", ".join(f"{k} {n}" for k, n in block.items()))
+    expect(block == {"sam_ln": 2 * depth, "sam_qkv_split": depth, "sam_bias_gelu": depth,
+                     "sam_bias_residual": 2 * depth},
+           f"vlm_episode: SAM block kernel launches {block} in one replayed VLM pass")
     lo, hi = bounds[:3], bounds[3:]
     for a in actions:
         expect(a.shape == (9,) and bool(np.isfinite(a).all()), "vlm_episode action")
@@ -5756,6 +5923,7 @@ def main() -> int:
     # the VLM slice's phases draw from streams of their own, so that the
     # earlier phases keep their inputs
     sam_attn = check_sam_attention(np.random.default_rng(1), details)
+    check_sam_block(np.random.default_rng(17), details)
     # K2, K4 and K7 at head dims they are not built for: a stream of its own
     head_dims = check_head_dims(np.random.default_rng(16), details)
     # the dense-grid slice's checks and phases draw from a stream of their own

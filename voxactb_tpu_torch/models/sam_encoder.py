@@ -10,7 +10,11 @@ Attention goes through K7 (``ops/cuda/sam_attention``, the hand-written
 kernel on a CUDA tensor) where the JAX package takes its Pallas kernel: at
 bf16, with rel-pos, in the global blocks (``fused_global``, on by default)
 and, with ``fused_windowed``, in the windowed ones. Elsewhere it is the plain
-formulation (``ops/sam_attention``), which is also K7's plain version.
+formulation (``ops/sam_attention``), which is also K7's plain version. The
+rest of a block's non-GEMM work (norms, qkv split with the rel-pos terms,
+bias + GELU, bias + residual) goes through four hand-written kernels
+(``ops/cuda/sam_block``) for a CUDA bf16 input, and through their plain
+versions, the eager formulation, otherwise.
 
 ``load_torch_sam_weights`` (a segment-anything checkpoint's
 ``image_encoder.*``) and ``load_hf_sam_vision_weights`` (transformers'
@@ -27,23 +31,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from voxactb_tpu_torch.models.blocks import Conv2D, Dense, LayerNorm, gelu_erf, rounded
+from voxactb_tpu_torch.models.blocks import Conv2D, Dense, LayerNorm, rounded
 from voxactb_tpu_torch.models.torch_port import make_port_helpers
+from voxactb_tpu_torch.ops.cuda import sam_block
+from voxactb_tpu_torch.ops.cuda.sam_block import (  # noqa: F401 (the encoder's names)
+    rel_pos_embed as _rel_pos_embed, window_partition, window_unpartition)
 from voxactb_tpu_torch.ops.resize import resize_linear
-
-
-def _rel_pos_embed(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor:
-    """Interpolate/select relative position embeddings (SAM's get_rel_pos):
-    ``[2 * max(q, k) - 1, hd]`` (resized linearly if it has another length)
-    -> ``[q_size, k_size, hd]``."""
-    max_rel_dist = 2 * max(q_size, k_size) - 1
-    if rel_pos.shape[0] != max_rel_dist:
-        rel_pos = resize_linear(rel_pos, (max_rel_dist, rel_pos.shape[1]))
-    dev = rel_pos.device
-    q_coords = torch.arange(q_size, device=dev)[:, None] * max(k_size / q_size, 1.0)
-    k_coords = torch.arange(k_size, device=dev)[None, :] * max(q_size / k_size, 1.0)
-    rel = (q_coords - k_coords) + (k_size - 1) * max(q_size / k_size, 1.0)
-    return rel_pos[rel.to(torch.int64)]
 
 
 class WindowAttention(nn.Module):
@@ -65,61 +58,38 @@ class WindowAttention(nn.Module):
             self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1, head_dim))
             self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size[1] - 1, head_dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, H, W, C]
+    def forward(self, rows: torch.Tensor, grid: Tuple[int, int],
+                ops: sam_block.Ops) -> torch.Tensor:
+        """``[B * kh * kw, C]`` rows of ``B`` token grids of ``grid`` = (kh,
+        kw) -> the output projection's ``[B * kh * kw, C]`` rows before its
+        bias, which ``SamBlock`` adds with the residual (``ops.bias_residual``).
+        ``ops`` splits the qkv GEMM's rows into the attention's operands."""
         from voxactb_tpu_torch.ops.cuda.sam_attention import global_rel_attention
         from voxactb_tpu_torch.ops.sam_attention import global_rel_attention_plain
 
-        b, h, w, _ = x.shape
-        heads, hd = self.num_heads, self.dim // self.num_heads
-        qkv = self.qkv(x).reshape(b, h * w, 3, heads, hd)
-        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))  # each [B, heads, HW, hd]
-
-        f32 = torch.float32
-        if self.use_rel_pos:
-            # the rel terms come from the UNSCALED q, in f32
-            rq = q.reshape(b, heads, h, w, hd).to(f32)
-            rh = torch.einsum("bnhwc,hkc->bnhwk", rq,
-                              _rel_pos_embed(h, h, self.rel_pos_h.to(f32)))
-            rw = torch.einsum("bnhwc,wkc->bnhwk", rq,
-                              _rel_pos_embed(w, w, self.rel_pos_w.to(f32)))
-            rel_h_term = rh.reshape(b * heads, h * w, h)
-            rel_w_term = rw.reshape(b * heads, h * w, w)
-        else:
-            rel_h_term = x.new_zeros(b * heads, h * w, h, dtype=f32)
-            rel_w_term = x.new_zeros(b * heads, h * w, w, dtype=f32)
-        # q * scale rounds to the compute dtype before the logits
-        scale = rounded(hd ** -0.5, q.dtype)
-        flat = lambda t: t.reshape(b * heads, h * w, hd)
-        fused = self.fused_global and self.use_rel_pos and self.dtype == torch.bfloat16
+        kh, kw = grid
+        heads, hd, dt = self.num_heads, self.dim // self.num_heads, self.dtype
+        rel = (self.rel_pos_h, self.rel_pos_w) if self.use_rel_pos else (None, None)
+        # q * scale rounds to the compute dtype before the logits; the rel
+        # terms come from the UNSCALED q, in f32
+        q, k, v, rel_h_term, rel_w_term = ops.qkv_split(
+            F.linear(rows.to(dt), self.qkv.weight.to(dt)), self.qkv.bias.to(dt), heads=heads,
+            grid=grid, scale=rounded(hd ** -0.5, dt), rel_pos=rel)
+        fused = self.fused_global and self.use_rel_pos and dt == torch.bfloat16
         attention = global_rel_attention if fused else global_rel_attention_plain
-        out = attention(flat(q * scale), flat(k), flat(v), rel_h_term, rel_w_term,
-                        kh=h, kw=w)
-        out = out.reshape(b, heads, h * w, hd).transpose(1, 2).reshape(b, h, w, self.dim)
-        return self.proj(out)
-
-
-def window_partition(x: torch.Tensor, window: int):
-    """``[B, H, W, C]`` -> (``[B * nW, window, window, C]``, padded (Hp, Wp));
-    the grid is zero-padded to a multiple of the window."""
-    b, h, w, c = x.shape
-    pad_h = (window - h % window) % window
-    pad_w = (window - w % window) % window
-    if pad_h or pad_w:
-        x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
-    hp, wp = h + pad_h, w + pad_w
-    x = x.reshape(b, hp // window, window, wp // window, window, c)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, window, window, c), (hp, wp)
-
-
-def window_unpartition(windows: torch.Tensor, window: int, pad_hw, hw) -> torch.Tensor:
-    hp, wp = pad_hw
-    h, w = hw
-    b = windows.shape[0] // (hp * wp // window // window)
-    x = windows.reshape(b, hp // window, wp // window, window, window, -1)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, hp, wp, -1)[:, :h, :w]
+        out = attention(q, k, v, rel_h_term, rel_w_term, kh=kh, kw=kw)
+        b = rows.shape[0] // (kh * kw)
+        out = out.reshape(b, heads, kh * kw, hd).transpose(1, 2).reshape(-1, self.dim)
+        return F.linear(out, self.proj.weight.to(dt))
 
 
 class SamBlock(nn.Module):
+    """Pre-norm ViT block, windowed (``window_size`` > 0) or global. Its
+    non-GEMM stretches (the norms, the qkv split with the rel-pos terms,
+    bias + GELU, bias + residual with the window layout) go through
+    ``ops/cuda/sam_block``: the hand-written kernels for a CUDA bf16 input,
+    the plain versions otherwise (``sam_block.ops_for``)."""
+
     def __init__(self, dim: int, num_heads: int, window_size: int = 14,
                  grid_size: Tuple[int, int] = (64, 64), mlp_ratio: float = 4.0,
                  fused_global: bool = False, fused_windowed: bool = False,
@@ -127,6 +97,7 @@ class SamBlock(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.window_size = window_size  # 0: global attention
+        self.dtype = dtype
         self.norm1 = LayerNorm(dim, eps=1e-6, dtype=dtype)
         inp = (window_size, window_size) if window_size > 0 else grid_size
         fuse = fused_global if window_size == 0 else fused_windowed
@@ -137,16 +108,16 @@ class SamBlock(nn.Module):
         self.mlp_fc1 = Dense(dim, hidden, dtype=dtype, generator=generator)
         self.mlp_fc2 = Dense(hidden, dim, dtype=dtype, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.norm1(x)
-        if self.window_size > 0:
-            hw = y.shape[1:3]
-            y, pad_hw = window_partition(y, self.window_size)
-            y = window_unpartition(self.attn(y), self.window_size, pad_hw, hw)
-        else:
-            y = self.attn(y)
-        x = x + y
-        return x + self.mlp_fc2(gelu_erf(self.mlp_fc1(self.norm2(x))))
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, H, W, C]
+        ops = sam_block.ops_for(x)
+        ws, dt = self.window_size, self.dtype
+        grid = (ws, ws) if ws > 0 else tuple(x.shape[1:3])
+        y = ops.ln_rows(x, self.norm1.weight, self.norm1.bias, eps=self.norm1.eps, window=ws)
+        x = ops.bias_residual(x, self.attn(y, grid, ops), self.attn.proj.bias.to(dt), window=ws)
+        y = ops.ln_rows(x, self.norm2.weight, self.norm2.bias, eps=self.norm2.eps, window=0)
+        y = ops.bias_gelu(F.linear(y, self.mlp_fc1.weight.to(dt)), self.mlp_fc1.bias.to(dt))
+        return ops.bias_residual(x, F.linear(y, self.mlp_fc2.weight.to(dt)),
+                                 self.mlp_fc2.bias.to(dt), window=0)
 
 
 class SamImageEncoder(nn.Module):

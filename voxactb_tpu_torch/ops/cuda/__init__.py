@@ -16,7 +16,10 @@ which both ``decoder_head`` and ``decoder_head_v3`` make,
 (``csrc/front_patchify.cuh``), which ``front_fused`` makes and the dense
 path's ``front_patchify`` wrapper makes alone. ``grid_copy``, ``smem_scratch``
 and ``shifted_window`` (``probes.py``, ``csrc/probes.cu``) count the launches
-of the tools' probe kernels.
+of the tools' probe kernels. ``sam_ln``, ``sam_qkv_split``, ``sam_bias_gelu``
+and ``sam_bias_residual`` count those of SAM's block kernels
+(``sam_block.py``, ``csrc/sam_block.cu``), whose wrappers ``SamBlock`` calls
+for a CUDA bf16 input only.
 """
 
 from __future__ import annotations
@@ -29,7 +32,9 @@ LAUNCHES: Dict[str, int] = {"front_fused": 0, "flash_attention": 0,
                             "encoder_stats": 0, "stats_head": 0, "decoder_head_v3": 0,
                             "decoder_tail_conv": 0, "decoder_tail_trans_stats": 0,
                             "decoder_phase_gemm": 0, "front_patchify": 0,
-                            "grid_copy": 0, "smem_scratch": 0, "shifted_window": 0}
+                            "grid_copy": 0, "smem_scratch": 0, "shifted_window": 0,
+                            "sam_ln": 0, "sam_qkv_split": 0, "sam_bias_gelu": 0,
+                            "sam_bias_residual": 0}
 
 
 def reset_launch_counts() -> None:

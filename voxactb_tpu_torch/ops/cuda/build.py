@@ -28,7 +28,7 @@ CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 SOURCES = ("front_fused", "flash_attention", "decoder_head",
            "flash_attention_train", "sam_attention", "encoder_stats", "stats_head",
-           "decoder_head_v3", "probes")
+           "decoder_head_v3", "probes", "sam_block")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
