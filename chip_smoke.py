@@ -2597,6 +2597,7 @@ def vlm_episode(rng, details, timings, n_acts=25):
     from voxactb_tpu_torch.models.clip_text import ClipLanguageEncoder
     from voxactb_tpu_torch.models.sam_encoder import preprocess_image
     from voxactb_tpu_torch.ops import cuda as kernels
+    from voxactb_tpu_torch.ops.cuda import graphs
     from voxactb_tpu_torch.ops.geometry import scene_bounds_from_crop
     from voxactb_tpu_torch.vlm.pipeline import VLM, task_queries
 
@@ -2684,7 +2685,8 @@ def vlm_episode(rng, details, timings, n_acts=25):
         # a replay calls no Python entry; the shapes are read off the same
         # programs run eagerly
         replayed_shapes = dict(shapes)
-        detector.mask_logits(rgb, query, _eager=True)
+        with graphs.eager():
+            detector.mask_logits(rgb, query)
         torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     expect(counts["sam_attention"] == sam["depth"] and not replayed_shapes and shapes == want,

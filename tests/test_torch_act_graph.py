@@ -1,7 +1,7 @@
-"""The act program as CUDA graphs (``agents/act_graph``).
+"""The act program as CUDA graphs (``ops/cuda/graphs``).
 
-On the CPU: ``make_infer_fn``'s ``infer`` is the eager program and counts no
-capture or replay; the graph key follows the inputs' shapes and the model's
+On the CPU: ``make_infer_fn``'s ``infer`` runs the program eagerly and counts
+no capture or replay; the graph key follows the inputs' shapes and the model's
 parameter storage and not an in-place load; the activations' constants, now
 Python floats rounded to the operand's dtype, give the bits of the 0-dim
 tensor constants they replace; and the upsample's tap matrix, now made once
@@ -12,7 +12,8 @@ file runs where the port runs: ``python -m pytest
 tests/test_torch_act_graph.py -m card --noconftest -q``): every field of a
 replayed act is bit-equal to the eager program's at the 100^3 scene policy,
 the 50^3 crop policy with bounds that move on every call, the two-head
-variant and the dense path; an in-place weight load is read without a new
+variant and the dense path, against the program run inside
+``graphs.eager()``; an in-place weight load is read without a new
 capture; outputs stay as returned; two shapes alternate; two threads acting
 on one agent each get their eager result; and the counters and
 ``ops/cuda.LAUNCHES`` count as the module says. The clouds put at most one
@@ -28,12 +29,11 @@ import numpy as np
 import pytest
 import torch
 
-from voxactb_tpu_torch.agents import act_graph
 from voxactb_tpu_torch.agents.qfunction import build_encoder, make_infer_fn
 from voxactb_tpu_torch.config import MethodConfig
 from voxactb_tpu_torch.models import blocks
 from voxactb_tpu_torch.ops import upsample_conv
-from voxactb_tpu_torch.ops.cuda import LAUNCHES
+from voxactb_tpu_torch.ops.cuda import LAUNCHES, graphs
 from voxactb_tpu_torch.ops.cuda.decoder_head_v3 import phase_weight_table
 from voxactb_tpu_torch.utils.profiling import collect
 
@@ -83,6 +83,12 @@ def bits(t):
     return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
 
 
+def eager(infer, model, args):
+    """``infer``'s program run eagerly on ``args``."""
+    with graphs.eager():
+        return infer(model, *args)
+
+
 def assert_bit_equal(got, want):
     for name in FIELDS:
         a, b = getattr(got, name), getattr(want, name)
@@ -96,12 +102,12 @@ def assert_bit_equal(got, want):
 def test_cpu_infer_is_the_eager_program_and_counts_no_graph():
     cfg = MethodConfig(**TINY, **KERNELS)
     model, infer = make_infer_fn(cfg, device="cpu", seed=0)
-    assert infer is infer._eager
     rng = np.random.default_rng(0)
     args = observation(rng, cfg, SCENE, cameras=2, res=8)
     with collect() as coll:
-        outs = [infer(model, *args) for _ in range(2)]
+        outs = [infer(model, *args) for _ in range(2)] + [eager(infer, model, args)]
     assert_bit_equal(outs[1], outs[0])
+    assert_bit_equal(outs[2], outs[0])
     counts = coll.as_dict()["counts"]
     assert counts.get("act.graph_captures", 0) == 0
     assert counts.get("act.graph_replays", 0) == 0
@@ -112,29 +118,34 @@ def test_graph_key_follows_shapes_and_storage_not_in_place_loads():
     model = build_encoder(cfg, device="cpu", seed=0)
     rng = np.random.default_rng(1)
     args = observation(rng, cfg, SCENE, cameras=2, res=8)
-    key = act_graph.graph_key(model, args)
-    assert act_graph.graph_key(model, observation(rng, cfg, SCENE, cameras=2, res=8)) == key
+
+    def graph_key(model, args):  # the act's key, as ``make_infer_fn``'s ``infer`` makes it
+        rgbs, pcds, *rest = args
+        return graphs.key(graphs.storage(model), (), (*rgbs, *pcds, *rest))
+
+    key = graph_key(model, args)
+    assert graph_key(model, observation(rng, cfg, SCENE, cameras=2, res=8)) == key
     # shapes, camera count and dtypes of the inputs
-    assert act_graph.graph_key(model, observation(rng, cfg, SCENE, cameras=2, res=8,
+    assert graph_key(model, observation(rng, cfg, SCENE, cameras=2, res=8,
                                                   batch=2)) != key
-    assert act_graph.graph_key(model, observation(rng, cfg, SCENE, cameras=2, res=4)) != key
-    assert act_graph.graph_key(model, observation(rng, cfg, SCENE, cameras=3, res=8)) != key
+    assert graph_key(model, observation(rng, cfg, SCENE, cameras=2, res=4)) != key
+    assert graph_key(model, observation(rng, cfg, SCENE, cameras=3, res=8)) != key
     wide = (args[0], args[1], args[2].astype(np.float64), *args[3:])
-    assert act_graph.graph_key(model, wide) != key
+    assert graph_key(model, wide) != key
     moved = (args[0], args[1], args[2], args[3], args[4], torch.as_tensor(args[5]))
-    assert act_graph.graph_key(model, moved) == key  # a host tensor is a host array
+    assert graph_key(model, moved) == key  # a host tensor is a host array
     # an in-place load keeps the storage; a new parameter or buffer does not
     other = build_encoder(cfg, device="cpu", seed=1)
     model.load_state_dict(other.state_dict())
-    assert act_graph.graph_key(model, args) == key
+    assert graph_key(model, args) == key
     with torch.no_grad():
         model.final.bias.add_(1.0)
-    assert act_graph.graph_key(model, args) == key
+    assert graph_key(model, args) == key
     model.final.bias = torch.nn.Parameter(model.final.bias.detach().clone())
-    assert act_graph.graph_key(model, args) != key
-    key = act_graph.graph_key(model, args)
+    assert graph_key(model, args) != key
+    key = graph_key(model, args)
     model.to(torch.float64)
-    assert act_graph.graph_key(model, args) != key
+    assert graph_key(model, args) != key
 
 
 def _lrelu_before(x, slope=blocks.LRELU_SLOPE):
@@ -246,7 +257,7 @@ def test_replays_bit_equal_to_the_eager_program(card, kind):
     for _ in range(4):  # the capture, then three replays
         bounds = SCENE if kind in ("scene100", "dense100") else crop_bounds(rng)
         args = observation(rng, cfg, bounds)
-        assert_bit_equal(infer(model, *args), infer._eager(model, *args))
+        assert_bit_equal(infer(model, *args), eager(infer, model, args))
 
 
 @pytest.mark.card
@@ -261,7 +272,7 @@ def test_in_place_load_is_replayed_without_a_capture(card):
         model.load_state_dict(other.state_dict())
         got = infer(model, *args)
     assert coll.as_dict()["counts"] == {"act.graph_captures": 1, "act.graph_replays": 1}
-    assert_bit_equal(got, infer._eager(other, *args))
+    assert_bit_equal(got, eager(infer, other, args))
     assert not torch.equal(got.q_trans, first.q_trans)
 
 
@@ -275,7 +286,7 @@ def test_outputs_stay_as_returned_and_shapes_alternate(card):
         outs = [infer(model, *args) for args in calls]
     assert coll.as_dict()["counts"] == {"act.graph_captures": 2, "act.graph_replays": 4}
     for args, out in zip(calls, outs):
-        assert_bit_equal(out, infer._eager(model, *args))
+        assert_bit_equal(out, eager(infer, model, args))
 
 
 @pytest.mark.card
@@ -294,7 +305,7 @@ def test_threads_acting_on_one_agent_get_their_eager_results(card):
                "lang_token_embs": args[4][0]}
         for c, rgb, pcd in zip(cams, args[0], args[1]):
             obs[f"{c}_rgb"], obs[f"{c}_point_cloud"] = rgb[0], pcd[0]
-        want = agent._infer._eager(agent._model, *agent._act_inputs(obs, None, None, False))
+        want = eager(agent._infer, agent._model, agent._act_inputs(obs, None, None, False))
         observations.append((obs, want.continuous_action[0].cpu().numpy()))
     agent.act(0, observations[0][0])  # the capture
     failures = []

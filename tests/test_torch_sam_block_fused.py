@@ -456,7 +456,7 @@ def test_replayed_encoder_pass_counts(card):
     """A ViT-H encoder pass replayed as a CUDA graph counts 64 / 32 / 32 / 64
     launches of the four kernels (and K7's 32), and no block's eager
     ``LayerNorm`` module runs, in its first call or its capture."""
-    from voxactb_tpu_torch.vlm.graphs import Program
+    from voxactb_tpu_torch.ops.cuda import graphs
 
     g = torch.Generator(device=card).manual_seed(15)
     with torch.device(card):
@@ -467,10 +467,17 @@ def test_replayed_encoder_pass_counts(card):
         for norm in (blk.norm1, blk.norm2):
             norm.register_forward_pre_hook(lambda *_: calls.append(1))
     frame = torch.randn(1, 1024, 1024, 3, generator=g, device=card)
-    program = Program(lambda x: (enc(x),), [frame])
-    first = program()[0]
+    table = graphs.Graphs("vlm", card)
+
+    def run():
+        g = table.entry(enc, (), (), (frame,))
+        with g.lock:
+            g.copy_in((frame,))
+            return g.run("encode", lambda x: (enc(x),))[0]
+
+    first = run()
     cuda.reset_launch_counts()
-    replayed = program()[0]
+    replayed = run()
     counts = cuda.launch_counts()
     assert (counts["sam_ln"], counts["sam_qkv_split"], counts["sam_bias_gelu"],
             counts["sam_bias_residual"], counts["sam_attention"]) == (64, 32, 32, 64, 32)

@@ -12,15 +12,19 @@ references here, the JAX comparison is ``test_torch_vlm.py``'s).
 - an all-negative mask: the detector keeps the pixels at its largest logit
   and the pass returns a crop, where ``crop_point_from_mask`` raises on an
   empty host mask;
-- the spans and counters of one pass.
+- the spans and counters of one pass;
+- the pass's keyed table (``ops/cuda/graphs``): one entry for OWL-ViT and
+  SAM's encoder per frame and one for SAM's decoder per frame size.
 """
 
-import functools
+import contextlib
+import json
 
 import numpy as np
 import pytest
 import torch
 
+from voxactb_tpu_torch.ops.cuda import graphs
 from voxactb_tpu_torch.utils import profiling
 from voxactb_tpu_torch.vlm import pipeline as P
 from voxactb_tpu_torch.weights import tensors_to_flax_tree
@@ -164,6 +168,21 @@ def test_one_pass_spans_and_counters(detector):
     assert radius == want[1]
 
 
+def test_one_set_of_programs_per_frame_size(detector):
+    _, params = detector
+    det = P.TorchOwlVitSamDetector.build(SPEC, params=params, score_threshold=0.0)
+    rng = np.random.default_rng(6)
+    for h, w in ((24, 32), (24, 32), (30, 40), (24, 32)):
+        rgb, cloud = scene(rng, h, w)
+        P.VLM(det).get_target_object_world_coords(rgb, cloud, "open_drawer")
+    version, entries = det._graphs.table[det]
+    got = sorted((tag, tuple(shape for shape, _ in shapes)) for _, tag, shapes in entries)
+    embedding = (1, 8, 8, SPEC["sam"]["out_chans"])
+    assert version == () and got == [
+        ((), ((24, 32, 3), (1, 16))), ((), ((30, 40, 3), (1, 16))),
+        ((24, 32), (embedding, (1, 4))), ((30, 40), (embedding, (1, 4)))]
+
+
 def test_the_chosen_index_read_on_the_device(detector):
     det, _ = detector
     rgb, _ = scene(np.random.default_rng(5))
@@ -190,9 +209,10 @@ def card():
 @pytest.mark.card
 def test_replayed_pass_is_the_eager_pass(card):
     """``build``'s detector replays its three programs as CUDA graphs: every
-    output of a pass, and the crop, bit-equal to its programs run eagerly on the
-    same weights (bf16, K7 in every block), over two frames of one size and
-    one of another; K7's launches counted per pass either way."""
+    output of a pass, and the crop, bit-equal to its programs run eagerly
+    (``graphs.eager()``) on the same weights (bf16, K7 in every block), over
+    two frames of one size and one of another; K7's launches counted per pass
+    either way."""
     from voxactb_tpu_torch.ops import cuda
 
     kw = dict(dtype=torch.bfloat16, fused_global=True, fused_windowed=True,
@@ -204,14 +224,14 @@ def test_replayed_pass_is_the_eager_pass(card):
                     ("sam", replayed._sam.encoder), ("decoder", replayed._sam.decoder)):
         params.update({f"{name}.{k}": v for k, v in m.state_dict().items()})
     eager = P.TorchOwlVitSamDetector.build(SPEC, params=params, **kw)
-    eager.mask_logits = functools.partial(eager.mask_logits, _eager=True)
     rng = np.random.default_rng(6)
     for h, w in ((24, 32), (24, 32), (30, 40), (24, 32)):
         rgb, cloud = scene(rng, h, w)
         got = []
         for det in (replayed, eager):
             before = cuda.launch_counts()["sam_attention"]
-            crop = P.VLM(det).get_target_object_world_coords(rgb, cloud, "open_drawer")
+            with graphs.eager() if det is eager else contextlib.nullcontext():
+                crop = P.VLM(det).get_target_object_world_coords(rgb, cloud, "open_drawer")
             assert cuda.launch_counts()["sam_attention"] - before == SPEC["sam"]["depth"]
             got.append((crop, dict(det.last)))
         (crop_r, last_r), (crop_e, last_e) = got
@@ -222,4 +242,43 @@ def test_replayed_pass_is_the_eager_pass(card):
                 assert torch.equal(last_r[key], value), key
             else:
                 np.testing.assert_array_equal(last_r[key], value)
-    assert len(replayed._pass) == 2
+
+
+@pytest.mark.card
+def test_replayed_pass_uploads_the_frame_pinned(card, tmp_path):
+    """In a replayed pass the frame goes up in one pinned host-to-device copy
+    inside ``vx.vlm.owl``, and no pageable host-to-device copy starts inside
+    ``vx.vlm.owl`` or ``vx.vlm.sam.encode`` (the profiler's trace: each
+    copy's runtime call, by its correlation id, within the span)."""
+    g = torch.Generator(device=card).manual_seed(1)
+    det = P.TorchOwlVitSamDetector.build(SPEC, device=card, generator=g, dtype=torch.bfloat16,
+                                         fused_global=True, fused_windowed=True,
+                                         score_threshold=0.0)
+    rgb, cloud = scene(np.random.default_rng(7), 30, 40)
+    vlm = P.VLM(det)
+    for _ in range(2):  # the capture, then a replay
+        vlm.get_target_object_world_coords(rgb, cloud, "open_drawer")
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        vlm.get_target_object_world_coords(rgb, cloud, "open_drawer")
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    spans = {n: [(e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("name") == n and e.get("cat") == "user_annotation"]
+             for n in ("vx.vlm.owl", "vx.vlm.sam.encode")}
+    assert all(len(v) == 1 for v in spans.values()), spans
+    calls = {e["args"]["correlation"]: e["ts"] for e in events
+             if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+
+    def inside(copy, name):
+        ts = calls[copy["args"]["correlation"]]
+        return any(lo <= ts <= hi for lo, hi in spans[name])
+
+    h2d = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]]
+    pinned = [e for e in h2d if "Pinned" in e["name"] and inside(e, "vx.vlm.owl")]
+    assert len(pinned) == 1 and pinned[0]["args"]["bytes"] >= rgb.size * 4, pinned
+    pageable = [e for e in h2d if "Pageable" in e["name"]
+                and (inside(e, "vx.vlm.owl") or inside(e, "vx.vlm.sam.encode"))]
+    assert not pageable, pageable

@@ -22,7 +22,6 @@ import torch.nn.functional as F
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
-from voxactb_tpu_torch.agents.act_graph import ActGraphs
 from voxactb_tpu_torch.config import MethodConfig
 from voxactb_tpu_torch.device import resolve_device
 from voxactb_tpu_torch.models.blocks import lrelu
@@ -30,6 +29,7 @@ from voxactb_tpu_torch.models.perceiver import PerceiverVoxelLangEncoder
 from voxactb_tpu_torch.ops import geometry as G
 from voxactb_tpu_torch.ops.augmentation import (
     Se3AugConfig, apply_se3_augmentation, draw_rows)
+from voxactb_tpu_torch.ops.cuda import graphs
 from voxactb_tpu_torch.ops.voxelize import (
     flatten_camera_observations, reciprocal, voxelize)
 from voxactb_tpu_torch.optim import (
@@ -183,9 +183,9 @@ def make_infer_fn(cfg: MethodConfig, low_dim_size: Optional[int] = None, *,
     For the 'one_policy_more_heads' variant the InferOutput gains a leading
     head axis of size 2 (right, left) on every action field.
 
-    On a CUDA device ``infer`` replays the program as one CUDA graph per key
-    (``agents/act_graph``) and returns fresh tensors; on the CPU it is the
-    eager program itself. ``infer._eager`` is the eager program on either.
+    ``infer`` runs the program through ``ops/cuda/graphs``: on a CUDA device
+    as one CUDA graph per model and input shapes, returning fresh tensors;
+    on the CPU, or inside ``graphs.eager()``, eagerly.
     """
     device = resolve_device(device)
     if model is None:
@@ -198,8 +198,8 @@ def make_infer_fn(cfg: MethodConfig, low_dim_size: Optional[int] = None, *,
         return torch.as_tensor(x, dtype=torch.float32, device=device)
 
     @torch.inference_mode()
-    def eager(model, rgbs: Sequence, pcds: Sequence, proprio, lang_goal_emb,
-              lang_token_embs, bounds) -> InferOutput:
+    def program(model, rgbs: Sequence, pcds: Sequence, proprio, lang_goal_emb,
+                lang_token_embs, bounds) -> InferOutput:
         with span("vx.act.h2d"):
             rgbs = [as_tensor(r) for r in rgbs]
             pcds = [as_tensor(p) for p in pcds]
@@ -233,8 +233,16 @@ def make_infer_fn(cfg: MethodConfig, low_dim_size: Optional[int] = None, *,
             return InferOutput(*decode(out["trans"], out["rot_grip"], out["collision"]),
                                voxel_grid=grid, front_overflow=overflow)
 
-    infer = ActGraphs(eager, device) if device.type == "cuda" else eager
-    infer._eager = eager
+    table = graphs.Graphs("act", device)
+
+    def infer(model, rgbs: Sequence, pcds: Sequence, *rest) -> InferOutput:
+        k = len(rgbs)
+        leaves = (*rgbs, *pcds, *rest)
+        g = table.entry(model, graphs.storage(model), (), leaves)
+        with g.lock:
+            g.copy_in(leaves)
+            return g.run("act", lambda *x: program(model, x[:k], x[k:2 * k], *x[2 * k:]))
+
     return model, infer
 
 

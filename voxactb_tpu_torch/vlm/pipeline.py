@@ -37,6 +37,7 @@ from typing import Callable, Dict, Optional, Protocol, Tuple
 import numpy as np
 import torch
 
+from voxactb_tpu_torch.ops.cuda import graphs
 from voxactb_tpu_torch.utils.profiling import count, span
 
 # per-task text queries (vlm.py:146-151)
@@ -267,8 +268,7 @@ class TorchOwlVitSamDetector:
         self._sam = sam_segmenter
         self._threshold = score_threshold
         self._query_cache = {}
-        # on a CUDA device, the pass's programs replay as CUDA graphs (vlm/graphs.py)
-        self._pass = {}  # (frame size, query shape) -> buffers and programs
+        self._graphs = graphs.Graphs("vlm", sam_segmenter.device)
         self.last: Dict[str, object] = {}
 
     @classmethod
@@ -326,64 +326,49 @@ class TorchOwlVitSamDetector:
         return cls.build(spec, dtype=compute_dtype, fused_global=True, fused_windowed=True,
                          params=params, score_threshold=score_threshold)
 
-    def mask_logits(self, rgb: np.ndarray, query: str, *, _eager: bool = False) -> torch.Tensor:
+    def mask_logits(self, rgb: np.ndarray, query: str) -> torch.Tensor:
         """The chosen mask's logits over the frame, ``[H, W]`` f32 on the
         device: OWL-ViT's best box for ``query`` (its two copies to the
         host), SAM's masks for it, the one of highest predicted IoU, chosen
-        on the device. ``_eager`` (tests): the programs run eagerly, with no
-        CUDA graph."""
+        on the device. Three programs, through ``ops/cuda/graphs`` (CUDA
+        graphs on a CUDA device, one set per frame size and query count):
+        OWL-ViT and SAM's encoder over one copy of the frame, SAM's decoder
+        over the embedding and the box prompt."""
         frame_hw = rgb.shape[:2]
         if query not in self._query_cache:
             self._query_cache[query] = self._owl.embed_queries([query])
-        queries = self._query_cache[query]
-        frame, query_in, prompt, *programs = self._programs(frame_hw, queries)
-        owl, encode, decode = (p.eager if _eager else p for p in programs)
-        with span("vx.vlm.owl"):
-            frame.copy_(torch.from_numpy(np.ascontiguousarray(rgb)))
-            query_in.copy_(queries)
-            logits, boxes = owl()
-            box, score, patch = self._owl.choose(logits, boxes, frame_hw, self._threshold)
-        with span("vx.vlm.sam.encode"):
-            prompt.copy_(torch.from_numpy(self._sam.box_array(box, frame_hw)))
-            (embedding,) = encode()
+        dev, f32 = self._sam.device, torch.float32
+
+        def owl(frame, queries):
+            return self._owl.predict_frame(torch.as_tensor(frame, dtype=f32, device=dev), queries)
+
+        def encode(frame, _):
+            return (self._sam.embed_frame(torch.as_tensor(frame, dtype=f32, device=dev)),)
+
+        def decode(embedding, prompt):
+            masks, iou = self._sam.decode(embedding, torch.as_tensor(prompt, device=dev))
+            index = torch.argmax(iou[0])
+            return masks, iou, index, self._sam.mask_logits(masks, frame_hw, index)
+
+        leaves = (rgb, self._query_cache[query])
+        g = self._graphs.entry(self, (), (), leaves)
+        with g.lock:
+            with span("vx.vlm.owl"):
+                g.copy_in(leaves)
+                logits, boxes = g.run("owl", owl)
+                box, score, patch = self._owl.choose(logits, boxes, frame_hw, self._threshold)
+            with span("vx.vlm.sam.encode"):
+                (embedding,) = g.run("encode", encode)
         with span("vx.vlm.sam.decode"):
-            masks, iou, index, chosen = decode()
+            leaves = (embedding, self._sam.box_array(box, frame_hw))
+            g = self._graphs.entry(self, (), frame_hw, leaves)
+            with g.lock:
+                g.copy_in(leaves)
+                masks, iou, index, chosen = g.run("decode", decode)
         self.last = dict(owl_logits=logits, box=box, score=score, patch=patch,
                          embedding=embedding, masks=masks, iou=iou, index=index,
                          mask_logits=chosen)
         return chosen
-
-    def _programs(self, frame_hw, queries: torch.Tensor):
-        """The pass's input buffers and its three programs (``vlm/graphs``)
-        for this frame size and query count, made on the first pass that
-        needs them: the frame, the query embeddings and the box prompt in,
-        OWL-ViT's logits and boxes, SAM's embedding (kept in a buffer the
-        decoder reads), the decoder's masks, IoU, choice and chosen mask
-        out."""
-        from voxactb_tpu_torch.vlm.graphs import Program
-
-        key = (tuple(frame_hw), tuple(queries.shape))
-        if key not in self._pass:
-            dev, f32 = self._sam.device, torch.float32
-            frame = torch.zeros((*frame_hw, 3), dtype=f32, device=dev)
-            query = torch.zeros(queries.shape, dtype=f32, device=dev)
-            prompt = torch.zeros((1, 4), dtype=f32, device=dev)
-            enc = self._sam.encoder
-            g = enc.pos_embed.shape[1]
-            embedding = torch.zeros((1, g, g, enc.neck_conv1.weight.shape[0]), dtype=f32,
-                                    device=dev)
-
-            def decode(e, p):
-                masks, iou = self._sam.decode(e, p)
-                index = torch.argmax(iou[0])
-                return masks, iou, index, self._sam.mask_logits(masks, frame_hw, index)
-
-            self._pass[key] = (
-                frame, query, prompt,
-                Program(self._owl.predict_frame, (frame, query)),
-                Program(lambda f: (embedding.copy_(self._sam.embed_frame(f)),), (frame,)),
-                Program(decode, (embedding, prompt)))
-        return self._pass[key]
 
     def __call__(self, rgb: np.ndarray, query: str) -> np.ndarray:
         mask = chosen_mask(self.mask_logits(rgb, query)).cpu().numpy()
