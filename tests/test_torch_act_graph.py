@@ -14,9 +14,10 @@ replayed act is bit-equal to the eager program's at the 100^3 scene policy,
 the 50^3 crop policy with bounds that move on every call, the two-head
 variant and the dense path, against the program run inside
 ``graphs.eager()``; an in-place weight load is read without a new
-capture; outputs stay as returned; two shapes alternate; two threads acting
-on one agent each get their eager result; and the counters and
-``ops/cuda.LAUNCHES`` count as the module says. The clouds put at most one
+capture, every operand of the weight mirror made again; outputs stay as
+returned; two shapes alternate; two threads acting on one agent each get
+their eager result; and the counters (the mirror's operands made once per
+model) and ``ops/cuda.LAUNCHES`` count as the module says. The clouds put at most one
 point in a voxel, so the front kernel's atomic sums are exact and two runs of
 the program give the same bits.
 """
@@ -260,6 +261,18 @@ def test_replays_bit_equal_to_the_eager_program(card, kind):
         assert_bit_equal(infer(model, *args), eager(infer, model, args))
 
 
+def mirrored_operands(model):
+    """The operands the act's weight mirror holds for a bf16 one-head model
+    with K1-K3: every ``Dense`` layer's weight and bias in bf16, the
+    Perceiver's position encoding and latents, K1's w1 and wp layouts (its
+    bias is read as it is), ``up0``'s inner conv kernel, outer kernel, bias
+    and composed kernel, the trans heads stacked (wt, bt) and K3's wf and wt
+    layouts (bf and bt are read as they are)."""
+    dense = sum(1 + (m.bias is not None) for m in model.modules()
+                if isinstance(m, blocks.Dense))
+    return dense + 2 + 2 + 4 + 2 + 2
+
+
 @pytest.mark.card
 def test_in_place_load_is_replayed_without_a_capture(card):
     cfg = card_config("crop50")
@@ -271,7 +284,10 @@ def test_in_place_load_is_replayed_without_a_capture(card):
         first = infer(model, *args)
         model.load_state_dict(other.state_dict())
         got = infer(model, *args)
-    assert coll.as_dict()["counts"] == {"act.graph_captures": 1, "act.graph_replays": 1}
+    # the mirror's operands made in the first call, then every one made again
+    # after the load, which writes every parameter
+    assert coll.as_dict()["counts"] == {"act.graph_captures": 1, "act.graph_replays": 1,
+                                        "act.weight_casts": 2 * mirrored_operands(model)}
     assert_bit_equal(got, eager(infer, other, args))
     assert not torch.equal(got.q_trans, first.q_trans)
 
@@ -284,7 +300,9 @@ def test_outputs_stay_as_returned_and_shapes_alternate(card):
     calls = [observation(rng, cfg, crop_bounds(rng), batch=1 + i % 2) for i in range(6)]
     with collect() as coll:
         outs = [infer(model, *args) for args in calls]
-    assert coll.as_dict()["counts"] == {"act.graph_captures": 2, "act.graph_replays": 4}
+    # the two keys' programs share the model's weight mirror, made in the first
+    assert coll.as_dict()["counts"] == {"act.graph_captures": 2, "act.graph_replays": 4,
+                                        "act.weight_casts": mirrored_operands(model)}
     for args, out in zip(calls, outs):
         assert_bit_equal(out, eager(infer, model, args))
 
@@ -342,7 +360,8 @@ def test_counters_and_launches(card):
             before = dict(LAUNCHES)
             infer(model, *args)
             rises.append({k: LAUNCHES[k] - before[k] for k in LAUNCHES})
-    assert coll.as_dict()["counts"] == {"act.graph_captures": 1, "act.graph_replays": 3}
+    assert coll.as_dict()["counts"] == {"act.graph_captures": 1, "act.graph_replays": 3,
+                                        "act.weight_casts": mirrored_operands(model)}
     assert eager["front_fused"] == eager["decoder_head"] == 1
     assert eager["flash_attention"] == 8
     assert all(rise == eager for rise in rises)

@@ -282,3 +282,56 @@ def test_replayed_pass_uploads_the_frame_pinned(card, tmp_path):
     pageable = [e for e in h2d if "Pageable" in e["name"]
                 and (inside(e, "vx.vlm.owl") or inside(e, "vx.vlm.sam.encode"))]
     assert not pageable, pageable
+
+
+def mirrored_operands(towers):
+    """The operands the VLM pass's weight mirror holds for bf16 towers: every
+    ``Dense`` layer's weight and bias in bf16, every 2D conv's weight in bf16
+    and back in f32 and its bias in bf16, OWL-ViT's class token and position
+    embedding, SAM's position embedding and the decoder's no-mask
+    embedding."""
+    from voxactb_tpu_torch.models import blocks
+
+    n = 0
+    for m in (m for t in towers for m in t.modules()):
+        if isinstance(m, blocks.Dense):
+            n += 1 + (m.bias is not None)
+        elif isinstance(m, (blocks.Conv2D, blocks.ConvTranspose2D)):
+            n += 2 + (m.bias is not None)
+    return n + 2 + 1 + 1
+
+
+@pytest.mark.card
+def test_in_place_load_is_replayed_without_a_capture(card):
+    """A load of other weights into the towers the pass runs
+    (``load_state_dict``, storage kept) is read by the next replayed pass
+    with no new capture: the weight mirror makes each of its operands
+    again, and every output is the eager pass's on the loaded weights."""
+    kw = dict(dtype=torch.bfloat16, fused_global=True, fused_windowed=True,
+              score_threshold=0.0)
+    det, other = (P.TorchOwlVitSamDetector.build(
+        SPEC, device=card, generator=torch.Generator(device=card).manual_seed(s), **kw)
+        for s in (3, 4))
+    other._owl._text.load_state_dict(det._owl._text.state_dict())  # the same query embedding
+
+    def towers(d):
+        return d._owl._det, d._sam.encoder, d._sam.decoder
+
+    rgb, _ = scene(np.random.default_rng(10), 30, 40)
+    with profiling.collect() as coll:
+        det.mask_logits(rgb, "item")
+        first = dict(det.last)
+        for mine, theirs in zip(towers(det), towers(other)):
+            mine.load_state_dict(theirs.state_dict())
+        det.mask_logits(rgb, "item")
+    counts = coll.as_dict()["counts"]
+    assert counts["vlm.graph_captures"] == 3 and counts["vlm.graph_replays"] == 3
+    assert counts["vlm.weight_casts"] == 2 * mirrored_operands(towers(det))
+    with graphs.eager():
+        other.mask_logits(rgb, "item")
+    assert not torch.equal(first["embedding"], det.last["embedding"])
+    for key, value in other.last.items():
+        if isinstance(value, torch.Tensor):
+            assert torch.equal(det.last[key], value), key
+        else:
+            np.testing.assert_array_equal(det.last[key], value)

@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from voxactb_tpu_torch.ops.cuda.graphs import weight
+
 LRELU_SLOPE = 0.02
 TEMPERATURE = 0.01
 
@@ -177,9 +179,9 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        y = F.linear(x.to(self.dtype), weight(self.weight, self.dtype))
         if self.bias is not None:
-            y = y + self.bias.to(self.dtype)
+            y = y + weight(self.bias, self.dtype)
         return y
 
 
@@ -252,7 +254,7 @@ class Conv3D(nn.Module):
         xc = to_ncdhw(x).to(self.dtype)
         if pad:
             xc = edge_pad(xc, pad)
-        y = conv3d_f32acc(xc, self.weight.to(self.dtype), self.strides)
+        y = conv3d_f32acc(xc, weight(self.weight, self.dtype), self.strides)
         y = to_ndhwc(y + self.bias[:, None, None, None])  # f32 conv + bias
         return act_fn(self.activation)(y.to(self.dtype))
 
@@ -295,8 +297,8 @@ class Conv3DUpsample(nn.Module):
         if pre_only:
             return x, self.out_kernel, self.out_bias
         op = upsample_conv if self.fast else reference_upsample_conv
-        y = op(x.to(self.dtype), self.out_kernel.to(self.dtype),
-               self.out_bias.to(self.dtype), self.strides)
+        y = op(x.to(self.dtype), weight(self.out_kernel, self.dtype),
+               weight(self.out_bias, self.dtype), self.strides)
         return act_fn(self.activation)(y).to(self.dtype)
 
 
@@ -355,10 +357,11 @@ class Conv2D(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xc = x.permute(0, 3, 1, 2).to(self.dtype)
         with _exact_products(xc):
-            y = F.conv2d(xc.to(torch.float32), self.weight.to(self.dtype).to(torch.float32),
+            y = F.conv2d(xc.to(torch.float32),
+                         weight(weight(self.weight, self.dtype), torch.float32),
                          stride=self.strides, padding=self.pad)
         y = y.to(self.dtype).permute(0, 2, 3, 1)
-        return y if self.bias is None else y + self.bias.to(self.dtype)
+        return y if self.bias is None else y + weight(self.bias, self.dtype)
 
 
 class ConvTranspose2D(nn.Module):
@@ -383,9 +386,9 @@ class ConvTranspose2D(nn.Module):
         xc = x.permute(0, 3, 1, 2).to(self.dtype)
         with _exact_products(xc):
             y = F.conv_transpose2d(xc.to(torch.float32),
-                                   self.weight.to(self.dtype).to(torch.float32),
+                                   weight(weight(self.weight, self.dtype), torch.float32),
                                    stride=self.strides)
-        return y.to(self.dtype).permute(0, 2, 3, 1) + self.bias.to(self.dtype)
+        return y.to(self.dtype).permute(0, 2, 3, 1) + weight(self.bias, self.dtype)
 
 
 # -- spatial statistics ---------------------------------------------------------

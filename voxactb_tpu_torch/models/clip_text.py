@@ -21,6 +21,7 @@ from torch import nn
 from voxactb_tpu_torch.device import resolve_device
 from voxactb_tpu_torch.models.blocks import Dense, LayerNorm, rounded, sigmoid
 from voxactb_tpu_torch.models.torch_port import make_port_helpers
+from voxactb_tpu_torch.ops.cuda.graphs import weight
 
 CONTEXT_LENGTH = 77
 VOCAB_SIZE = 49408
@@ -106,14 +107,14 @@ class ClipTextEncoder(nn.Module):
         b, t = tokens.shape
         tokens = tokens.long()
         x = self.token_embedding[tokens].to(self.dtype) \
-            + self.positional_embedding[None, :t].to(self.dtype)
+            + weight(self.positional_embedding[None, :t], self.dtype)
         causal = torch.full((t, t), float("-inf"), device=x.device).triu(1)
         for i in range(self.layers):
             x = getattr(self, f"resblock_{i}")(x, causal)
         x = self.ln_final(x)
         # EOT has the highest token id (clip.py:423)
         sent = x[torch.arange(b, device=x.device), tokens.argmax(-1)]
-        sentence = torch.matmul(sent, self.text_projection.to(self.dtype))
+        sentence = torch.matmul(sent, weight(self.text_projection, self.dtype))
         return sentence.float(), x.float()
 
 

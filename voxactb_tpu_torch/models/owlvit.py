@@ -24,6 +24,7 @@ from voxactb_tpu_torch.models.blocks import Conv2D, Dense, LayerNorm, gelu_erf, 
 from voxactb_tpu_torch.models.clip_text import (
     ClipTextEncoder, attend, merge_heads, quick_gelu, split_heads)
 from voxactb_tpu_torch.models.torch_port import make_port_helpers
+from voxactb_tpu_torch.ops.cuda.graphs import weight
 from voxactb_tpu_torch.ops.resize import resize_linear
 from voxactb_tpu_torch.utils.profiling import count
 
@@ -73,8 +74,8 @@ class OwlViTImageEncoder(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, H, W, 3]
         b = x.shape[0]
         tokens = self.patch_embed(x).reshape(b, -1, self.dim)
-        cls = self.cls_token.to(self.dtype).expand(b, 1, self.dim)
-        tokens = self.pre_ln(torch.cat([cls, tokens], 1) + self.pos_embed.to(self.dtype))
+        cls = weight(self.cls_token, self.dtype).expand(b, 1, self.dim)
+        tokens = self.pre_ln(torch.cat([cls, tokens], 1) + weight(self.pos_embed, self.dtype))
         for i in range(self.depth):
             tokens = getattr(self, f"block_{i}")(tokens)
         tokens = self.post_ln(tokens)

@@ -35,7 +35,16 @@ from torch import nn
 from voxactb_tpu_torch.models.blocks import (  # noqa: F401  (gelu_tanh re-exported)
     Conv3D, Conv3DUpsample, Dense, DenseBlock, LayerNorm, gelu_tanh, lrelu,
     softargmax_stats_3d)
+from voxactb_tpu_torch.ops.cuda.graphs import derived, weight
 from voxactb_tpu_torch.utils.profiling import span
+
+
+def trans_heads(*weights):
+    """The trans decoders' ``(weight, bias)`` pairs, in order, as the tail
+    kernels take them: ``wt [T,3,3,3,C,1]`` (each OIDHW kernel as DHWIO)
+    and ``bt [T]``."""
+    return (torch.stack([w.permute(2, 3, 4, 1, 0) for w in weights[0::2]]),
+            torch.cat(weights[1::2]))
 
 
 class Attention(nn.Module):
@@ -404,10 +413,10 @@ class PerceiverVoxelLangEncoder(nn.Module):
             if self.no_language:
                 lang_token_embs = torch.zeros_like(lang_token_embs)
             lang = self.lang_preprocess(lang_token_embs.to(dt))
-            seq = torch.cat([lang, ins], 1) + self.pos_encoding.to(dt)
+            seq = torch.cat([lang, ins], 1) + weight(self.pos_encoding, dt)
 
         with span("vx.qnet.trunk"):
-            x = self.latents[None].to(dt).expand(b, self.num_latents, self.latent_dim)
+            x = weight(self.latents, dt)[None].expand(b, self.num_latents, self.latent_dim)
             for _ in range(self.iterations):
                 x = self.cross_attend(x, seq, train=train, seed=next(seeds),
                                       batch_offset=batch_offset) + x
@@ -429,8 +438,7 @@ class PerceiverVoxelLangEncoder(nn.Module):
             tail = self._tail_kernel(train)
             if tail is not None:
                 tds = [getattr(self, f"trans_decoder{s}") for s in heads]
-                wt = torch.stack([td.kernel_dhwio() for td in tds])
-                bt = torch.cat([td.bias for td in tds])
+                wt, bt = derived(trans_heads, *(p for td in tds for p in (td.weight, td.bias)))
                 wf, bf = self.final.kernel_dhwio(), self.final.bias
                 if tail == "v3":
                     from voxactb_tpu_torch.ops.cuda.decoder_head_v3 import decoder_head_v3

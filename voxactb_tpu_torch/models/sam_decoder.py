@@ -27,6 +27,7 @@ from voxactb_tpu_torch.models.blocks import (
     ConvTranspose2D, Dense, LayerNorm, gelu_erf, rounded, sigmoid)
 from voxactb_tpu_torch.models.clip_text import attend, merge_heads, split_heads
 from voxactb_tpu_torch.models.torch_port import make_port_helpers
+from voxactb_tpu_torch.ops.cuda.graphs import weight
 from voxactb_tpu_torch.ops.resize import resize_linear
 
 
@@ -165,7 +166,7 @@ class SamMaskDecoder(nn.Module):
                             self.mask_tokens[None].expand(b, self.num_masks, self.dim),
                             prompt], 1)
         # the no-mask dense prompt embedding is ADDED to the image embedding
-        image = (image_embedding.to(dt) + self.no_mask_embed[None, None].to(dt)).reshape(
+        image = (image_embedding.to(dt) + weight(self.no_mask_embed[None, None], dt)).reshape(
             b, g * g, c)
         image_pe = self.pe.grid(g, g).reshape(1, g * g, self.dim).expand(
             b, g * g, self.dim).to(dt)

@@ -34,6 +34,7 @@ from torch import nn
 from voxactb_tpu_torch.models.blocks import Conv2D, Dense, LayerNorm, rounded
 from voxactb_tpu_torch.models.torch_port import make_port_helpers
 from voxactb_tpu_torch.ops.cuda import sam_block
+from voxactb_tpu_torch.ops.cuda.graphs import weight
 from voxactb_tpu_torch.ops.cuda.sam_block import (  # noqa: F401 (the encoder's names)
     rel_pos_embed as _rel_pos_embed, window_partition, window_unpartition)
 from voxactb_tpu_torch.ops.resize import resize_linear
@@ -73,14 +74,14 @@ class WindowAttention(nn.Module):
         # q * scale rounds to the compute dtype before the logits; the rel
         # terms come from the UNSCALED q, in f32
         q, k, v, rel_h_term, rel_w_term = ops.qkv_split(
-            F.linear(rows.to(dt), self.qkv.weight.to(dt)), self.qkv.bias.to(dt), heads=heads,
-            grid=grid, scale=rounded(hd ** -0.5, dt), rel_pos=rel)
+            F.linear(rows.to(dt), weight(self.qkv.weight, dt)), weight(self.qkv.bias, dt),
+            heads=heads, grid=grid, scale=rounded(hd ** -0.5, dt), rel_pos=rel)
         fused = self.fused_global and self.use_rel_pos and dt == torch.bfloat16
         attention = global_rel_attention if fused else global_rel_attention_plain
         out = attention(q, k, v, rel_h_term, rel_w_term, kh=kh, kw=kw)
         b = rows.shape[0] // (kh * kw)
         out = out.reshape(b, heads, kh * kw, hd).transpose(1, 2).reshape(-1, self.dim)
-        return F.linear(out, self.proj.weight.to(dt))
+        return F.linear(out, weight(self.proj.weight, dt))
 
 
 class SamBlock(nn.Module):
@@ -113,11 +114,13 @@ class SamBlock(nn.Module):
         ws, dt = self.window_size, self.dtype
         grid = (ws, ws) if ws > 0 else tuple(x.shape[1:3])
         y = ops.ln_rows(x, self.norm1.weight, self.norm1.bias, eps=self.norm1.eps, window=ws)
-        x = ops.bias_residual(x, self.attn(y, grid, ops), self.attn.proj.bias.to(dt), window=ws)
+        x = ops.bias_residual(x, self.attn(y, grid, ops), weight(self.attn.proj.bias, dt),
+                              window=ws)
         y = ops.ln_rows(x, self.norm2.weight, self.norm2.bias, eps=self.norm2.eps, window=0)
-        y = ops.bias_gelu(F.linear(y, self.mlp_fc1.weight.to(dt)), self.mlp_fc1.bias.to(dt))
-        return ops.bias_residual(x, F.linear(y, self.mlp_fc2.weight.to(dt)),
-                                 self.mlp_fc2.bias.to(dt), window=0)
+        fc1, fc2 = self.mlp_fc1, self.mlp_fc2
+        y = ops.bias_gelu(F.linear(y, weight(fc1.weight, dt)), weight(fc1.bias, dt))
+        return ops.bias_residual(x, F.linear(y, weight(fc2.weight, dt)), weight(fc2.bias, dt),
+                                 window=0)
 
 
 class SamImageEncoder(nn.Module):
@@ -159,7 +162,7 @@ class SamImageEncoder(nn.Module):
         self.neck_ln2 = LayerNorm(out_chans, eps=1e-6, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.patch_embed(x) + self.pos_embed.to(self.dtype)
+        x = self.patch_embed(x) + weight(self.pos_embed, self.dtype)
         for i in range(self.depth if self.depth_limit < 0 else self.depth_limit):
             x = getattr(self, f"block_{i}")(x)
         if self.skip_neck:

@@ -23,6 +23,7 @@ import torch
 from voxactb_tpu_torch.models.blocks import (
     conv3d_f32acc, edge_pad, lrelu, softargmax_stats_3d, to_ncdhw, to_ndhwc)
 from voxactb_tpu_torch.ops.cuda import LAUNCHES
+from voxactb_tpu_torch.ops.cuda.graphs import derived
 
 _C = 64
 _BRICK = (4, 8, 8)  # csrc/tail_conv.cuh kBz, kBy, kBx: output voxels (z, y, x)
@@ -142,7 +143,7 @@ def launch_decoder_head(d0, u0, wf, bf, wt, bt):
     dev = d0.device
     f32, bf16 = torch.float32, torch.bfloat16
     d0c, u0c = d0.contiguous(), u0.contiguous()
-    wf_bf, bf_f, wt_bf, bt_f = tail_weights(wf, bf, wt, bt)
+    wf_bf, bf_f, wt_bf, bt_f = derived(tail_weights, wf, bf, wt, bt)
     wf_bf = tma_operand(wf_bf)
     lin = torch.linspace(-1.0, 1.0, n, dtype=f32, device=dev)
 

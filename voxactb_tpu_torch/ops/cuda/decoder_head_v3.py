@@ -29,6 +29,7 @@ from voxactb_tpu_torch.ops.cuda import LAUNCHES
 from voxactb_tpu_torch.ops.cuda.decoder_head import (
     check_tail_operands, decoder_head_reference, tail_outputs, tail_weights,
     trans_stats_grid)
+from voxactb_tpu_torch.ops.cuda.graphs import derived, weight
 from voxactb_tpu_torch.ops.upsample_conv import phase_taps
 
 _SCALE = 5
@@ -137,7 +138,7 @@ def decoder_head_v3(d0, h, up_kernel, up_bias, wf, bf, wt, bt):
     only), with the table composed in f32 from the f32 ``up_kernel``."""
     if not d0.is_cuda:
         return decoder_head_v3_reference(d0, h, up_kernel, up_bias, wf, bf, wt, bt)
-    table = phase_weight_table(up_kernel.to(torch.float32))
+    table = derived(phase_weight_table, weight(up_kernel, torch.float32))
     return launch_decoder_head_v3(d0, edge_pad_slab(h), table, up_bias, wf, bf, wt, bt)[:3]
 
 
@@ -159,9 +160,9 @@ def launch_decoder_head_v3(d0, hp, table, up_bias, wf, bf, wt, bt):
     dev = d0.device
     f32, bf16 = torch.float32, torch.bfloat16
     d0c, hpc = d0.contiguous(), hp.contiguous()
-    ktab = tma_operand(phase_gemm_table(table))
+    ktab = tma_operand(derived(phase_gemm_table, table))
     upb = up_bias.to(f32).contiguous()
-    wf_bf, bf_f, wt_bf, bt_f = tail_weights(wf, bf, wt, bt)
+    wf_bf, bf_f, wt_bf, bt_f = derived(tail_weights, wf, bf, wt, bt)
     wf_bf = tma_operand(wf_bf)
     lin = torch.linspace(-1.0, 1.0, n, dtype=f32, device=dev)
 

@@ -20,6 +20,7 @@ import torch
 from voxactb_tpu_torch.models.blocks import lrelu, softargmax_stats_3d
 from voxactb_tpu_torch.ops.cuda import LAUNCHES
 from voxactb_tpu_torch.ops.cuda.build import header_constant
+from voxactb_tpu_torch.ops.cuda.graphs import derived
 
 _C = 64
 VOX_TILE = header_constant("voxel_pass.cuh", "kTile")  # voxels per tile
@@ -45,6 +46,12 @@ def encoder_stats_reference(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor)
     return d0, kp, gmax
 
 
+def stats_weights(w1: torch.Tensor, b1: torch.Tensor):
+    """The 1x1 conv's weights in the voxel pass's layouts: w1 ``[10, C]``
+    bf16, b1 f32."""
+    return w1.to(torch.bfloat16).contiguous(), b1.to(torch.float32).contiguous()
+
+
 def encoder_stats(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor):
     """Same arguments and returns as ``encoder_stats_reference``; CPU tensors
     take the plain version. The kernel takes an f32 or bf16 grid of 10
@@ -62,8 +69,7 @@ def encoder_stats(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor):
     dev = x.device
     f32 = torch.float32
     x = x.contiguous()
-    w1_bf = w1.to(torch.bfloat16).contiguous()
-    b1_f = b1.to(f32).contiguous()
+    w1_bf, b1_f = derived(stats_weights, w1, b1)
     lin = torch.linspace(-1.0, 1.0, n, dtype=f32, device=dev)
 
     g = voxel_pass_grid(b, n, sm_count(dev))

@@ -19,9 +19,10 @@ import torch
 
 from voxactb_tpu_torch.models.blocks import conv3d_f32acc, edge_pad, to_ncdhw, to_ndhwc
 from voxactb_tpu_torch.ops.cuda import LAUNCHES
-from voxactb_tpu_torch.ops.cuda.build import header_constant
+from voxactb_tpu_torch.ops.cuda.build import header_constant, tma_operand
 from voxactb_tpu_torch.ops.cuda.encoder_stats import (
-    encoder_stats_reference, voxel_pass_grid)
+    encoder_stats_reference, stats_weights, voxel_pass_grid)
+from voxactb_tpu_torch.ops.cuda.graphs import derived
 from voxactb_tpu_torch.ops.voxelize import voxelize
 
 _C = 64
@@ -70,14 +71,26 @@ def patchify_segments(b: int, n: int, sms: int):
     return out
 
 
+def patch_weight(wp: torch.Tensor) -> torch.Tensor:
+    """The patchify's ``[5,5,5,C,C]`` kernel in its GEMM's layout: ``[taps,
+    C, C]`` bf16, contiguous and aligned for TMA."""
+    c = wp.shape[-1]
+    return tma_operand(wp.to(torch.bfloat16).reshape(PATCH_TAPS, c, c))
+
+
+def front_weights(w1: torch.Tensor, b1: torch.Tensor, wp: torch.Tensor):
+    """The fused front's weights in its layouts: ``stats_weights`` and
+    ``patch_weight``."""
+    return stats_weights(w1, b1) + (patch_weight(wp),)
+
+
 def front_patchify(d0: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
     """``patchify_pre(d0, wp)``: d0 ``[B,N,N,N,64]``, wp ``[5,5,5,64,64]``
     -> ``[B,N/5,N/5,N/5,64]`` f32. CPU tensors take the plain version; on
     the card the kernel takes bf16 d0 with N % 5 == 0 and raises otherwise."""
     if not d0.is_cuda:
         return patchify_pre(d0, wp)
-    from voxactb_tpu_torch.ops.cuda.build import (
-        check, entry, sm_count, stream_ptr, tma_operand)
+    from voxactb_tpu_torch.ops.cuda.build import check, entry, sm_count, stream_ptr
 
     b, n = d0.shape[0], d0.shape[1]
     if (d0.dtype != torch.bfloat16 or d0.shape[1:] != (n, n, n, _C) or n % 5 != 0
@@ -88,7 +101,7 @@ def front_patchify(d0: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
     dev = d0.device
     s = n // 5
     d0 = d0.contiguous()
-    wp_bf = tma_operand(wp.to(torch.bfloat16).reshape(PATCH_TAPS, _C, _C))
+    wp_bf = derived(patch_weight, wp)
     _, _, g = patchify_grid(b, n, sm_count(dev))
     ppart = torch.empty((g, _PATCH_SLOTS, PATCH_ROWS, _C), dtype=torch.float32, device=dev)
     patch = torch.empty((b, s, s, s, _C), dtype=torch.float32, device=dev)
@@ -125,8 +138,7 @@ def front_fused(coords, feats, coord_bounds, w1, b1, wp, *, voxel_size: int):
     if not coords.is_cuda:
         return front_fused_reference(coords, feats, coord_bounds, w1, b1, wp,
                                      voxel_size=voxel_size)
-    from voxactb_tpu_torch.ops.cuda.build import (
-        check, entry, sm_count, stream_ptr, tma_operand)
+    from voxactb_tpu_torch.ops.cuda.build import check, entry, sm_count, stream_ptr
 
     n = voxel_size
     b, p, _ = coords.shape
@@ -141,9 +153,7 @@ def front_fused(coords, feats, coord_bounds, w1, b1, wp, *, voxel_size: int):
     bounds = coord_bounds.to(f32).reshape(-1, 6).contiguous()
     if bounds.shape[0] not in (1, b):
         raise ValueError(f"coord_bounds must be [1|B, 6], got {tuple(coord_bounds.shape)}")
-    w1_bf = w1.to(torch.bfloat16).contiguous()
-    b1_f = b1.to(f32).contiguous()
-    wp_bf = tma_operand(wp.to(torch.bfloat16).reshape(PATCH_TAPS, c, c))
+    w1_bf, b1_f, wp_bf = derived(front_weights, w1, b1, wp)
     lin = torch.linspace(-1.0, 1.0, n, dtype=f32, device=dev)
 
     n3 = n ** 3

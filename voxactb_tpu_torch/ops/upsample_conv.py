@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from voxactb_tpu_torch.models.blocks import (
     conv3d_f32acc, edge_pad, to_ncdhw, to_ndhwc)
+from voxactb_tpu_torch.ops.cuda.graphs import derived
 
 
 @functools.lru_cache()
@@ -86,7 +87,7 @@ def upsample_conv(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     if scale < k // 2 + 1:
         return reference_upsample_conv(x, kernel, bias, scale)
     cout = kernel.shape[-1]
-    comp = compose_upsample_kernel(kernel, scale).to(x.dtype)
+    comp = derived(compose_upsample_kernel, kernel, scale).to(x.dtype)
     xp = edge_pad(to_ncdhw(x), 1)
     y = conv3d_f32acc(xp, comp.permute(4, 3, 0, 1, 2), 1)  # [B, s^3*Cout, D, D, D]
     y = y.reshape(b, scale, scale, scale, cout, d, d, d)
